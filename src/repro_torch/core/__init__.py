@@ -1,10 +1,13 @@
 # Compression Aware Physical Database Design (Kimura, Narasayya, Syamala;
 # PVLDB 4(10), 2011) in PyTorch: the DTAc advisor pipeline -- compression
 # methods + SampleCF + deduction (§2, §4), the estimation-plan graph search
-# (§5), skyline candidate selection + backtracking greedy enumeration (§6)
-# and the compression-aware what-if cost model (App. A) -- with its array
-# work on a torch device and hand-written CUDA kernels (repro_torch.kernels).
-from .advisor import AdvisorOptions, DesignAdvisor, Recommendation
+# (§5), skyline candidate selection + backtracking greedy enumeration (§6),
+# the compression-aware what-if cost model (App. A), workload compression
+# for large workloads (§7) and the staged baseline of Example 1 -- with its
+# array work on a torch device and hand-written CUDA kernels
+# (repro_torch.kernels).
+from .advisor import AdvisorOptions, DesignAdvisor, Recommendation, \
+    staged_recommend
 from .backend import BACKENDS, resolve_device
 from .compression import DEFAULT_ADVISOR_METHODS, METHODS
 from .cost_engine import CostEngine
@@ -17,11 +20,13 @@ from .samplecf import SampleManager, SizeEstimate, sample_cf
 from .synopses import ForeignKey, Schema
 from .whatif import Configuration, SizeProvider, base_configuration, \
     storage_used
-from .workload import BulkInsert, Query, Workload, make_tpch_like, \
-    make_tpch_workload
+from .workload import BulkInsert, Query, Workload, make_scaled_workload, \
+    make_tpch_like, make_tpch_workload
+from .workload_compression import ClusterIndex, CompressedWorkload, \
+    compress_workload
 
 __all__ = [
-    "AdvisorOptions", "DesignAdvisor", "Recommendation",
+    "AdvisorOptions", "DesignAdvisor", "Recommendation", "staged_recommend",
     "BACKENDS", "resolve_device",
     "DEFAULT_ADVISOR_METHODS", "METHODS", "CostEngine",
     "EstimationEngine", "batched_sample_cf",
@@ -31,5 +36,7 @@ __all__ = [
     "SampleManager", "SizeEstimate", "sample_cf",
     "ForeignKey", "Schema",
     "Configuration", "SizeProvider", "base_configuration", "storage_used",
-    "BulkInsert", "Query", "Workload", "make_tpch_like", "make_tpch_workload",
+    "BulkInsert", "Query", "Workload", "make_scaled_workload",
+    "make_tpch_like", "make_tpch_workload",
+    "ClusterIndex", "CompressedWorkload", "compress_workload",
 ]

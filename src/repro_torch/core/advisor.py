@@ -8,6 +8,8 @@ search) -> candidate selection (top-k or Skyline, §6.1) -> enumeration
 `AdvisorOptions` reproduces the tool variants the paper evaluates:
   DTA      = no compression, top-k, pure greedy
   DTAc     = compression + skyline + backtrack (the full tool)
+  staged   = DTA first, then compress the chosen indexes (the decoupled
+             strategy of Example 1; `staged_recommend`)
   ablations= DTAc(None)/DTAc(Skyline)/DTAc(Backtrack) for Figures 12-13
 
 `backend` / `device` choose where the advisor's array work runs (see
@@ -16,8 +18,12 @@ card, with the hand-written kernels; `device="cpu"` runs their plain
 PyTorch versions; `backend="numpy"` is the float64 host path, equal to the
 JAX package's numpy backend.
 
-Not ported yet: workload compression (`compression_budget` raises), and
-the staged DTA-then-compress strategy of Example 1.
+Large workloads: `AdvisorOptions.compression_budget = N` advises on at
+most ~N weighted representative statements instead of the raw workload
+(`repro_torch.core.workload_compression`), and the Recommendation carries
+the cost-error certificate (`compression_error_bound` /
+`compression_error_rel`).  `None` (the default), and any budget >= the
+statement count, runs the uncompressed pipeline.
 """
 from __future__ import annotations
 
@@ -34,10 +40,15 @@ from .estimation_engine import EstimationEngine
 from .estimation_graph import EstimationPlanner, NodeKey, Plan
 from .relation import IndexDef
 from .samplecf import SampleManager
-from .whatif import Configuration, SizeProvider, base_configuration
+from .whatif import (Configuration, SizeProvider, base_configuration,
+                     storage_used)
 from .workload import Workload
+from .workload_compression import CompressedWorkload, compress_workload
 
-PHASES = ("candidates", "plan", "samplecf", "costing", "enumeration")
+# "compression" is workload compression with its error certificate (0.0
+# when bypassed)
+PHASES = ("compression", "candidates", "plan", "samplecf", "costing",
+          "enumeration")
 
 
 @dataclasses.dataclass
@@ -55,14 +66,11 @@ class AdvisorOptions:
     sample_seed: int = 0
     backend: str = "torch"                 # "torch" | "numpy"
     device: str = "cuda"                   # torch backend: "cuda" | "cpu"
-    # workload compression is not ported: any budget raises
+    # advise on <= ~N weighted representatives (workload compression);
+    # None disables, and budget >= n_statements is an exact bypass
     compression_budget: Optional[int] = None
 
     def __post_init__(self):
-        if self.compression_budget is not None:
-            raise NotImplementedError(
-                "compression_budget: workload compression is still to port "
-                "(ROADMAP.md Queue A)")
         # validates the pair, and raises for CUDA on a host without it
         resolve_device(self.backend, self.device)
 
@@ -104,6 +112,11 @@ class Recommendation:
     steps: List[str]
     # host wall seconds per pipeline phase (keys: PHASES)
     phase_seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # workload-compression annotations
+    n_statements_full: int = 0      # raw workload statement count
+    n_representatives: int = 0      # statements actually advised on
+    compression_error_bound: float = 0.0   # certified |C_full - C_comp|
+    compression_error_rel: float = 0.0     # ... relative to `cost`
 
     @property
     def improvement(self) -> float:
@@ -123,6 +136,9 @@ class DesignAdvisor:
         self.sizes = SizeProvider(self.schema)
         self.samples = SampleManager(self.schema.tables,
                                      seed=self.opt.sample_seed)
+        # set by `recommend` when workload compression engages
+        self.compressed: Optional[CompressedWorkload] = None
+        self.inner: Optional["DesignAdvisor"] = None
 
     # ------------------------------------------------------------------
     def per_query_raw(self) -> Dict[str, List[IndexDef]]:
@@ -244,9 +260,9 @@ class DesignAdvisor:
                                 base, budget_bytes,
                                 variant=self.opt.enumeration)
 
-    def recommend(self, budget_bytes: float) -> Recommendation:
-        """The full DTAc pipeline on every statement of the workload."""
-        phases: Dict[str, float] = {}
+    def _recommend_full(self, budget_bytes: float) -> Recommendation:
+        """The uncompressed pipeline (every statement advised directly)."""
+        phases: Dict[str, float] = {"compression": 0.0}
         t0 = time.perf_counter()
         base = base_configuration(self.schema)
         per_query_exp, merged_all, all_cands = self._candidate_universe()
@@ -264,10 +280,100 @@ class DesignAdvisor:
         res = self.enumerate_pool(pool, base, budget_bytes, engine)
         t4 = time.perf_counter()
         phases["enumeration"] = t4 - t3
+        n_full = len(self.workload.statements)
         return Recommendation(
             config=res.config, base=base, base_cost=base_cost, cost=res.cost,
             used_bytes=res.used_bytes, budget_bytes=budget_bytes,
             estimation_cost_pages=est_cost, estimation_plan=plan,
             n_sampled=n_s, n_deduced=n_d, candidate_count=n_cand,
             pool_size=len(pool), wall_seconds=t4 - t0, steps=res.steps,
-            phase_seconds=phases)
+            phase_seconds=phases, n_statements_full=n_full,
+            n_representatives=n_full)
+
+    def recommend(self, budget_bytes: float) -> Recommendation:
+        """The DTAc pipeline.  With `opt.compression_budget` set below the
+        statement count it runs on the compressed weighted-representative
+        workload (an inner advisor sharing this one's samples), and the
+        recommendation carries the certified cost-error bound; otherwise
+        `_recommend_full` on every statement."""
+        t0 = time.perf_counter()
+        comp = compress_workload(self.workload, self.opt.compression_budget)
+        if comp is None:
+            self.compressed = None
+            self.inner = None
+            return self._recommend_full(budget_bytes)
+        inner = DesignAdvisor(
+            comp.workload,
+            dataclasses.replace(self.opt, compression_budget=None))
+        inner.samples = self.samples   # draw-order-independent: shareable
+        self.compressed = comp
+        self.inner = inner
+        t1 = time.perf_counter()
+        rec = inner._recommend_full(budget_bytes)
+        t2 = time.perf_counter()
+        eps = comp.error_bound(rec.config, inner.sizes)
+        t3 = time.perf_counter()
+        phases = dict(rec.phase_seconds, compression=(t1 - t0) + (t3 - t2))
+        return dataclasses.replace(
+            rec, n_statements_full=comp.n_full,
+            n_representatives=comp.n_representatives,
+            compression_error_bound=eps,
+            compression_error_rel=eps / max(abs(rec.cost), 1e-12),
+            wall_seconds=t3 - t0, phase_seconds=phases)
+
+
+def staged_recommend(workload: Workload, budget_bytes: float,
+                     methods: Optional[Sequence[str]] = None,
+                     options: Optional[AdvisorOptions] = None
+                     ) -> Recommendation:
+    """The decoupled strategy of Example 1: select uncompressed indexes
+    first (DTA), then compress each chosen secondary index with the method
+    that lowers the workload cost most, and account the recompressed
+    footprint.
+
+    Stage 1 inherits the caller's (e, q), sample seed, clustered-candidate
+    switch, backend and device; stage 2 plans the compressed sizes at the
+    caller's (e, q) and runs their SampleCF on the advisor's device, so on
+    the card PREFIX / RLE / LDICT / NS sizes come from the kernels.  (The
+    JAX package's stage 2 runs SampleCF on NumPy whatever its backend; the
+    sizes are the same integers either way.)  The recompression loop is
+    costed by the batched `CostEngine.config_cost`."""
+    opt = options or AdvisorOptions()
+    if methods is None:
+        methods = opt.methods
+    stage1 = AdvisorOptions.dta(
+        e=opt.e, q=opt.q, sample_seed=opt.sample_seed,
+        include_clustered=opt.include_clustered, backend=opt.backend,
+        device=opt.device)
+    adv = DesignAdvisor(workload, stage1)
+    rec = adv.recommend(budget_bytes)
+    # stage 2: size the compressed variants of every chosen secondary index
+    sizes = adv.sizes
+    chosen = [i for i in rec.config.indexes if not i.clustered]
+    variants = cand.expand_with_compression(chosen, methods)
+    targets = [NodeKey(i.table, i.cols, i.compression) for i in variants
+               if i.compression is not None]
+    if targets:
+        planner = EstimationPlanner(adv.schema.tables, device=adv.device)
+        plan = planner.plan(targets, opt.e, opt.q)
+        engine = EstimationEngine(adv.schema.tables, adv.samples,
+                                  device=adv.device)
+        for k, est in planner.execute(plan, engine).items():
+            sizes.register(IndexDef(k.table, k.cols, k.method),
+                           est.est_bytes)
+    # the recompression loop's cost oracle, built AFTER the compressed
+    # sizes are registered so variants score with their estimated sizes
+    cost_fn = CostEngine(workload, sizes, device=adv.device).config_cost
+    config = rec.config
+    for idx in chosen:
+        best = (cost_fn(config), config)
+        for m in methods:
+            cfg2 = config.replace(idx, idx.with_compression(m))
+            c2 = cost_fn(cfg2)
+            if c2 < best[0]:
+                best = (c2, cfg2)
+        config = best[1]
+    # stage 3: with reclaimed space, account the recompressed footprint
+    used = storage_used(config, rec.base, sizes)
+    return dataclasses.replace(
+        rec, config=config, cost=cost_fn(config), used_bytes=used)

@@ -7,7 +7,7 @@ CostEngine):
 * ``"numpy"`` -- the float64 host path, bit-identical to the JAX package's
   numpy backend.  It uses no device.
 * ``"torch"`` -- everything the reference sends to its accelerator is a
-  torch tensor on an explicit device: the codec stacks (NS / LDICT
+  torch tensor on an explicit device: the codec stacks (the five codec
   kernels), the planner score stacks (prob_within / fused_score kernels)
   and the cost arrays.  On ``device="cuda"`` the hand-written kernels run;
   on ``device="cpu"`` their plain PyTorch versions do.

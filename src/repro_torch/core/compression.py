@@ -20,19 +20,16 @@ property-by-property in tests/test_core_compression.py) so the estimation
 engine built on them is byte-identical to per-target SampleCF.
 
 Backends (see repro_torch.core.backend): `batched_bytes(...,
-backend="torch")` takes torch tensors and sizes NS and LDICT through the
-kernels of repro_torch.kernels.codec_bytes (hand-written CUDA on the card,
-their plain PyTorch versions on the CPU), bit-identical to the NumPy batch
-kernels here.  GDICT, PREFIX and RLE have no CUDA kernel yet (still to
-port, ROADMAP.md Queue B); the advisor's default methods are NS and LDICT,
-and it prices GDICT on the host.
+backend="torch")` takes torch tensors and sizes all five methods through
+the kernels of repro_torch.kernels.codec_bytes (hand-written CUDA on the
+card, their plain PyTorch versions on the CPU), bit-identical to the NumPy
+batch kernels here.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, Sequence
 
 import numpy as np
-import torch
 
 from ..kernels import codec_bytes as _ck
 from .relation import ROW_OVERHEAD, rows_per_page
@@ -242,9 +239,6 @@ BATCH_KERNELS: Dict[str, Callable[[np.ndarray, np.ndarray, int], np.ndarray]] \
     "RLE": rle_bytes_batch,
 }
 
-# ROADMAP.md Queue B rows of the codec methods with no CUDA kernel yet
-_UNPORTED_ROW = {"GDICT": 2, "PREFIX": 4, "RLE": 5}
-
 
 def batched_bytes(method: str, cols, widths, rpp: int,
                   backend: str = "numpy"):
@@ -258,14 +252,11 @@ def batched_bytes(method: str, cols, widths, rpp: int,
         raise ValueError(f"unknown backend {backend!r}")
     if method == "NS":
         return _ck.ns_bytes(cols, widths)
-    if method == "LDICT":
-        return _ck.ldict_bytes(cols, widths, rpp)
-    if cols.device.type == "cuda":
-        raise NotImplementedError(
-            f"{method} has no CUDA kernel yet: still to port "
-            f"(ROADMAP.md Queue B, kernel row {_UNPORTED_ROW[method]})")
-    got = BATCH_KERNELS[method](cols.numpy(), widths.numpy(), rpp)
-    return torch.from_numpy(got)
+    if method == "GDICT":
+        return _ck.gdict_bytes(cols, widths)
+    paged = {"LDICT": _ck.ldict_bytes, "PREFIX": _ck.prefix_bytes,
+             "RLE": _ck.rle_bytes}
+    return paged[method](cols, widths, rpp)
 
 
 class Method:

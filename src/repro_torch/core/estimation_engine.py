@@ -29,9 +29,10 @@ per-target `SizeEstimate`s with the same float ops as `sample_cf`.
 Backends: on numpy every step is the JAX package's NumPy code.  On torch,
 each (table, f) sample is uploaded to the device once and stays there;
 the permutations (`prefix_permutations_torch`) and the column stacks are
-computed on the device, and NS / LDICT run through the kernels of
-`repro_torch.kernels.codec_bytes`.  Permutations and byte counts are
-bit-identical on both.
+computed on the device, and NS / LDICT / PREFIX / RLE stacks run through
+the kernels of `repro_torch.kernels.codec_bytes` (GDICT is priced on the
+host, as on numpy).  Permutations and byte counts are bit-identical on
+both.
 """
 from __future__ import annotations
 

@@ -5,18 +5,21 @@ A Configuration is a set of IndexDef (one clustered layout per table plus
 secondary indexes).  Sizes of compressed structures come from a SizeProvider
 fed by the estimation framework (§4-§5); uncompressed sizes are analytic.
 Statement costs under a configuration come from the batched
-`cost_engine.CostEngine`; the JAX package's scalar statement-at-a-time
-optimizer is not ported.
+`cost_engine.CostEngine`.  The scalar float64 `query_cost` and
+`update_statement_cost` price one statement at a time; the workload
+compression certificate (`workload_compression`) uses them.  The JAX
+package's cached `WhatIfOptimizer` is not ported.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, FrozenSet, Iterable, Optional, Tuple
 
+from . import cost_model as cm
 from .compression import uncompressed_payload_bytes
-from .relation import IndexDef
+from .relation import IndexDef, Table
 from .synopses import Schema
-from .workload import Query
+from .workload import BulkInsert, Query
 
 
 class SizeProvider:
@@ -79,6 +82,10 @@ class Configuration:
     def replace(self, old: IndexDef, new: IndexDef) -> "Configuration":
         return Configuration((self.indexes - {old}) | {new})
 
+    def for_table(self, table: str) -> Tuple[IndexDef, ...]:
+        return tuple(sorted((i for i in self.indexes if i.table == table),
+                            key=lambda i: i.label()))
+
     def clustered(self, table: str) -> Optional[IndexDef]:
         for i in self.indexes:
             if i.table == table and i.clustered:
@@ -107,6 +114,29 @@ def storage_used(config: Configuration, base: Configuration,
     return total - baseline
 
 
+# ---------------------------------------------------------------------------
+# Scalar statement costs: access-path selection (System-R-lite) with
+# compression-aware CPU, in float64 on the host
+# ---------------------------------------------------------------------------
+
+def _prefix_selectivity(idx: IndexDef, query: Query, table: Table) -> float:
+    """Selectivity of filters matching the index's leading key prefix."""
+    filt = {p.col: p for p in query.filters}
+    sel = 1.0
+    matched = False
+    for c in idx.cols:
+        if c in filt:
+            sel *= filt[c].selectivity(table)
+            matched = True
+        else:
+            break
+    return sel if matched else 1.0
+
+
+def _covers(idx: IndexDef, query: Query) -> bool:
+    return set(query.all_cols()) <= set(idx.cols)
+
+
 def _partial_applicable(idx: IndexDef, query: Query) -> bool:
     if idx.predicate is None:
         return True
@@ -115,3 +145,53 @@ def _partial_applicable(idx: IndexDef, query: Query) -> bool:
                 and p.hi <= idx.predicate.hi):
             return True
     return False
+
+
+def query_cost(query: Query, config: Configuration,
+               sizes: SizeProvider) -> float:
+    table = sizes.schema.tables[query.table]
+    ncols_used = len(query.all_cols())
+    clustered = config.clustered(query.table)
+    assert clustered is not None, f"no clustered layout for {query.table}"
+
+    base_size = sizes.size(clustered)
+    best = cm.scan_cost(base_size, table.nrows, ncols_used,
+                        clustered.compression)
+
+    for idx in config.for_table(query.table):
+        if idx.clustered or not _partial_applicable(idx, query):
+            continue
+        nrows_idx = sizes.nrows(idx)
+        isize = sizes.size(idx)
+        sel = _prefix_selectivity(idx, query, table)
+        covering = _covers(idx, query)
+        if covering:
+            if sel < 1.0:
+                cost = cm.seek_cost(isize, nrows_idx, sel, ncols_used,
+                                    idx.compression)
+            else:
+                cost = cm.scan_cost(isize, nrows_idx, ncols_used,
+                                    idx.compression)
+        else:
+            if sel >= 1.0:
+                continue  # non-covering full scan is never chosen
+            cost = cm.seek_cost(isize, nrows_idx, sel, len(idx.cols),
+                                idx.compression)
+            cost += cm.rid_lookup_cost(
+                nrows_idx * sel, base_size, ncols_used=ncols_used,
+                beta_coef=cm.beta_coef_of(clustered.compression))
+        best = min(best, cost)
+    return best
+
+
+def update_statement_cost(stmt: BulkInsert, config: Configuration,
+                          sizes: SizeProvider) -> float:
+    total = 0.0
+    for idx in config.for_table(stmt.table):
+        rows = stmt.nrows
+        if idx.predicate is not None:
+            t = sizes.schema.tables[idx.table]
+            rows = rows * idx.predicate.selectivity(t)
+        total += cm.update_cost(sizes.size(idx), sizes.nrows(idx), rows,
+                                idx.compression)
+    return total

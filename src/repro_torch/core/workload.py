@@ -4,9 +4,10 @@ Statements are single-table analytic SELECTs (range/equality filters +
 aggregated columns) and bulk-load INSERTs, with weights that skew the mix
 SELECT-intensive or INSERT-intensive exactly as in the paper's experiments.
 
-`make_tpch_like` draws from the same NumPy generator in the same order as
-the JAX package's, so equal (scale, z, seed) give equal arrays.  Workload
-deltas and the scaled synthetic generators are not ported yet.
+`make_tpch_like` and `make_scaled_workload` draw from the same NumPy
+generator in the same order as the JAX package's, so equal arguments give
+equal data and statements.  Workload deltas (online sessions) are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -252,3 +253,115 @@ def make_tpch_workload(schema: Schema, insert_weight: float = 0.1,
     qs.append(BulkInsert("load_orders", "orders",
                          max(od.nrows // 50, 50), weight=insert_weight))
     return Workload(schema=schema, statements=qs)
+
+
+def make_scaled_workload(schema: Schema, n_statements: int = 200,
+                         insert_fraction: float = 0.1, seed: int = 0,
+                         insert_weight: float = 0.1) -> Workload:
+    """Synthetic workload with an arbitrary statement count (advisor-scaling
+    experiments, paper §7's 'large workload' regime).
+
+    Random single-table analytic SELECTs — 1-3 range/equality filters over
+    random columns, 1-4 projected columns, mixed selectivities — plus an
+    `insert_fraction` share of bulk loads.  Deterministic in `seed`: the
+    same batched sequence of NumPy draws as the JAX package's generator,
+    so equal arguments give equal statements, predicates and weights.
+
+    All random draws are batched into a fixed sequence of array-shaped rng
+    calls (one per draw *kind*, not per statement); the per-statement loop
+    below only assembles Query objects from precomputed arrays.
+    """
+    rng = np.random.default_rng(seed)
+    tables = list(schema.tables.values())
+    # weight table choice by row count: fact tables dominate, like TPC-H
+    p = np.array([t.nrows for t in tables], dtype=np.float64)
+    p /= p.sum()
+    n_inserts = int(round(n_statements * insert_fraction))
+    n_queries = n_statements - n_inserts
+
+    ncols = np.array([len(t.columns) for t in tables], dtype=np.int64)
+    maxc = int(ncols.max())
+    colnames = [[c.name for c in t.columns] for t in tables]
+    mn_tab = np.zeros((len(tables), maxc), dtype=np.int64)
+    mx_tab = np.zeros((len(tables), maxc), dtype=np.int64)
+    for a, t in enumerate(tables):
+        for j, c in enumerate(t.columns):
+            mn, mx = t.minmax(c.name)
+            mn_tab[a, j], mx_tab[a, j] = int(mn), int(mx)
+
+    MAXF = 3
+    ti = rng.choice(len(tables), size=n_queries, p=p)
+    tc = ncols[ti]
+    nf = 1 + np.floor(rng.random(n_queries)
+                      * np.minimum(MAXF, tc)).astype(np.int64)
+    # filter-column choice without replacement: random sort keys per row,
+    # slots beyond the table's column count pushed past every valid slot
+    invalid = np.arange(maxc)[None, :] >= tc[:, None]
+    fkeys = rng.random((n_queries, maxc))
+    fkeys[invalid] = np.inf
+    forder = np.argsort(fkeys, axis=1, kind="stable")
+    eq_u = rng.random((n_queries, MAXF))
+    val_u = rng.random((n_queries, MAXF))
+    frac = 0.01 + 0.59 * rng.random((n_queries, MAXF))
+    lo_u = rng.random((n_queries, MAXF))
+    # projected-column choice: fresh keys with the chosen filter slots
+    # (and invalid slots) masked out, so projection never repeats a filter
+    pkeys = rng.random((n_queries, maxc))
+    pkeys[invalid] = np.inf
+    if n_queries:
+        rows = np.repeat(np.arange(n_queries), MAXF)
+        slot = np.tile(np.arange(MAXF), n_queries)
+        taken = slot < nf[rows]
+        pkeys[rows[taken], forder[:, :MAXF].ravel()[taken]] = np.inf
+    porder = np.argsort(pkeys, axis=1, kind="stable")
+    nrest = tc - nf
+    nu = 1 + np.floor(rng.random(n_queries)
+                      * np.minimum(4, np.maximum(1, nrest))).astype(np.int64)
+    nu = np.minimum(nu, nrest)
+    weights = 0.5 + 1.5 * rng.random(n_queries)
+    ti_ins = rng.choice(len(tables), size=n_inserts, p=p)
+
+    # convert once to plain Python containers — per-element numpy scalar
+    # boxing inside the assembly loop dominates otherwise
+    ti_l, nf_l, nu_l = ti.tolist(), nf.tolist(), nu.tolist()
+    forder_l, porder_l = forder[:, :maxc].tolist(), porder.tolist()
+    eq_l, val_l = eq_u.tolist(), val_u.tolist()
+    frac_l, lo_l, w_l = frac.tolist(), lo_u.tolist(), weights.tolist()
+    mn_l, mx_l = mn_tab.tolist(), mx_tab.tolist()
+    tnames = [t.name for t in tables]
+
+    stmts: List[Statement] = []
+    for k in range(n_queries):
+        a = ti_l[k]
+        names = colnames[a]
+        mns, mxs = mn_l[a], mx_l[a]
+        fo, eqr, valr, fracr, lor = (forder_l[k], eq_l[k], val_l[k],
+                                     frac_l[k], lo_l[k])
+        filters = []
+        for j in range(nf_l[k]):
+            ci = fo[j]
+            mn, mx = mns[ci], mxs[ci]
+            if mx <= mn or eqr[j] < 0.25:            # equality predicate
+                v = mn + int(valr[j] * (mx - mn + 1))
+                filters.append(Predicate(names[ci], v, v))
+            else:                                    # range predicate
+                f = fracr[j]
+                top = max(mn, int(mx - (mx - mn) * f))
+                lo = mn + int(lor[j] * (top - mn + 1))
+                hi = min(mx, lo + max(1, int((mx - mn) * f)))
+                filters.append(Predicate(names[ci], lo, hi))
+        nuk = nu_l[k]
+        if nuk > 0:
+            po = porder_l[k]
+            used = tuple(names[po[j]] for j in range(nuk))
+        else:                                        # every column filtered
+            used = (filters[0].col,)
+        stmts.append(Query(f"s{k:04d}", tnames[a], tuple(filters),
+                           used, weight=w_l[k]))
+    ins_l = ti_ins.tolist()
+    for k in range(n_inserts):
+        t = tables[ins_l[k]]
+        stmts.append(BulkInsert(f"ins{k:03d}", t.name,
+                                max(t.nrows // 50, 50),
+                                weight=insert_weight))
+    return Workload(schema=schema, statements=stmts)

@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
 version:
 
-  codec_bytes.py   -- NS and LDICT codec-size kernels (SampleCF)
+  codec_bytes.py   -- NS, GDICT, LDICT, PREFIX and RLE codec-size kernels
+                      (SampleCF)
   planner_score.py -- prob_within and fused_score (the Section 5.2 planner)
   build.py         -- nvcc build into shared libraries, loaded with ctypes
 

@@ -1,21 +1,24 @@
-"""NS and LDICT codec-size kernels: payload bytes per row of a column stack.
+"""Codec-size kernels: payload bytes per row of a column stack, for the
+five compression methods of the paper's Section 2.1.
 
-`ns_bytes` and `ldict_bytes` size an (m, n) int64 stack -- one row per
-(target, column) SampleCF job, every row in its target's index order --
-returning one int64 payload-byte count per row, exactly equal to the NumPy
-batch formulas of `repro_torch.core.compression` (`ns_bytes_batch`,
-`ldict_bytes_batch`).
+`ns_bytes`, `gdict_bytes`, `ldict_bytes`, `prefix_bytes` and `rle_bytes`
+size an (m, n) int64 stack -- one row per (target, column) SampleCF job,
+every row in its target's index order -- returning one int64 payload-byte
+count per row, exactly equal to the NumPy batch formulas of
+`repro_torch.core.compression` (`<method>_bytes_batch`).
 
 Each wrapper takes its route from the device of the tensor it is given:
 on a CUDA tensor it launches the hand-written kernel in `csrc/codec_bytes.cu`
 (building it on first use) or raises; on a CPU tensor it runs the plain
 PyTorch version beside it.  `LAUNCHES` counts kernel launches per wrapper.
 
-The CUDA kernels replace the Pallas kernels `_ns_kernel` and
-`_ldict_kernel` (with its per-page sort pre-pass) of the JAX package.  The
-TPU path split values into uint32 planes and routed inputs outside an
-int32 envelope to NumPy; these kernels read int64 directly and are exact
-for every int64 input, so no routing remains.
+The CUDA kernels replace the Pallas kernels `_ns_kernel`, `_gdict_kernel`,
+`_ldict_kernel` (with its per-page sort pre-pass), `_prefix_kernel` and
+`_rle_kernel` of the JAX package.  The TPU path split values into uint32
+planes and routed inputs outside an int32 envelope (negatives among them)
+to NumPy; these kernels read int64 directly and are exact for every int64
+input, so no routing remains.  GDICT's row sort runs before its kernel as
+`torch.sort`, as the JAX package ran `lax.sort` outside its Pallas body.
 """
 from __future__ import annotations
 
@@ -29,7 +32,9 @@ from . import build
 PAGE_META = 16          # per-page metadata bytes of page-local methods
 MAX_PAGE_P2 = 4096      # largest padded page the LDICT kernel sorts
 
-LAUNCHES: Dict[str, int] = {"ns_bytes": 0, "ldict_bytes": 0}
+LAUNCHES: Dict[str, int] = {"ns_bytes": 0, "gdict_bytes": 0,
+                            "ldict_bytes": 0, "prefix_bytes": 0,
+                            "rle_bytes": 0}
 
 _lib = None
 
@@ -43,6 +48,11 @@ def _load():
         lib.ns_bytes_launch.restype = ci
         lib.ldict_bytes_launch.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
         lib.ldict_bytes_launch.restype = ci
+        lib.gdict_bytes_launch.argtypes = [vp, vp, vp, ci, ci, vp]
+        lib.gdict_bytes_launch.restype = ci
+        for fn in (lib.prefix_bytes_launch, lib.rle_bytes_launch):
+            fn.argtypes = [vp, vp, vp, ci, ci, ci, vp]
+            fn.restype = ci
         lib.codec_error_string.argtypes = [ci]
         lib.codec_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -71,9 +81,42 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _check_rpp(rpp) -> int:
+    rpp = int(rpp)
+    if rpp < 1:
+        raise ValueError(f"rows per page must be >= 1, got {rpp}")
+    return rpp
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch versions (the CPU route, and the reference on the card)
 # ---------------------------------------------------------------------------
+
+def _sig_bytes(v: torch.Tensor) -> torch.Tensor:
+    """Significant bytes of each int64 read as uint64 (a negative value
+    takes all 8)."""
+    sig = torch.ones_like(v)
+    for k in range(1, 8):
+        sig += (v >= (1 << (8 * k))).to(torch.int64)
+    return torch.where(v < 0, 8, sig)
+
+
+def _ptr_bytes(ndv: torch.Tensor) -> torch.Tensor:
+    return torch.where(ndv <= 256, 1, torch.where(ndv <= 65536, 2, 3))
+
+
+def _pages(cols: torch.Tensor, rpp: int):
+    """(m, n) -> ((m, npages, rpp) edge-padded with each row's last value,
+    (npages,) rows actually stored in each page)."""
+    m, n = cols.shape
+    npages = -(-n // rpp)
+    pad = npages * rpp - n
+    if pad:
+        cols = torch.cat([cols, cols[:, -1:].expand(m, pad)], dim=1)
+    rows = torch.full((npages,), rpp, dtype=torch.int64, device=cols.device)
+    rows[-1] = n - (npages - 1) * rpp
+    return cols.reshape(m, npages, rpp), rows
+
 
 def ns_bytes_plain(cols: torch.Tensor, widths: torch.Tensor) -> torch.Tensor:
     """NS bytes per row: sum of min(2 * min(sig(v), w) + 1, 2w) half-bytes,
@@ -82,10 +125,7 @@ def ns_bytes_plain(cols: torch.Tensor, widths: torch.Tensor) -> torch.Tensor:
     m, n = cols.shape
     if n == 0:
         return torch.zeros(m, dtype=torch.int64, device=cols.device)
-    sig = torch.ones_like(cols)
-    for k in range(1, 8):
-        sig += (cols >= (1 << (8 * k))).to(torch.int64)
-    sig = torch.where(cols < 0, 8, sig)
+    sig = _sig_bytes(cols)
     w = widths[:, None]
     sig = torch.minimum(sig, w)
     half = torch.minimum(2 * sig + 1, 2 * w)
@@ -100,17 +140,55 @@ def ldict_bytes_plain(cols: torch.Tensor, widths: torch.Tensor,
     m, n = cols.shape
     if n == 0:
         return torch.zeros(m, dtype=torch.int64, device=cols.device)
-    npages = -(-n // rpp)
-    pad = npages * rpp - n
-    if pad:
-        cols = torch.cat([cols, cols[:, -1:].expand(m, pad)], dim=1)
-    srt = cols.reshape(m, npages, rpp).sort(dim=2).values
+    pages, rows = _pages(cols, rpp)
+    srt = pages.sort(dim=2).values
     ndv = 1 + (srt[:, :, 1:] != srt[:, :, :-1]).sum(dim=2)
-    rows = torch.full((npages,), rpp, dtype=torch.int64, device=cols.device)
-    rows[-1] = n - (npages - 1) * rpp
     w = widths[:, None]
-    ptr = torch.where(ndv <= 256, 1, torch.where(ndv <= 65536, 2, 3))
-    per_page = ndv * w + rows * ptr + PAGE_META
+    per_page = ndv * w + rows * _ptr_bytes(ndv) + PAGE_META
+    return torch.minimum(per_page, rows * w + PAGE_META).sum(dim=1)
+
+
+def gdict_bytes_plain(cols: torch.Tensor,
+                      widths: torch.Tensor) -> torch.Tensor:
+    """GDICT bytes per row: ndv distinct values of the row,
+    ndv * w + n * ptr(ndv)."""
+    m, n = cols.shape
+    if n == 0:
+        return torch.zeros(m, dtype=torch.int64, device=cols.device)
+    srt = cols.sort(dim=1).values
+    ndv = 1 + (srt[:, 1:] != srt[:, :-1]).sum(dim=1)
+    return ndv * widths + n * _ptr_bytes(ndv)
+
+
+def prefix_bytes_plain(cols: torch.Tensor, widths: torch.Tensor,
+                       rpp: int) -> torch.Tensor:
+    """PREFIX bytes per row: per page, the signed min and max XORed as
+    uint64 give the differing bytes diff (0 when equal), common =
+    max(w - diff, 0), and the page takes
+    min(common + rows * (1 + w - common) + 16, rows * w + 16); summed."""
+    m, n = cols.shape
+    if n == 0:
+        return torch.zeros(m, dtype=torch.int64, device=cols.device)
+    pages, rows = _pages(cols, rpp)
+    xor = pages.amin(dim=2) ^ pages.amax(dim=2)
+    diff = torch.where(xor == 0, 0, _sig_bytes(xor))
+    w = widths[:, None]
+    common = torch.clamp(w - diff, min=0)
+    per_page = common + rows * (1 + w - common) + PAGE_META
+    return torch.minimum(per_page, rows * w + PAGE_META).sum(dim=1)
+
+
+def rle_bytes_plain(cols: torch.Tensor, widths: torch.Tensor,
+                    rpp: int) -> torch.Tensor:
+    """RLE bytes per row: per page (in the order given), runs = 1 +
+    #(adjacent unequal), min(runs * (w + 2) + 16, rows * w + 16); summed."""
+    m, n = cols.shape
+    if n == 0:
+        return torch.zeros(m, dtype=torch.int64, device=cols.device)
+    pages, rows = _pages(cols, rpp)
+    runs = 1 + (pages[:, :, 1:] != pages[:, :, :-1]).sum(dim=2)
+    w = widths[:, None]
+    per_page = runs * (w + 2) + PAGE_META
     return torch.minimum(per_page, rows * w + PAGE_META).sum(dim=1)
 
 
@@ -144,9 +222,7 @@ def ldict_bytes(cols: torch.Tensor, widths: torch.Tensor,
     """LDICT payload bytes per row of an (m, n) int64 stack at `rpp`
     rows per page -> (m,) int64."""
     _check_inputs(cols, widths)
-    rpp = int(rpp)
-    if rpp < 1:
-        raise ValueError(f"rows per page must be >= 1, got {rpp}")
+    rpp = _check_rpp(rpp)
     if cols.device.type == "cpu":
         return ldict_bytes_plain(cols, widths, rpp)
     m, n = cols.shape
@@ -169,3 +245,79 @@ def ldict_bytes(cols: torch.Tensor, widths: torch.Tensor,
     _launch_check(err, "ldict_bytes")
     LAUNCHES["ldict_bytes"] += 1
     return out
+
+
+def gdict_bytes(cols: torch.Tensor, widths: torch.Tensor) -> torch.Tensor:
+    """GDICT payload bytes per row of an (m, n) int64 stack -> (m,) int64.
+    On the card each row is sorted with `torch.sort` first (the library
+    sort the JAX package also ran outside its kernel), then
+    `gdict_bytes_sorted` counts the distinct values of each sorted row."""
+    _check_inputs(cols, widths)
+    if cols.device.type == "cpu":
+        return gdict_bytes_plain(cols, widths)
+    return gdict_bytes_sorted(torch.sort(cols, dim=1).values, widths)
+
+
+def gdict_bytes_sorted(srt: torch.Tensor,
+                       widths: torch.Tensor) -> torch.Tensor:
+    """`gdict_bytes` of a stack whose rows are already sorted ascending:
+    the kernel alone on a CUDA tensor, the plain version on a CPU one."""
+    _check_inputs(srt, widths)
+    if srt.device.type == "cpu":
+        return gdict_bytes_plain(srt, widths)
+    m, n = srt.shape
+    if m == 0 or n == 0:
+        return torch.zeros(m, dtype=torch.int64, device=srt.device)
+    if m >= 2 ** 31 or n >= 2 ** 31:
+        raise ValueError(f"stack {tuple(srt.shape)} exceeds the kernel's "
+                         "int32 sizes")
+    srt = srt.contiguous()
+    widths = widths.contiguous()
+    out = torch.empty(m, dtype=torch.int64, device=srt.device)
+    err = _load().gdict_bytes_launch(srt.data_ptr(), widths.data_ptr(),
+                                     out.data_ptr(), m, n, _stream(srt))
+    _launch_check(err, "gdict_bytes")
+    LAUNCHES["gdict_bytes"] += 1
+    return out
+
+
+def _paged_launch(name: str, cols: torch.Tensor, widths: torch.Tensor,
+                  rpp: int) -> torch.Tensor:
+    """Launch the one-block-per-(row, page) kernel `name` on a CUDA stack."""
+    m, n = cols.shape
+    if m == 0 or n == 0:
+        return torch.zeros(m, dtype=torch.int64, device=cols.device)
+    if m * -(-n // rpp) >= 2 ** 31 or n >= 2 ** 31:
+        raise ValueError(f"stack {tuple(cols.shape)} at rpp {rpp} exceeds "
+                         "the kernel's grid")
+    cols = cols.contiguous()
+    widths = widths.contiguous()
+    out = torch.zeros(m, dtype=torch.int64, device=cols.device)
+    err = getattr(_load(), f"{name}_launch")(
+        cols.data_ptr(), widths.data_ptr(), out.data_ptr(), m, n, rpp,
+        _stream(cols))
+    _launch_check(err, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def prefix_bytes(cols: torch.Tensor, widths: torch.Tensor,
+                 rpp: int) -> torch.Tensor:
+    """PREFIX payload bytes per row of an (m, n) int64 stack at `rpp`
+    rows per page -> (m,) int64."""
+    _check_inputs(cols, widths)
+    rpp = _check_rpp(rpp)
+    if cols.device.type == "cpu":
+        return prefix_bytes_plain(cols, widths, rpp)
+    return _paged_launch("prefix_bytes", cols, widths, rpp)
+
+
+def rle_bytes(cols: torch.Tensor, widths: torch.Tensor,
+              rpp: int) -> torch.Tensor:
+    """RLE payload bytes per row of an (m, n) int64 stack at `rpp` rows
+    per page -> (m,) int64."""
+    _check_inputs(cols, widths)
+    rpp = _check_rpp(rpp)
+    if cols.device.type == "cpu":
+        return rle_bytes_plain(cols, widths, rpp)
+    return _paged_launch("rle_bytes", cols, widths, rpp)

@@ -1,9 +1,10 @@
 """`DesignAdvisor.recommend` in the port against the JAX package, end to end.
 
 * numpy backend: the recommendation is `==` the reference's numpy
-  backend — configuration, cost, used bytes, plan and greedy steps — for
-  every tool variant.
-* torch backend on the CPU (the plain versions of the four kernels): the
+  backend — configuration, cost, used bytes, plan, greedy steps and the
+  workload-compression certificate — for every tool variant, the five
+  codecs and workload compression among them.
+* torch backend on the CPU (the plain versions of the kernels): the
   same configuration, plan and greedy steps as the reference's
   `backend="jax"` (Pallas interpret mode; run once per module), cost
   within rtol 1e-6.
@@ -72,6 +73,10 @@ VARIANTS = {
     "density": dict(enumeration="density"),
     "topk": dict(candidate_mode="topk", topk=3),
     "tight-e": dict(e=0.1, q=0.95),
+    "five-codecs": dict(methods=("NS", "GDICT", "LDICT", "PREFIX", "RLE")),
+    "five-codecs-compressed": dict(
+        methods=("NS", "GDICT", "LDICT", "PREFIX", "RLE"),
+        compression_budget=8),
 }
 
 
@@ -90,6 +95,10 @@ def test_numpy_recommend_equals_reference(ref_workload, workload, budget,
     assert (got.candidate_count, got.pool_size) == \
         (want.candidate_count, want.pool_size)
     assert_same_plan(got, want)
+    assert (got.n_statements_full, got.n_representatives,
+            got.compression_error_bound, got.compression_error_rel) == \
+        (want.n_statements_full, want.n_representatives,
+         want.compression_error_bound, want.compression_error_rel)
     assert set(got.phase_seconds) == set(pa.PHASES)
 
 
@@ -144,13 +153,26 @@ def test_default_options_run_on_the_card():
         pa.AdvisorOptions.dtac()
 
 
-def test_invalid_options_raise():
+def test_invalid_options_raise(workload, budget):
     with pytest.raises(ValueError, match="unknown backend"):
         pa.AdvisorOptions(backend="jax", device="cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         pa.AdvisorOptions(backend="torch", device="meta")
-    with pytest.raises(NotImplementedError, match="compression_budget"):
-        pa.AdvisorOptions(backend="numpy", compression_budget=10)
+    # a workload-compression budget >= the statement count is the exact
+    # bypass: the plain recommendation
+    n = len(workload.statements)
+    plain = pa.DesignAdvisor(workload, pa.AdvisorOptions(backend="numpy")) \
+        .recommend(budget)
+    adv = pa.DesignAdvisor(workload, pa.AdvisorOptions(
+        backend="numpy", compression_budget=n))
+    got = adv.recommend(budget)
+    assert adv.compressed is None and adv.inner is None
+    assert labels(got.config) == labels(plain.config)
+    assert (got.cost, got.used_bytes, got.steps) == \
+        (plain.cost, plain.used_bytes, plain.steps)
+    assert (got.n_statements_full, got.n_representatives,
+            got.compression_error_bound) == (n, n, 0.0)
+    assert got.phase_seconds["compression"] == 0.0
 
 
 def test_workload_from_spec_rejects_bad_statements(workload):

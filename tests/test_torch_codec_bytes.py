@@ -1,4 +1,5 @@
-"""The port's NS and LDICT codec-size kernels against the JAX package.
+"""The port's codec-size kernels (all five methods) against the JAX
+package.
 
 On the CPU the wrappers of `repro_torch.kernels.codec_bytes` run their
 plain PyTorch versions; these must be `==` the reference's NumPy batch
@@ -19,8 +20,8 @@ from repro.kernels import codec_bytes as ref_ck
 from repro_torch.core import compression as comp
 from repro_torch.kernels import codec_bytes as cb, launch_counts
 
-PORTED = ("NS", "LDICT")
-ALL = ("NS", "GDICT", "LDICT", "PREFIX", "RLE")
+# NS and LDICT first: their tests' seeds derive from this position
+METHODS = ("NS", "LDICT", "GDICT", "PREFIX", "RLE")
 
 
 def port_bytes(method, cols, widths, rpp):
@@ -48,7 +49,7 @@ def assert_exact(method, cols, widths, rpp, pallas=True):
                 np.asarray(widths, dtype=np.int64), rpp))
 
 
-@pytest.mark.parametrize("method", PORTED)
+@pytest.mark.parametrize("method", METHODS)
 @pytest.mark.parametrize("shape,rpp", [
     ((1, 1), 1),          # single value, single-row pages
     ((3, 7), 3),          # partial last page
@@ -60,13 +61,13 @@ def assert_exact(method, cols, widths, rpp, pallas=True):
     ((2, 4000), 1638),    # the largest rows-per-page (8192 // 5)
 ])
 def test_random_values_equal_reference(method, shape, rpp):
-    rng = np.random.default_rng([PORTED.index(method), *shape, rpp])
+    rng = np.random.default_rng([METHODS.index(method), *shape, rpp])
     cols = rng.integers(0, 1 << 16, size=shape)
     widths = rng.integers(1, 9, size=shape[0])
     assert_exact(method, cols, widths, rpp)
 
 
-@pytest.mark.parametrize("method", PORTED)
+@pytest.mark.parametrize("method", METHODS)
 def test_values_beyond_32_and_56_bits(method):
     rng = np.random.default_rng(3)
     cols = rng.integers(0, 1 << 62, size=(6, 300))
@@ -77,7 +78,7 @@ def test_values_beyond_32_and_56_bits(method):
     assert_exact(method, cols, [8, 8, 8, 8, 7, 5], 7)
 
 
-@pytest.mark.parametrize("method", PORTED)
+@pytest.mark.parametrize("method", METHODS)
 def test_constant_and_degenerate_rows(method):
     cols = np.zeros((4, 500), dtype=np.int64)
     cols[1] = 255
@@ -86,7 +87,7 @@ def test_constant_and_degenerate_rows(method):
     assert_exact(method, cols, [1, 1, 2, 4], 273)
 
 
-@pytest.mark.parametrize("method", PORTED)
+@pytest.mark.parametrize("method", METHODS)
 def test_negative_values_equal_numpy(method):
     rng = np.random.default_rng(5)
     cols = rng.integers(-(1 << 40), 1 << 40, size=(5, 400))
@@ -95,14 +96,14 @@ def test_negative_values_equal_numpy(method):
     assert_exact(method, cols, [1, 2, 4, 8, 8], 9, pallas=False)
 
 
-@pytest.mark.parametrize("method", PORTED)
+@pytest.mark.parametrize("method", METHODS)
 def test_empty_stacks(method):
     assert port_bytes(method, np.zeros((3, 0)), [1, 2, 3], 5).tolist() \
         == [0, 0, 0]
     assert port_bytes(method, np.zeros((0, 4)), [], 5).shape == (0,)
 
 
-@pytest.mark.parametrize("method", ALL)
+@pytest.mark.parametrize("method", METHODS)
 def test_port_numpy_formulas_equal_reference(method):
     """The port's own copy of the NumPy batch formulas (the numpy
     backend, and the host route of the unported methods) stays equal to
@@ -124,7 +125,10 @@ def test_cpu_route_launches_nothing():
     cols = torch.arange(600, dtype=torch.int64).reshape(2, 300)
     widths = torch.tensor([2, 4])
     cb.ns_bytes(cols, widths)
+    cb.gdict_bytes(cols, widths)
     cb.ldict_bytes(cols, widths, 7)
+    cb.prefix_bytes(cols, widths, 7)
+    cb.rle_bytes(cols, widths, 7)
     assert launch_counts() == before
 
 
@@ -136,6 +140,12 @@ def test_wrappers_reject_bad_inputs():
         cb.ns_bytes(cols, torch.tensor([1, 2, 3]))
     with pytest.raises(ValueError):
         cb.ldict_bytes(cols, torch.tensor([1, 2]), 0)
+    with pytest.raises(ValueError):
+        cb.prefix_bytes(cols, torch.tensor([1, 2]), 0)
+    with pytest.raises(ValueError):
+        cb.rle_bytes(cols.to(torch.float64), torch.tensor([1, 2]), 3)
+    with pytest.raises(ValueError):
+        cb.gdict_bytes(cols, torch.tensor([1, 2], dtype=torch.int32))
 
 
 @settings(max_examples=25, deadline=None)
@@ -146,6 +156,32 @@ def test_property_twin(m, n, rpp, top, w, seed):
     rng = np.random.default_rng(seed)
     cols = rng.integers(0, top, size=(m, n))
     widths = np.full(m, w)
-    for method in PORTED:
+    for method in METHODS:
+        np.testing.assert_array_equal(port_bytes(method, cols, widths, rpp),
+                                      ref_numpy(method, cols, widths, rpp))
+
+
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("rpp", [1, 7, 273, 1000])
+def test_mixed_sign_pages_equal_numpy(method, rpp):
+    """Pages holding negative and non-negative values together: PREFIX
+    takes each page's signed min and max, as the NumPy formula does."""
+    rng = np.random.default_rng(rpp)
+    cols = rng.integers(-300, 300, size=(4, 600))
+    cols[1] = rng.integers(-2, 2, size=600)
+    cols[2, ::3] = np.iinfo(np.int64).max
+    cols[3] = np.sort(cols[3])
+    assert_exact(method, cols, [1, 2, 8, 4], rpp, pallas=False)
+
+
+@settings(max_examples=25, deadline=None)
+@given(m=st.integers(1, 5), n=st.integers(1, 300), rpp=st.integers(1, 64),
+       lo=st.sampled_from([-(1 << 62), -(1 << 20), -256, -1]),
+       w=st.integers(1, 8), seed=st.integers(0, 2 ** 16))
+def test_property_twin_signed(m, n, rpp, lo, w, seed):
+    rng = np.random.default_rng(seed)
+    cols = rng.integers(lo, -lo, size=(m, n))
+    widths = np.full(m, w)
+    for method in METHODS:
         np.testing.assert_array_equal(port_bytes(method, cols, widths, rpp),
                                       ref_numpy(method, cols, widths, rpp))

@@ -1,12 +1,12 @@
-"""The port's four CUDA kernels against their plain PyTorch versions, on
-the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.
 
 Every test here is marked `cuda` and skips on a host without a CUDA card;
 this file imports only `repro_torch` (no JAX), so it also runs on the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
 
-Tolerances: NS and LDICT bit-equal (integers); `prob_within` and
+Tolerances: the five codec kernels bit-equal (integers); `prob_within` and
 `fused_score` p within atol 1e-6 and cm / cs within rtol 1e-6 (the same
 IEEE float ops; only CUDA's erff and PyTorch's erf may differ by an ulp);
 winners equal; prob consistency bitwise.
@@ -42,10 +42,13 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape,rpp,top", [
+CODEC_SHAPES = [
     ((126, 6000), 273, 1 << 32), ((1, 5000), 1638, 1 << 60),
-    ((5, 1), 273, 256), ((3, 777), 1, 1 << 16), ((9, 1000), 1638, 1 << 10)])
+    ((5, 1), 273, 256), ((3, 777), 1, 1 << 16), ((9, 1000), 1638, 1 << 10)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,rpp,top", CODEC_SHAPES)
 def test_cuda_kernels_equal_plain(cuda, shape, rpp, top):
     rng = np.random.default_rng(shape[1])
     cols = torch.as_tensor(rng.integers(-top, top, size=shape), device=cuda)
@@ -61,13 +64,39 @@ def test_cuda_kernels_equal_plain(cuda, shape, rpp, top):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("method", ("GDICT", "PREFIX", "RLE"))
-def test_cuda_unported_methods_raise(cuda, method):
-    cols = torch.zeros((2, 10), dtype=torch.int64, device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        comp.batched_bytes(method, cols, torch.ones(2, dtype=torch.int64,
-                                                    device=cuda), 4,
-                           backend="torch")
+@pytest.mark.parametrize("shape,rpp,top", CODEC_SHAPES)
+def test_cuda_gdict_prefix_rle_equal_plain(cuda, shape, rpp, top):
+    rng = np.random.default_rng(shape[1])
+    cols = torch.as_tensor(rng.integers(-top, top, size=shape), device=cuda)
+    if shape[0] > 2:
+        cols[1] = 7                                  # one run, one value
+        cols[2] = torch.sort(cols[2]).values         # sorted, mixed signs
+    widths = torch.as_tensor(rng.integers(1, 9, size=shape[0]), device=cuda)
+    before = launch_counts()
+    assert torch.equal(cb.gdict_bytes(cols, widths),
+                       cb.gdict_bytes_plain(cols, widths))
+    assert torch.equal(cb.prefix_bytes(cols, widths, rpp),
+                       cb.prefix_bytes_plain(cols, widths, rpp))
+    assert torch.equal(cb.rle_bytes(cols, widths, rpp),
+                       cb.rle_bytes_plain(cols, widths, rpp))
+    after = launch_counts()
+    for name in ("gdict_bytes", "prefix_bytes", "rle_bytes"):
+        assert after[name] == before[name] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ("NS", "GDICT", "LDICT", "PREFIX", "RLE"))
+def test_cuda_batched_bytes_launches_a_kernel(cuda, method):
+    rng = np.random.default_rng(1)
+    cols = torch.as_tensor(rng.integers(0, 1 << 20, size=(4, 3000)),
+                           device=cuda)
+    widths = torch.as_tensor([1, 3, 4, 8], device=cuda)
+    before = sum(launch_counts().values())
+    got = comp.batched_bytes(method, cols, widths, 273, backend="torch")
+    assert sum(launch_counts().values()) == before + 1
+    want = comp.batched_bytes(method, cols.cpu().numpy(),
+                              widths.cpu().numpy(), 273)
+    assert got.cpu().tolist() == want.tolist()
 
 
 @pytest.mark.cuda

@@ -45,3 +45,33 @@ def tables_equal(ref_schema, port_schema_) -> bool:
                    for c in t.columns):
             return False
     return True
+
+
+def statement_spec(s) -> tuple:
+    """A statement of either package as plain data."""
+    if hasattr(s, "filters"):
+        return ("query", s.name, s.table,
+                tuple((p.col, int(p.lo), int(p.hi)) for p in s.filters),
+                tuple(s.cols_used), float(s.weight))
+    return ("insert", s.name, s.table, int(s.nrows), float(s.weight))
+
+
+def port_config(ref_config) -> "pt.Configuration":
+    """The port's Configuration of a reference configuration of
+    predicate-free indexes."""
+    assert all(i.predicate is None for i in ref_config.indexes)
+    return pt.Configuration.of(
+        pt.IndexDef(i.table, tuple(i.cols), i.compression, i.clustered)
+        for i in ref_config.indexes)
+
+
+def assert_same_steps_up_to_ping_pong(got_steps, want_steps) -> None:
+    """Greedy steps equal, except that one run may go on where the other
+    stopped with steps that leave the cost unchanged: the float32 greedy
+    swapping two tied clustered layouts until the step limit (ROADMAP.md
+    Queue C), which the two float32 backends need not both fall into."""
+    k = min(len(got_steps), len(want_steps))
+    assert got_steps[:k] == want_steps[:k]
+    for step in (got_steps[k:] or want_steps[k:]):
+        before, after = step.rsplit("cost ", 1)[1].split("->")
+        assert before == after, step
