@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the advisor on one GPU, end to end.
+"""Drive the PyTorch/CUDA port on one GPU, end to end: the advisor and LM
+serving.
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero; nothing is caught):
-  1. print the card (nvidia-smi name, power limit) and build the seven
+Phases (any failure exits non-zero; nothing is caught), run in the order
+1, 2, 3, 3b, 3c, 4, 5, 4b:
+  1. print the card (nvidia-smi name, power limit) and build the nine
      hand-written kernels from the sources under src/repro_torch/kernels/
-     (one nvcc per source, all started together);
+     (four libraries, one nvcc per source, all started together);
   2. hold each kernel against its plain PyTorch version on the card on
      edge cases: the five codec kernels (NS, GDICT, LDICT, PREFIX, RLE)
-     bit-equal; prob_within and fused_score within the stated tolerances,
-     plus their two bitwise properties (prob consistency, K-pad
-     invariance);
+     and blockwise quantization bit-equal; prob_within and fused_score
+     within the stated tolerances, plus their two bitwise properties (prob
+     consistency, K-pad invariance); dequant-matmul within rtol and atol
+     1e-4 of the plain IEEE float32 product;
   3. run DTAc `DesignAdvisor.recommend` on make_tpch_like(scale=100) --
      6,000,000 lineitem rows, TPC-H SF1's count -- with
      make_tpch_workload(insert_weight=0.1) at a budget of 25 % of the base
@@ -24,14 +27,31 @@ Phases (any failure exits non-zero; nothing is caught):
      (workload compression, paper Section 7), budget 25 %;
   3c. staged_recommend (Example 1) with the five codecs on phase 3's
      workload, torch/cuda against numpy;
-  4. hold each kernel against its plain version again on the largest
-     inputs phases 3 and 3b gave it (GDICT, on no advisor path: every
-     column of the SF1 lineitem sample at f = 0.01), and time both there.
+  4. hold each advisor kernel against its plain version again on the
+     largest inputs phases 3 and 3b gave it (GDICT, on no advisor path:
+     every column of the SF1 lineitem sample at f = 0.01), and time both
+     there;
+  5. LM serving at TinyLlama-1.1B's published size (22 layers, d_model
+     2048, float32 weights from the port's init_params, seed 0): 5a the
+     layout advisor's plan for the serve job at an 80 GB and a 1.5 GB
+     budget (q8 weights required at 1.5 GB); 5b ServeEngine answering 8
+     requests (one submitted per engine step), request 0 alone giving the
+     same tokens, a float32-KV run's logits agreeing with `forward`, and
+     the card's and the CPU's engines giving the same tokens at depth 2;
+     5c the plan's q8 weights: quantize_mlp on all 22 MLPs and
+     mlp_quantized on the MLP inputs each layer received in one decode
+     step (M = 4) and one forward over 4 x 128 tokens (M = 512), against
+     the plain version and the float MLP, with the launch counters zeroed
+     before 5b and read after 5c;
+  4b. time the quantize and dequant-matmul kernels at the shapes phase 5
+     gave them, cycling through the 22 layers' weights (the main path
+     finds them cold in the L2 cache).
 
 Prints the per-phase wall times, launch counts, kernel times beside their
 bounds, peak device memory, a JSON line of kernel records, the card line,
 and last {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
+import dataclasses
 import json
 import math
 import subprocess
@@ -58,6 +78,18 @@ N_SCALED = 10_000                # phase 3b: statements before compression
 COMPRESSION_BUDGET = 128         # phase 3b: representatives advised on
 # GDICT is priced on the host by the Adaptive Estimator in SampleCF (as in
 # the JAX package); only batched_bytes("GDICT", ...) reaches its kernel
+ADVISOR_KERNELS = CODECS + ("prob_within", "fused_score")
+LM_ARCH = "tinyllama-1.1b"       # phase 5: the dense model served
+LM_SLOTS, LM_MAX_LEN, LM_NEW = 4, 256, 16
+LM_REQUESTS = 8
+LM_BUDGETS = (80e9, 1.5e9)       # phase 5a: HBM budgets of the layout plan
+DMM_TOL = 1e-4                   # dequant-matmul vs plain, rtol and atol
+# phase 5b: engine logits vs forward over the same tokens, float32 KV, 22
+# layers on the card (different summation orders in the decode and the
+# full-sequence attention); logits are O(1)
+LOGITS_ATOL = 1e-3
+Q8_REL_ERR = 0.05                # q8 MLP vs float MLP, mean relative error
+Q8_BYTES_RATIO = 0.35            # q8 MLP bytes vs float32 bytes
 GDICT_EXEMPT = ("gdict_bytes is on no advisor path: SampleCF prices GDICT "
                 "on the host with the Adaptive Estimator (App. B), in this "
                 "port as in the JAX package; its kernel is held against its "
@@ -85,10 +117,14 @@ def main() -> int:
     import numpy as np
     from repro_torch import core as pt
     from repro_torch.kernels import (build, codec_bytes as cb,
-                                     launch_counts, planner_score as ps,
+                                     dequant_matmul as dqm, launch_counts,
+                                     planner_score as ps,
+                                     quantize_blockwise as qb,
                                      reset_launch_counts)
 
+    # the plain versions' float32 products run in IEEE float32
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     card = card_line()
     print(f"card: {card}")
@@ -217,6 +253,64 @@ def main() -> int:
           f"(max {err_p:.3g}); fused_score cm/cs rtol {CMCS_RTOL}, p atol "
           f"{P_ATOL}, winners equal; prob consistency and K-pad invariance "
           f"bitwise")
+
+    # blockwise quantization, bit-equal to plain
+    half = np.zeros((2, 128), np.float32)
+    half[0, 0] = 127.0                   # scale 1: x / scale lands on .5
+    half[0, 1:9] = [0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5, -126.5]
+    zero_block = rng.standard_normal((3, 256)) * 3
+    zero_block[1, 128:] = 0.0
+    q_cases = [("ragged 7", rng.standard_normal((5, 7)), torch.float32),
+               ("ragged 130", rng.standard_normal((9, 130)) * 5,
+                torch.float32),
+               ("all-zero block", zero_block, torch.float32),
+               (".5 after division", half, torch.float32),
+               ("bf16", rng.standard_normal((64, 384)) * 3, torch.bfloat16),
+               ("rank 3", rng.standard_normal((4, 2, 96)), torch.float32),
+               ("rank 4", rng.standard_normal((3, 5, 7, 130)),
+                torch.float32)]
+    for label, x, dt in q_cases:
+        xt = f32(x).to(dt)
+        qt, st = qb.quantize_blockwise(xt)
+        qt_p, st_p = qb.quantize_blockwise_plain(xt)
+        torch.cuda.synchronize()
+        if not (torch.equal(qt, qt_p) and torch.equal(st, st_p)):
+            fail(f"quantize_blockwise != plain on {label}")
+    if qb.quantize_blockwise(f32(half))[0][0, 1:9].tolist() != \
+            [0, 2, 2, 0, -2, -2, 126, -126]:
+        fail("quantize_blockwise does not round half to even")
+
+    # dequant-matmul within DMM_TOL of the plain IEEE float32 product
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("the plain dequant-matmul would run in TF32")
+
+    def dmm_inputs(m, k, n, seed):
+        r = np.random.default_rng(seed)
+        a = f32(r.standard_normal((m, k)))
+        w = f32(r.standard_normal((k, n)) * 0.02)
+        qw, sw = qb.quantize_blockwise_plain(w.t().contiguous())
+        return a, qw.t().contiguous(), sw.t().contiguous()
+
+    n_dmm = 0
+    worst = 0.0
+    for dm_m in (1, 3, 4, 512):
+        for dm_k in (128, 384, 2048, 5632):
+            for dm_n in ((200, 5632) if dm_m == 4 else (70,)):
+                a, qw, sw = dmm_inputs(dm_m, dm_k, dm_n,
+                                       dm_m * dm_k + dm_n)
+                got = dqm.dequant_matmul(a, qw, sw)
+                want = dqm.dequant_matmul_plain(a, qw, sw)
+                torch.cuda.synchronize()
+                if not torch.allclose(got, want, rtol=DMM_TOL, atol=DMM_TOL):
+                    fail(f"dequant_matmul differs from plain at M={dm_m} "
+                         f"K={dm_k} N={dm_n}")
+                worst = max(worst, float((got - want).abs().max()))
+                n_dmm += 1
+    del a, qw, sw, got, want, xt, qt, st, qt_p, st_p
+    print(f"LM kernels: quantize_blockwise bit-equal to plain on "
+          f"{len(q_cases)} cases (round half to even); dequant_matmul within "
+          f"rtol/atol {DMM_TOL} of plain on {n_dmm} cases (max abs err "
+          f"{worst:.3g})")
 
     # ---- phase 3: the main path at TPC-H SF1 -------------------------
     t0 = time.perf_counter()
@@ -358,7 +452,7 @@ def main() -> int:
     rec_t5, wall_t5, launches3b = measured(
         "phase 3b", lambda: pt.DesignAdvisor(wl_big, opts5).recommend(budget))
     need_launches("phase 3b", launches3b,
-                  [n for n in launches3b if n != "gdict_bytes"])
+                  [n for n in ADVISOR_KERNELS if n != "gdict_bytes"])
     print(f"phase 3b: {GDICT_EXEMPT}")
     t0 = time.perf_counter()
     adv_n5 = pt.DesignAdvisor(wl_big, pt.AdvisorOptions(
@@ -550,6 +644,309 @@ def main() -> int:
                         "bound_by": bound_by, "library_ms": None})
     # the timing launches above count too; the record keeps the measured
     # paths' counts (phases 3, 3b and 3c)
+    # phase 4's inputs must not count in phase 5's peak device memory
+    captured.clear()
+    del li_cols, srt, args, got, want
+
+    # ---- phase 5: LM serving at TinyLlama-1.1B -------------------------
+    from repro_torch.configs import get_config
+    from repro_torch.design.advisor import plan_layout
+    from repro_torch.models import layers as L, model as MD
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+
+    torch.set_grad_enabled(False)        # serving: no autograd anywhere
+    lm = get_config(LM_ARCH)
+    for hbm in LM_BUDGETS:               # 5a: the layout advisor's plan
+        plan = plan_layout(lm, "serve", batch=LM_SLOTS, seq=LM_MAX_LEN,
+                           n_chips=1, hbm_budget_bytes=hbm)
+        print(f"phase 5a: plan_layout({LM_ARCH}, 'serve', batch={LM_SLOTS},"
+              f" seq={LM_MAX_LEN}, n_chips=1, hbm_budget_bytes={hbm:.3g}) "
+              f"-> {plan.choices}, {plan.hbm_bytes!r} B, step "
+              f"{plan.step_cost_s * 1e3:.6g} ms; log {plan.log}")
+    if plan.choices["weights"] != "q8" or plan.hbm_bytes > LM_BUDGETS[-1]:
+        fail(f"phase 5a: the plan at {LM_BUDGETS[-1]:.3g} B does not choose "
+             f"q8 weights within the budget: {plan.choices}")
+    print(f"phase 5a: kv_cache {plan.choices.get('kv_cache')!r} is printed, "
+          "not executed: the engine stores its KV cache in bf16 or f32")
+
+    held = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    params = MD.init_params(torch.Generator(dev).manual_seed(0), lm,
+                            device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"phase 5b: {LM_ARCH}: {lm.n_layers} layers, d_model "
+          f"{lm.d_model}, {lm.heads} heads / {lm.kv_heads} KV heads, d_ff "
+          f"{lm.d_ff}, vocab {lm.vocab}: {n_params} float32 parameters made "
+          f"on the card by init_params (seed 0) in "
+          f"{time.perf_counter() - t0:.3f} s; device memory allocated "
+          f"before them {held} B, after {torch.cuda.memory_allocated(dev)} B")
+    r = np.random.default_rng(0)
+    prompts = [r.integers(0, lm.vocab, int(r.integers(4, 33))).tolist()
+               for _ in range(LM_REQUESTS)]
+
+    def serve(p, c, uids, kv="bf16", device=dev):
+        """One request submitted per engine step, then drained."""
+        eng = ServeEngine(c, p, EngineConfig(
+            batch_slots=LM_SLOTS, max_len=LM_MAX_LEN, kv_dtype=kv),
+            device=device)
+        for uid in uids:
+            eng.submit(Request(uid=uid, prompt=list(prompts[uid]),
+                               max_new_tokens=LM_NEW))
+            eng.step()
+        eng.run_until_drained()
+        return eng
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    eng = serve(params, lm, range(LM_REQUESTS))
+    torch.cuda.synchronize()
+    wall5 = time.perf_counter() - t0
+    peak5 = torch.cuda.max_memory_allocated(dev)
+    if sorted(eng.finished) != list(range(LM_REQUESTS)) or any(
+            len(q.out_tokens) != LM_NEW for q in eng.finished.values()):
+        fail("phase 5b: not every request finished with its tokens")
+    crowd = {u: q.out_tokens for u, q in eng.finished.items()}
+    made = LM_REQUESTS * LM_NEW
+    prefill = sum(len(p_) - 1 for p_ in prompts)
+    print(f"phase 5b: ServeEngine(batch_slots={LM_SLOTS}, max_len="
+          f"{LM_MAX_LEN}, kv bf16): {LM_REQUESTS} requests, prompts "
+          f"{[len(p_) for p_ in prompts]} tokens, {LM_NEW} new each: "
+          f"{eng.steps} engine steps and {prefill} prefill steps in "
+          f"{wall5:.3f} s; {made / wall5:.2f} generated tokens/s "
+          f"({(made + prefill) / wall5:.2f} tokens/s counting prefill); "
+          f"peak device memory {peak5} B")
+    alone = serve(params, lm, [0]).finished[0].out_tokens
+    if alone != crowd[0]:
+        fail(f"phase 5b: request 0 alone gives {alone}, with the others "
+             f"admitted mid-flight {crowd[0]}")
+    print(f"phase 5b: request 0 alone gives the same {LM_NEW} tokens as "
+          "with the others admitted mid-flight")
+
+    eng32 = ServeEngine(lm, params, EngineConfig(
+        batch_slots=LM_SLOTS, max_len=LM_MAX_LEN, kv_dtype="f32"),
+        device=dev)
+    seen = []
+    decode = eng32._decode
+
+    def recording(p, st, t, a):
+        logits, st = decode(p, st, t, a)
+        seen.append(logits[0, 0].clone())
+        return logits, st
+    eng32._decode = recording
+    eng32.submit(Request(uid=0, prompt=list(prompts[0]),
+                         max_new_tokens=LM_NEW))
+    eng32.run_until_drained()
+    out32 = eng32.finished[0].out_tokens
+    fed = prompts[0] + out32[:-1]
+    full = MD.forward(params, lm, torch.tensor([fed], device=dev))[0]
+    stepwise = torch.stack(seen)
+    if stepwise.shape != full.shape:
+        fail(f"phase 5b: {tuple(stepwise.shape)} engine logits against "
+             f"forward's {tuple(full.shape)}")
+    err_fwd = float((stepwise - full).abs().max())
+    if err_fwd > LOGITS_ATOL:
+        fail(f"phase 5b: engine logits differ from forward by {err_fwd} > "
+             f"{LOGITS_ATOL}")
+    print(f"phase 5b: kv f32: the engine's logits at all {len(fed)} steps "
+          f"of request 0 agree with forward over the same tokens (max abs "
+          f"err {err_fwd:.3g} <= {LOGITS_ATOL}; max |logit| "
+          f"{float(full.abs().max()):.4g}); its tokens "
+          f"{'equal' if out32 == crowd[0] else 'differ from'} the bf16-KV "
+          "run's")
+
+    lm2 = dataclasses.replace(lm, name=f"{LM_ARCH}-depth2", n_layers=2)
+    p_card = MD.init_params(torch.Generator(dev).manual_seed(0), lm2,
+                            device=dev)
+    p_cpu = MD.init_params(torch.Generator().manual_seed(0), lm2,
+                           device="cpu")
+    p_cpu.load_state_dict(p_card.state_dict())
+    got2 = {}
+    for where, p_ in (("card", p_card), ("cpu", p_cpu)):
+        t0 = time.perf_counter()
+        e2 = serve(p_, lm2, range(LM_REQUESTS), kv="f32",
+                   device=p_["embed"].device)
+        got2[where] = ({u: q.out_tokens for u, q in e2.finished.items()},
+                       time.perf_counter() - t0)
+    if got2["card"][0] != got2["cpu"][0]:
+        fail("phase 5b: at depth 2 the card's and the CPU's engines give "
+             "different tokens")
+    print(f"phase 5b: width {lm2.d_model}, depth 2, kv f32: the card's "
+          f"engine ({got2['card'][1]:.3f} s) and the CPU's ({got2['cpu'][1]:.3f}"
+          f" s) give the same tokens for all {LM_REQUESTS} requests")
+    del p_card, p_cpu
+
+    # 5c: the plan's q8 weights on every layer's real MLP inputs
+    mlps = [lp["mlp"] for lp in params.layers]
+
+    def mlp_inputs(run):
+        got = [None] * len(mlps)
+        hooks = [m.register_forward_pre_hook(
+            lambda mod, args, i=i: got.__setitem__(i, args[0].clone()))
+            for i, m in enumerate(mlps)]
+        try:
+            run()
+        finally:
+            for h in hooks:
+                h.remove()
+        return got
+
+    eng_c = ServeEngine(lm, params, EngineConfig(
+        batch_slots=LM_SLOTS, max_len=LM_MAX_LEN), device=dev)
+    for uid in range(LM_SLOTS):
+        eng_c.submit(Request(uid=uid, prompt=list(prompts[uid]),
+                             max_new_tokens=LM_NEW))
+    eng_c.step()              # admits (prefills) all four, decodes once
+    x_dec = mlp_inputs(eng_c.step)       # one decode step, all active
+    toks = torch.as_tensor(r.integers(0, lm.vocab, (4, 128)), device=dev)
+    x_pre = mlp_inputs(lambda: MD.forward(params, lm, toks))
+    for xs, want in ((x_dec, (LM_SLOTS, 1)), (x_pre, (4, 128))):
+        if any(x is None or tuple(x.shape) != want + (lm.d_model,)
+               for x in xs):
+            fail("phase 5c: an MLP input was not captured")
+    t0 = time.perf_counter()
+    pq = [L.quantize_mlp(m) for m in mlps]
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    rel_worst = dev_worst = 0.0
+    for label, xs in (("decode", x_dec), ("prefill", x_pre)):
+        for i, x in enumerate(xs):
+            got = L.mlp_quantized(pq[i], x, lm.mlp)
+            plain = L.mlp_quantized(pq[i], x, lm.mlp, use_kernel=False)
+            fl = L.mlp(mlps[i], x, lm.mlp)
+            torch.cuda.synchronize()
+            if not torch.allclose(got, plain, rtol=DMM_TOL, atol=DMM_TOL):
+                fail(f"phase 5c: layer {i} {label}: mlp_quantized differs "
+                     "from its plain version")
+            rel = float((fl - got).abs().mean() / fl.abs().mean())
+            if rel >= Q8_REL_ERR:
+                fail(f"phase 5c: layer {i} {label}: q8 MLP mean relative "
+                     f"error {rel} >= {Q8_REL_ERR}")
+            rel_worst = max(rel_worst, rel)
+            dev_worst = max(dev_worst, float((got - plain).abs().max()))
+    launches5 = launch_counts()
+    print(f"launches in phase 5: {json.dumps(launches5)}")
+    if launches5["quantize_blockwise"] < 3 * lm.n_layers or \
+            launches5["dequant_matmul"] < 6 * lm.n_layers:
+        fail("phase 5: quantize_blockwise or dequant_matmul launched too "
+             "few times")
+    f32_b = sum(w.numel() * w.element_size() for m in mlps
+                for _, w in m.items())
+    q8_b = sum(t.numel() * t.element_size() for d in pq for w in d.values()
+               for t in w.values())
+    if q8_b >= Q8_BYTES_RATIO * f32_b:
+        fail(f"phase 5c: q8 MLP bytes {q8_b} >= {Q8_BYTES_RATIO} of f32 "
+             f"{f32_b}")
+    print(f"phase 5c: quantize_mlp on {len(mlps)} MLPs in {t_quant:.3f} s; "
+          f"mlp_quantized within rtol/atol {DMM_TOL} of plain (max abs err "
+          f"{dev_worst:.3g}) and within {Q8_REL_ERR} of the float MLP (worst "
+          f"mean relative error {rel_worst:.4f}) at M = {LM_SLOTS} and "
+          f"M = 512 on all layers; q8 MLP bytes {q8_b} = "
+          f"{q8_b / f32_b:.4f} of float32 {f32_b}")
+
+    def cycle_ms(fn, args_list, reps=5):
+        """ms per call of fn over args cycling through all layers (each
+        layer's weights are cold in L2, as on the main path)."""
+        return time_ms(lambda: [fn(*a) for a in args_list], reps) / \
+            len(args_list)
+
+    for label, xs in (("M=4", x_dec), ("M=512", x_pre)):
+        args = [(pq[i], xs[i], lm.mlp) for i in range(len(mlps))]
+        q_ms = cycle_ms(L.mlp_quantized, args)
+        f_ms = cycle_ms(L.mlp, [(mlps[i], xs[i], lm.mlp)
+                                for i in range(len(mlps))])
+        print(f"phase 5c: {label}: mlp_quantized {q_ms:.4f} ms per layer "
+              f"beside the float32 mlp {f_ms:.4f} ms")
+
+    # ---- phase 4b: the LM kernels at phase 5's shapes -----------------
+    wi_t = [m["wi"].t().contiguous() for m in mlps]     # (5632, 2048)
+    wo_t = [m["wo"].t().contiguous() for m in mlps]     # (2048, 5632)
+    for name, ws in (("wi", wi_t), ("wo", wo_t)):
+        t_ms = cycle_ms(lambda w: w.t().contiguous(),
+                        [(m[name],) for m in mlps])
+        print(f"phase 4b: quantize_mlp's transpose copy of {name} "
+              f"{tuple(mlps[0][name].shape)}: {t_ms:.4f} ms per weight "
+              "(apart from the kernel)")
+    q_cases = []
+    for ws in (wi_t, wo_t):
+        q_got, s_got = qb.quantize_blockwise(ws[0])
+        q_pl, s_pl = qb.quantize_blockwise_plain(ws[0])
+        torch.cuda.synchronize()
+        if not (torch.equal(q_got, q_pl) and torch.equal(s_got, s_pl)):
+            fail("quantize_blockwise != plain on phase 5's weights")
+        rows, n = ws[0].shape
+        b_ms = (rows * n * 5 + rows * -(-n // 128) * 4) / HBM_BYTES_PER_S * 1e3
+        o_ms = 6 * rows * n / OPS_PER_S * 1e3
+        q_cases.append({
+            "shape": [rows, n],
+            "ms": cycle_ms(qb.quantize_blockwise, [(w,) for w in ws]),
+            "plain_ms": cycle_ms(qb.quantize_blockwise_plain,
+                                 [(w,) for w in ws], reps=2),
+            "bound_ms": max(b_ms, o_ms), "bytes_ms": b_ms, "ops_ms": o_ms,
+            "bound_by": "bytes" if b_ms >= o_ms else "operations",
+            "max_abs_err": float((q_got.int() - q_pl.int()).abs().max())})
+    d_cases = []
+    for xs, label in ((x_dec, "decode"), (x_pre, "prefill")):
+        for wname in ("wi", "wo"):
+            args = []
+            for i in range(len(mlps)):
+                a = xs[i].reshape(-1, lm.d_model)
+                if wname == "wo":   # the input the wo product receives
+                    a = torch.nn.functional.silu(dqm.dequant_matmul_plain(
+                        a, pq[i]["wg"]["q"], pq[i]["wg"]["s"])) * \
+                        dqm.dequant_matmul_plain(a, pq[i]["wi"]["q"],
+                                                pq[i]["wi"]["s"])
+                args.append((a, pq[i][wname]["q"], pq[i][wname]["s"]))
+            a0, q0, s0 = args[0]
+            got = dqm.dequant_matmul(*args[0])
+            want = dqm.dequant_matmul_plain(*args[0])
+            torch.cuda.synchronize()
+            if not torch.allclose(got, want, rtol=DMM_TOL, atol=DMM_TOL):
+                fail("dequant_matmul differs from plain on phase 5's inputs")
+            (m_, k_), n_ = a0.shape, q0.shape[1]
+            b_ms = (m_ * k_ * 4 + k_ * n_ + (k_ // 128) * n_ * 4
+                    + m_ * n_ * 4) / HBM_BYTES_PER_S * 1e3
+            o_ms = (2 * m_ * k_ * n_ + k_ * n_) / OPS_PER_S * 1e3
+            dq = [(a, (q.float().reshape(-1, 128, q.shape[1])
+                       * s[:, None, :]).reshape(q.shape)) for a, q, s in args]
+            d_cases.append({
+                "shape": [m_, k_, n_], "path": label,
+                "ms": cycle_ms(dqm.dequant_matmul, args),
+                "plain_ms": cycle_ms(dqm.dequant_matmul_plain, args),
+                "float_matmul_ms": cycle_ms(torch.matmul, dq),
+                "bound_ms": max(b_ms, o_ms), "bytes_ms": b_ms, "ops_ms": o_ms,
+                "bound_by": "bytes" if b_ms >= o_ms else "operations",
+                "max_abs_err": float((got - want).abs().max())})
+            del dq
+    for name, cases, head, src, tpu in (
+            ("quantize_blockwise", q_cases, 0,
+             "src/repro_torch/kernels/csrc/quantize_blockwise.cu",
+             "src/repro/kernels/quantize_blockwise.py:27"),
+            ("dequant_matmul", d_cases, 2,
+             "src/repro_torch/kernels/csrc/dequant_matmul.cu",
+             "src/repro/kernels/dequant_matmul.py:29")):
+        for c in cases:
+            yard = (f", float32 torch.matmul on the dequantized weight (the "
+                    f"float path q8 replaces) {c['float_matmul_ms']:.4f} ms"
+                    if "float_matmul_ms" in c else "")
+            print(f"kernel {name}: shape {tuple(c['shape'])}"
+                  f"{' ' + c['path'] if 'path' in c else ''}: "
+                  f"{c['ms']:.4f} ms per call (plain {c['plain_ms']:.4f} ms, "
+                  f"bound {c['bound_ms']:.6g} ms by {c['bound_by']}; bytes "
+                  f"{c['bytes_ms']:.6g} ms, operations {c['ops_ms']:.6g} ms"
+                  f"{yard}), "
+                  f"launches {launches5[name]}, max_abs_err "
+                  f"{c['max_abs_err']}")
+        h = cases[head]
+        records.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": tpu, "launches": launches5[name],
+                        "max_abs_err": max(c["max_abs_err"] for c in cases),
+                        "ms": h["ms"], "plain_ms": h["plain_ms"],
+                        "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
+                        "library_ms": None, "shape": h["shape"],
+                        "cases": cases})
     print(json.dumps({"kernels": records}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

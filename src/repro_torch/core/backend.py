@@ -21,30 +21,22 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..device import resolve_device as _resolve
+
 BACKENDS = ("numpy", "torch")
 
 
 def resolve_device(backend: str, device) -> Optional[torch.device]:
     """The device the `backend` runs on: None for numpy, else a
-    torch.device.  Raises ValueError for an unknown backend or device and
-    RuntimeError for CUDA on a host without it."""
+    torch.device (`repro_torch.device.resolve_device`).  Raises ValueError
+    for an unknown backend or device and RuntimeError for CUDA on a host
+    without it."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r} (expected one of "
                          f"{BACKENDS})")
     if backend == "numpy":
         return None
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                f"backend='torch', device={device!r}: CUDA is not available "
-                "on this host; pass device='cpu' to run the plain PyTorch "
-                "versions of the kernels")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
-    return dev
+    return _resolve(device)
 
 
 def to_device(arrays: Sequence[np.ndarray], dtype,

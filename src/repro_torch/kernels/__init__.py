@@ -4,6 +4,8 @@ version:
   codec_bytes.py   -- NS, GDICT, LDICT, PREFIX and RLE codec-size kernels
                       (SampleCF)
   planner_score.py -- prob_within and fused_score (the Section 5.2 planner)
+  quantize_blockwise.py -- blockwise int8 quantization (the q8 codec)
+  dequant_matmul.py -- the fused dequantize-matmul of q8 weights
   build.py         -- nvcc build into shared libraries, loaded with ctypes
 
 Importing builds nothing; the first CUDA call of a wrapper builds its
@@ -13,9 +15,10 @@ runs the plain version and counts nothing).
 """
 from typing import Dict
 
-from . import codec_bytes, planner_score
+from . import codec_bytes, dequant_matmul, planner_score, quantize_blockwise
 
-_COUNTERS = (codec_bytes.LAUNCHES, planner_score.LAUNCHES)
+_COUNTERS = (codec_bytes.LAUNCHES, planner_score.LAUNCHES,
+             quantize_blockwise.LAUNCHES, dequant_matmul.LAUNCHES)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -31,5 +34,5 @@ def reset_launch_counts() -> None:
             c[k] = 0
 
 
-__all__ = ["codec_bytes", "planner_score", "launch_counts",
-           "reset_launch_counts"]
+__all__ = ["codec_bytes", "dequant_matmul", "planner_score",
+           "quantize_blockwise", "launch_counts", "reset_launch_counts"]

@@ -27,7 +27,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 # -fmad=false: the planner kernels must evaluate one float expression with
-# the same roundings in two kernels; no contraction into FMA anywhere
+# the same roundings in two kernels; no contraction into FMA anywhere.  It
+# applies to every library, so dequant_matmul's multiply-adds are two
+# instructions each (see its source note)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
 
@@ -35,6 +37,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES: Dict[str, tuple] = {
     "codec_bytes": ("codec_bytes.cu", ()),
     "planner_score": ("planner_score.cu", ("prob_expr.cuh",)),
+    "quantize_blockwise": ("quantize_blockwise.cu", ()),
+    "dequant_matmul": ("dequant_matmul.cu", ()),
 }
 
 _lock = threading.Lock()

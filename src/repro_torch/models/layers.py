@@ -1,0 +1,262 @@
+"""Transformer layers of the dense family: norms, RoPE, GQA attention
+(full sequence and one-token decode over a KV cache), SwiGLU and
+squared-ReLU MLPs, and the q8-weight MLP.
+
+Counterpart of the JAX package's `models/layers.py`, under the same names.
+Parameters are keyed like the JAX pytree (`nn.ParameterDict`s, and the
+`MLP` module indexable the same way) and laid out like it (`wq` is (d,
+heads, d_head), `wo` (heads, d_head, d)), so weights carried over from the
+JAX package need no reshaping.  Each `init_*` takes
+an explicit `torch.Generator` and a device; the arithmetic follows the
+JAX functions step for step (the same casts, the same finite mask value).
+`attention_chunked`, `chunked_scan` and the MoE layer are still to be
+ported (ROADMAP.md Queue A).
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels.dequant_matmul import dequant_matmul, dequant_matmul_plain
+from ..kernels.quantize_blockwise import DEFAULT_BLOCK, quantize_blockwise
+from .config import ModelConfig
+
+NEG_INF = -1e9  # finite mask value: keeps bf16 softmax NaN-free
+
+
+def _init(generator: torch.Generator, shape, scale: float = 0.02,
+          device=None) -> nn.Parameter:
+    return nn.Parameter(torch.randn(shape, generator=generator,
+                                    dtype=torch.float32, device=device) * scale)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def init_rmsnorm(d: int, device=None) -> nn.ParameterDict:
+    return nn.ParameterDict({"scale": nn.Parameter(
+        torch.ones(d, dtype=torch.float32, device=device))})
+
+
+def rmsnorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    # the variance accumulates in float32; inv is cast to x's type before
+    # the product, then the scale multiplies (the JAX function's order)
+    var = torch.einsum("...d,...d->...", x.float(), x.float())[..., None]
+    var = var / x.shape[-1]
+    inv = torch.rsqrt(var + eps)
+    return (x * inv.to(x.dtype)) * p["scale"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, d_head, 2, dtype=torch.float32,
+                                         device=device) / d_head))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, Dh); positions: broadcastable to (..., S).  Rotates
+    the two halves of the head dimension (not interleaved pairs), in
+    float32, and casts back."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)                    # (Dh/2,)
+    angles = positions[..., None].to(torch.float32) * freqs    # (..., S, Dh/2)
+    cos = torch.cos(angles)[..., None, :]                      # (..., S, 1, Dh/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention
+# ---------------------------------------------------------------------------
+
+def init_attention(generator: torch.Generator, cfg: ModelConfig,
+                   device=None) -> nn.ParameterDict:
+    d, nh, nkv, hd = cfg.d_model, cfg.heads, cfg.kv_heads, cfg.d_head
+    return nn.ParameterDict({
+        "wq": _init(generator, (d, nh, hd), device=device),
+        "wk": _init(generator, (d, nkv, hd), device=device),
+        "wv": _init(generator, (d, nkv, hd), device=device),
+        "wo": _init(generator, (nh, hd, d),
+                    scale=0.02 / math.sqrt(2 * cfg.n_layers), device=device),
+    })
+
+
+def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
+    """(B,S,Kv,Dh) -> (B,S,Kv*groups,Dh) by repeating each kv head."""
+    if groups == 1:
+        return k
+    b, s, kv, dh = k.shape
+    k = k[:, :, :, None, :].expand(b, s, kv, groups, dh)
+    return k.reshape(b, s, kv * groups, dh)
+
+
+def attention_full(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Causal attention over the whole sequence (training / small prefill).
+
+    x: (B, S, D) -> (B, S, D)
+    """
+    b, s, d = x.shape
+    nh, nkv, hd = cfg.heads, cfg.kv_heads, cfg.d_head
+    positions = torch.arange(s, device=x.device)[None, :]
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    k = _repeat_kv(k, nh // nkv)
+    v = _repeat_kv(v, nh // nkv)
+    scores = torch.einsum("bqhk,bshk->bhqs", q, k) / math.sqrt(hd)
+    causal = torch.tril(torch.ones((s, s), dtype=torch.bool,
+                                   device=x.device))
+    scores = torch.where(causal[None, None], scores.to(torch.float32),
+                         NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    ctx = torch.einsum("bhqs,bshk->bqhk", probs, v)
+    return torch.einsum("bqhk,hkd->bqd", ctx, p["wo"])
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
+                  n_layers: int, dtype=torch.bfloat16,
+                  device=None) -> Dict[str, torch.Tensor]:
+    nkv, hd = cfg.kv_heads, cfg.d_head
+    shape = (n_layers, batch, max_len, nkv, hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def attention_decode(p, x: torch.Tensor, cfg: ModelConfig,
+                     k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     pos: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-token decode with a KV cache and PER-SLOT positions.
+
+    x: (B, 1, D); k_cache/v_cache: (B, S_max, Kv, Dh); pos: (B,) int32 --
+    each batch slot's current length (slot-based continuous batching).
+    Returns (out (B,1,D), k_cache, v_cache).  Unlike the JAX function, the
+    caches are written IN PLACE (and returned): each slot's new K and V go
+    to its `pos`, and a slot at pos >= S_max (retired, not yet reused)
+    writes nothing, as the JAX `mode="drop"` scatter does.
+    """
+    b, _, d = x.shape
+    nh, nkv, hd = cfg.heads, cfg.kv_heads, cfg.d_head
+    s_max = k_cache.shape[1]
+    positions = pos[:, None].to(torch.int32)                  # (B, 1)
+    q = apply_rope(torch.einsum("bsd,dhk->bshk", x, p["wq"]), positions,
+                   cfg.rope_theta)
+    k = apply_rope(torch.einsum("bsd,dhk->bshk", x, p["wk"]), positions,
+                   cfg.rope_theta)
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    rows = torch.arange(b, device=x.device)
+    inside = pos < s_max
+    at = torch.where(inside, pos, torch.zeros_like(pos)).long()
+    keep = inside[:, None, None]
+    k_cache[rows, at] = torch.where(keep, k[:, 0].to(k_cache.dtype),
+                                    k_cache[rows, at])
+    v_cache[rows, at] = torch.where(keep, v[:, 0].to(v_cache.dtype),
+                                    v_cache[rows, at])
+    kk = _repeat_kv(k_cache.to(x.dtype), nh // nkv)
+    vv = _repeat_kv(v_cache.to(x.dtype), nh // nkv)
+    scores = torch.einsum("bqhk,bshk->bhqs", q, kk) / math.sqrt(hd)
+    valid = torch.arange(s_max, device=x.device)[None, :] <= pos[:, None]
+    scores = torch.where(valid[:, None, None, :], scores.to(torch.float32),
+                         NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    ctx = torch.einsum("bhqs,bshk->bqhk", probs, vv)
+    out = torch.einsum("bqhk,hkd->bqd", ctx, p["wo"])
+    return out, k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+class MLP(nn.Module):
+    """MLP weights {wi, wg (SwiGLU only), wo}, (d, f) / (f, d), indexable
+    like a ParameterDict; calling the module runs `mlp`, so forward hooks
+    see each layer's MLP input."""
+
+    def __init__(self, params: Dict[str, nn.Parameter], kind: str):
+        super().__init__()
+        for name, w in params.items():
+            self.register_parameter(name, w)
+        self.kind = kind
+
+    def __getitem__(self, name: str) -> nn.Parameter:
+        return getattr(self, name)
+
+    def items(self):
+        return self.named_parameters(recurse=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return mlp(self, x, self.kind)
+
+
+def init_mlp(generator: torch.Generator, cfg: ModelConfig,
+             device=None) -> MLP:
+    d, f = cfg.d_model, cfg.d_ff
+    names = ("wi", "wg", "wo") if cfg.mlp == "swiglu" else ("wi", "wo")
+    shapes = {"wi": (d, f), "wg": (d, f), "wo": (f, d)}
+    return MLP({n: _init(generator, shapes[n], device=device)
+                for n in names}, cfg.mlp)
+
+
+def mlp(p, x: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "swiglu":
+        h = F.silu(x @ p["wg"]) * (x @ p["wi"])
+    else:  # squared ReLU (nemotron)
+        h = torch.square(F.relu(x @ p["wi"]))
+    return h @ p["wo"]
+
+
+# --- quantized-weight MLP (serving): the advisor's "q8 weights" choice ----
+
+@torch.no_grad()
+def quantize_mlp(p, block: int = DEFAULT_BLOCK
+                 ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Compress MLP weights to int8 through the quantize kernel (the plain
+    version on the CPU).  Each (K, N) weight is quantized along K: its
+    transpose is copied contiguous, quantized by rows, and the results are
+    transposed back into the (K, N) int8 / (K/block, N) scale layout that
+    `dequant_matmul` reads."""
+
+    def q(w):
+        qw, s = quantize_blockwise(w.to(torch.float32).t().contiguous(),
+                                   block)
+        return {"q": qw.t().contiguous(), "s": s.t().contiguous()}
+
+    return {k: q(v) for k, v in p.items()}
+
+
+def mlp_quantized(pq, x: torch.Tensor, kind: str,
+                  block: int = DEFAULT_BLOCK,
+                  use_kernel: bool = True) -> torch.Tensor:
+    """MLP forward with int8 weights, dequantized inside the product (the
+    dequant-matmul kernel on a CUDA tensor).  `use_kernel=False` computes
+    the same with the plain version on any device (the JAX function's
+    `use_pallas=False`).  The weights never materialize in floating point
+    in device memory on the kernel's route -- SQL Server's "decompress only
+    what the query reads" (paper A.2), fused."""
+    fn = dequant_matmul if use_kernel else dequant_matmul_plain
+
+    def mm(a, w):
+        return fn(a, w["q"], w["s"], block)
+
+    lead = x.shape[:-1]
+    a = x.reshape(-1, x.shape[-1])
+    if kind == "swiglu":
+        h = F.silu(mm(a, pq["wg"])) * mm(a, pq["wi"])
+    else:
+        h = torch.square(F.relu(mm(a, pq["wi"])))
+    out = mm(h.to(x.dtype), pq["wo"])
+    return out.reshape(*lead, -1).to(x.dtype)

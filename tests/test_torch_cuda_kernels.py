@@ -9,7 +9,10 @@ this file imports only `repro_torch` (no JAX), so it also runs on the card:
 Tolerances: the five codec kernels bit-equal (integers); `prob_within` and
 `fused_score` p within atol 1e-6 and cm / cs within rtol 1e-6 (the same
 IEEE float ops; only CUDA's erff and PyTorch's erf may differ by an ulp);
-winners equal; prob consistency bitwise.
+winners equal; prob consistency bitwise.  Blockwise quantization bit-equal
+(q and scales: the same IEEE divisions and round-half-even);
+dequant-matmul within rtol and atol 1e-4 of the plain version's IEEE
+float32 product (another summation order).
 """
 import numpy as np
 import pytest
@@ -17,7 +20,9 @@ import torch
 
 from repro_torch.core import compression as comp
 from repro_torch.kernels import codec_bytes as cb, launch_counts
+from repro_torch.kernels import dequant_matmul as dm
 from repro_torch.kernels import planner_score as ps
+from repro_torch.kernels import quantize_blockwise as qb
 
 E = 0.1
 
@@ -129,3 +134,64 @@ def test_cuda_fused_score_close_to_plain(cuda, nc, k, nf):
     again = ps.prob_within(got[0], got[1], E)
     mask = mask67 | pre9
     assert torch.equal(got[2][mask], again[mask])
+
+
+def quantize_cases():
+    rng = np.random.default_rng(7)
+    half = np.zeros((2, 128), np.float32)
+    half[0, 0] = 127.0                   # scale 1: x / scale lands on .5
+    half[0, 1:7] = [0.5, 1.5, 2.5, -0.5, -2.5, 126.5]
+    zero_block = (rng.standard_normal((3, 256)) * 3).astype(np.float32)
+    zero_block[1, 128:] = 0.0
+    return [("ragged 7", rng.standard_normal((5, 7)), "float32"),
+            ("ragged 130", rng.standard_normal((9, 130)) * 5, "float32"),
+            ("all-zero block", zero_block, "float32"),
+            (".5 after division", half, "float32"),
+            ("bf16", rng.standard_normal((64, 384)) * 3, "bfloat16"),
+            ("rank 3", rng.standard_normal((4, 2, 96)), "float32"),
+            ("rank 4", rng.standard_normal((3, 5, 7, 130)), "float32"),
+            ("mlp weight", rng.standard_normal((256, 2048)) * 0.02,
+             "float32")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,x,dtype", quantize_cases(),
+                         ids=[c[0] for c in quantize_cases()])
+def test_cuda_quantize_bit_equal_plain(cuda, label, x, dtype):
+    t = torch.as_tensor(np.asarray(x, np.float32), device=cuda).to(
+        getattr(torch, dtype))
+    before = launch_counts()["quantize_blockwise"]
+    q, s = qb.quantize_blockwise(t)
+    q_p, s_p = qb.quantize_blockwise_plain(t)
+    torch.cuda.synchronize()
+    assert launch_counts()["quantize_blockwise"] == before + 1
+    assert torch.equal(q, q_p) and torch.equal(s, s_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1, 128, 100), (3, 384, 70),
+                                   (4, 2048, 5632), (4, 5632, 2048),
+                                   (512, 384, 130), (512, 2048, 200)])
+def test_cuda_dequant_matmul_close_to_plain(cuda, m, k, n):
+    assert not torch.backends.cuda.matmul.allow_tf32
+    rng = np.random.default_rng(m + k + n)
+    a = torch.as_tensor(rng.standard_normal((m, k)).astype(np.float32),
+                        device=cuda)
+    w = torch.as_tensor((rng.standard_normal((k, n)) * 0.02).astype(
+        np.float32), device=cuda)
+    qw, s = qb.quantize_blockwise_plain(w.t().contiguous())
+    qw, s = qw.t().contiguous(), s.t().contiguous()
+    before = launch_counts()["dequant_matmul"]
+    got = dm.dequant_matmul(a, qw, s)
+    want = dm.dequant_matmul_plain(a, qw, s)
+    torch.cuda.synchronize()
+    assert launch_counts()["dequant_matmul"] == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_dequant_matmul_rejects_k_off_the_block(cuda):
+    a = torch.zeros((4, 200), device=cuda)
+    qw = torch.zeros((200, 64), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="multiple of block"):
+        dm.dequant_matmul(a, qw, torch.ones((1, 64), device=cuda))
