@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port on one GPU, end to end: the advisor and LM
-serving.
+"""Drive the PyTorch/CUDA port on one GPU, end to end: the advisor, LM
+serving and LM training.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught), run in the order
-1, 2, 3, 3b, 3c, 4, 5, 4b:
-  1. print the card (nvidia-smi name, power limit) and build the nine
+1, 2, 3, 3b, 3c, 4, 5, 4b, 6, 4c:
+  1. print the card (nvidia-smi name, power limit) and build the ten
      hand-written kernels from the sources under src/repro_torch/kernels/
      (four libraries, one nvcc per source, all started together);
   2. hold each kernel against its plain PyTorch version on the card on
-     edge cases: the five codec kernels (NS, GDICT, LDICT, PREFIX, RLE)
-     and blockwise quantization bit-equal; prob_within and fused_score
+     edge cases: the five codec kernels (NS, GDICT, LDICT, PREFIX, RLE),
+     blockwise quantization and blockwise dequantization (float32 and
+     bfloat16 output) bit-equal; prob_within and fused_score
      within the stated tolerances, plus their two bitwise properties (prob
      consistency, K-pad invariance); dequant-matmul within rtol and atol
      1e-4 of the plain IEEE float32 product;
@@ -45,13 +46,33 @@ Phases (any failure exits non-zero; nothing is caught), run in the order
      before 5b and read after 5c;
   4b. time the quantize and dequant-matmul kernels at the shapes phase 5
      gave them, cycling through the 22 layers' weights (the main path
-     finds them cold in the L2 cache).
+     finds them cold in the L2 cache);
+  6. LM training at TinyLlama-1.1B's published size and context (batch
+     4, seq 2048), phase 5's model freed first: 6a the layout advisor's
+     plan for the train job at an 80 GB and a 10 GB budget (the q8
+     gradient wire at both, q8 Adam moments at 10 GB required); 6b
+     Trainer for 6 steps at 80 GB (float32 moments): losses finite, the
+     first near ln(32000), the last below it, exactly one quantize and
+     one dequantize launch per gradient tensor per step, step time,
+     tokens/s, share of the bf16 peak, peak device memory, then one more
+     step traced with torch.profiler (device busy share, device time by
+     kernel family); 6c the same for 4 steps at 10 GB (q8 moments: three
+     launches of each kernel per parameter per step); 6d both kernels
+     bit-equal to their plain versions on the gradients of 6b's next
+     step (from the step's own loss-and-gradient function) and 6c's
+     moments; 6e a two-layer model at width 2048 trained for 2 steps in
+     float32 on the card and on the CPU, held to the CPU tests'
+     tolerances;
+  4c. time the dequantize kernel (and quantize) at phase 6's shapes,
+     cycling through the 22 layers' gradients, beside the plain version
+     and the one PyTorch call that computes the same function.
 
 Prints the per-phase wall times, launch counts, kernel times beside their
 bounds, peak device memory, a JSON line of kernel records, the card line,
 and last {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -90,6 +111,34 @@ DMM_TOL = 1e-4                   # dequant-matmul vs plain, rtol and atol
 LOGITS_ATOL = 1e-3
 Q8_REL_ERR = 0.05                # q8 MLP vs float MLP, mean relative error
 Q8_BYTES_RATIO = 0.35            # q8 MLP bytes vs float32 bytes
+# phase 6: training TinyLlama-1.1B at its published context
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 4, 2048, 3e-4
+TRAIN_BUDGETS = (80e9, 10e9)     # 6b float32 moments, 6c q8 moments
+TRAIN_STEPS = (6, 4)
+BF16_PEAK = 989e12               # H100 SXM dense bf16 tensor-core rate
+# at init the logits have variance d_model * 0.02^2 ~ 0.82, so the first
+# loss is about ln(32000) + 0.41 = 10.78
+FIRST_LOSS = (10.0, 11.5)
+# phase 6e, card vs CPU in float32 (the CPU tests' tolerances against
+# JAX): losses within rtol 1e-4; parameters within 6 lr everywhere and
+# within 1e-5 on all but 0.1 % (Adam's first updates are near sign(g) * lr,
+# so an element whose gradient or q8 level sits at a rounding boundary can
+# move by up to 2 lr more on one side)
+# phase 6b's trace: kernel families by substrings of the kernel name (the
+# first match wins; dequantize before quantize, which its name contains)
+KERNEL_FAMILIES = (
+    ("matrix products", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
+    ("q8 dequantize (ours)", ("dequantize_kernel",)),
+    ("q8 quantize (ours)", ("quantize_kernel",)),
+    ("softmax / logsumexp", ("softmax", "logsumexp")),
+    ("reductions", ("reduce",)),
+    ("index / gather / scatter", ("index", "gather", "scatter",
+                                  "embedding")),
+    ("copies and casts", ("copy", "cat", "memcpy", "memset")),
+    ("elementwise", ("elementwise",)))
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_PARAM_ATOL = 1e-5
+TRAIN_FAR_SHARE = 1e-3
 GDICT_EXEMPT = ("gdict_bytes is on no advisor path: SampleCF prices GDICT "
                 "on the host with the Adaptive Estimator (App. B), in this "
                 "port as in the JAX package; its kernel is held against its "
@@ -106,6 +155,25 @@ def card_line() -> str:
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+def short_name(kernel: str) -> str:
+    """A CUDA kernel's name without its namespaces, cut to 160 characters."""
+    for noise in ("void ", "at::native::", "(anonymous namespace)::",
+                  "c10::", "std::"):
+        kernel = kernel.replace(noise, "")
+    return kernel[:160]
+
+
+def bit_equal(a, b) -> bool:
+    """Same type, shape and bits (float32 / bfloat16 / integer tensors)."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype in (torch.float32, torch.bfloat16):
+        as_int = torch.int32 if a.dtype == torch.float32 else torch.int16
+        a, b = a.contiguous().view(as_int), b.contiguous().view(as_int)
+    return bool(torch.equal(a, b))
 
 
 def main() -> int:
@@ -280,6 +348,23 @@ def main() -> int:
             [0, 2, 2, 0, -2, -2, 126, -126]:
         fail("quantize_blockwise does not round half to even")
 
+    # blockwise dequantization of the same cases, bit-equal to plain in
+    # float32 and bfloat16, and once more from an int8 tensor at an odd
+    # address (the kernel's one-element-at-a-time path)
+    n_dq = 0
+    for label, x, dt in q_cases + [("odd address", rng.standard_normal(
+            (6, 256)), torch.float32)]:
+        dq_q, dq_s = qb.quantize_blockwise_plain(f32(x).to(dt))
+        if label == "odd address":
+            buf = torch.empty(dq_q.numel() + 1, dtype=torch.int8, device=dev)
+            dq_q = buf[1:].view(dq_q.shape).copy_(dq_q)
+        for out_dt in (torch.float32, torch.bfloat16):
+            if not bit_equal(qb.dequantize_blockwise(dq_q, dq_s, dtype=out_dt),
+                             qb.dequantize_blockwise_plain(dq_q, dq_s,
+                                                           dtype=out_dt)):
+                fail(f"dequantize_blockwise != plain on {label} ({out_dt})")
+            n_dq += 1
+
     # dequant-matmul within DMM_TOL of the plain IEEE float32 product
     if torch.backends.cuda.matmul.allow_tf32:
         fail("the plain dequant-matmul would run in TF32")
@@ -306,11 +391,13 @@ def main() -> int:
                          f"K={dm_k} N={dm_n}")
                 worst = max(worst, float((got - want).abs().max()))
                 n_dmm += 1
-    del a, qw, sw, got, want, xt, qt, st, qt_p, st_p
+    del a, qw, sw, got, want, xt, qt, st, qt_p, st_p, dq_q, dq_s, buf
     print(f"LM kernels: quantize_blockwise bit-equal to plain on "
           f"{len(q_cases)} cases (round half to even); dequant_matmul within "
           f"rtol/atol {DMM_TOL} of plain on {n_dmm} cases (max abs err "
           f"{worst:.3g})")
+    print(f"LM kernels: dequantize_blockwise bit-equal to plain on {n_dq} "
+          "cases (float32 and bfloat16 output)")
 
     # ---- phase 3: the main path at TPC-H SF1 -------------------------
     t0 = time.perf_counter()
@@ -947,6 +1034,336 @@ def main() -> int:
                         "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
                         "library_ms": None, "shape": h["shape"],
                         "cases": cases})
+
+    # ---- phase 6: LM training at TinyLlama-1.1B -------------------------
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import step as train_step
+    from repro_torch.train.loop import TrainConfig, Trainer
+
+    # phase 5's model, engines, captures and q8 weights must not count in
+    # phase 6's peak device memory
+    del (params, eng, eng32, decode, recording, seen, full, stepwise, e2,
+         mlps, eng_c, x_dec, toks, x_pre, pq, x, xs, got, plain, fl, want,
+         args, a, a0, q0, s0, wi_t, wo_t, ws, q_got, s_got, q_pl, s_pl)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.set_grad_enabled(True)         # training: autograd again
+    print(f"phase 6: device memory still allocated from earlier phases "
+          f"{torch.cuda.memory_allocated(dev)} B")
+    n_lm = lm.param_count()
+    flops6 = 6.0 * n_lm * TRAIN_BATCH * TRAIN_SEQ
+    for hbm in TRAIN_BUDGETS:            # 6a: the layout advisor's plan
+        tplan = plan_layout(lm, "train", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                            n_chips=1, hbm_budget_bytes=hbm,
+                            base_flops_per_chip=flops6)
+        print(f"phase 6a: plan_layout({LM_ARCH}, 'train', batch="
+              f"{TRAIN_BATCH}, seq={TRAIN_SEQ}, n_chips=1, hbm_budget_bytes="
+              f"{hbm:.3g}, base_flops_per_chip={flops6:.6g}) -> "
+              f"{tplan.choices}, {tplan.hbm_bytes!r} B, step "
+              f"{tplan.step_cost_s * 1e3:.6g} ms")
+        if tplan.choices.get("grad_wire") != "q8":
+            fail(f"phase 6a: the plan at {hbm:.3g} B does not put the "
+                 f"gradients on the q8 wire: {tplan.choices}")
+    if tplan.choices.get("adam_m") != "q8":
+        fail(f"phase 6a: the plan at {TRAIN_BUDGETS[-1]:.3g} B does not "
+             f"compress the Adam moments: {tplan.choices}")
+
+    def train(label, hbm, steps):
+        """Trainer(TinyLlama-1.1B) for `steps` steps on the card, the
+        launch counters zeroed just before and read just after."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer = Trainer(lm, TrainConfig(
+            steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR,
+            hbm_budget_bytes=hbm, seed=0, log_every=1), device=dev)
+        trainer.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        losses = [h["loss"] for h in trainer.history]
+        secs = [h["seconds"] for h in trainer.history]
+        names = [n for n, _ in trainer.params.named_parameters()]
+        n_wire = sum(1 for _, p_ in trainer.params.named_parameters()
+                     if p_.ndim > 0 and p_.shape[-1] >= 8)
+        step_s = sum(secs[1:]) / len(secs[1:])
+        print(f"phase {label}: Trainer({LM_ARCH}, batch {TRAIN_BATCH}, seq "
+              f"{TRAIN_SEQ}, lr {TRAIN_LR}, hbm_budget_bytes {hbm:.3g}): "
+              f"plan {trainer.plan.choices}, moments "
+              f"{trainer.opt_cfg.state_codec}, attention chunked; {steps} "
+              f"steps in {wall:.3f} s (with init); losses {losses}; step "
+              f"seconds {secs}")
+        print(f"phase {label}: {step_s:.4f} s per step without step 0; "
+              f"{TRAIN_BATCH * TRAIN_SEQ / step_s:.1f} tokens/s; "
+              f"6*N*tokens / (step s * {BF16_PEAK:.4g}) = "
+              f"{flops6 / (step_s * BF16_PEAK):.4f} of the bf16 peak "
+              f"(N = {n_lm}); peak device memory {peak} B")
+        print(f"launches in phase {label}: {json.dumps(counts)}")
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"phase {label}: a loss is not finite: {losses}")
+        if not FIRST_LOSS[0] < losses[0] < FIRST_LOSS[1]:
+            fail(f"phase {label}: first loss {losses[0]} outside "
+                 f"{FIRST_LOSS}")
+        if not losses[-1] < losses[0]:
+            fail(f"phase {label}: the loss did not fall: {losses}")
+        per_step = n_wire + (2 * len(names)
+                             if trainer.opt_cfg.state_codec == "q8" else 0)
+        for k in ("quantize_blockwise", "dequantize_blockwise"):
+            if counts[k] != steps * per_step:
+                fail(f"phase {label}: {counts[k]} {k} launches, not {steps} "
+                     f"steps x {per_step}")
+        moments = (f", and m and sqrt v of {len(names)} parameters"
+                   if per_step > n_wire else "")
+        print(f"phase {label}: {per_step} quantize_blockwise and {per_step} "
+              f"dequantize_blockwise launches per step ({n_wire} gradient "
+              f"tensors on the q8 wire{moments})")
+        return trainer, counts, names
+
+    def trace_step(trainer):
+        """One more step under torch.profiler: device busy time against
+        the step's wall time, and the kernels' time by family."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            trainer.run(1)
+        step_us = trainer.history[-1]["seconds"] * 1e6
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name[e.name] = by_name.get(e.name, 0.0) + \
+                    e.time_range.elapsed_us()
+        busy_us = sum(by_name.values())
+        if busy_us <= 0:
+            print("phase 6b trace: torch.profiler recorded no device time")
+            return
+        fams = {}
+        for name, us in by_name.items():
+            low = name.lower()
+            fam = next((f for f, keys in KERNEL_FAMILIES if any(
+                k in low for k in keys)), "other")
+            fams[fam] = fams.get(fam, 0.0) + us
+        print(f"phase 6b trace: one step under torch.profiler: "
+              f"{step_us / 1e3:.3f} ms wall (profiler on), {busy_us / 1e3:.3f}"
+              f" ms of device work in {len(by_name)} kernel names: device "
+              f"busy {busy_us / step_us:.4f}, idle "
+              f"{1 - busy_us / step_us:.4f}")
+        print("phase 6b trace: device ms by family: " + ", ".join(
+            f"{f} {us / 1e3:.3f} ({us / busy_us:.3f})"
+            for f, us in sorted(fams.items(), key=lambda kv: -kv[1])))
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+        print("phase 6b trace: top kernels (device ms): " + "; ".join(
+            f"{short_name(n)} {us / 1e3:.3f}" for n, us in top))
+
+    # 6b: 80 GB, float32 moments, the q8 wire
+    trainer, launches6b, names6 = train("6b", TRAIN_BUDGETS[0],
+                                        TRAIN_STEPS[0])
+    if trainer.opt_cfg.state_codec != "f32":
+        fail("phase 6b: the plan at 80 GB compresses the moments")
+    trace_step(trainer)
+    # the gradients the trainer's next step puts on the q8 wire, from the
+    # step's own loss-and-gradient function (bf16 compute copy, remat,
+    # chunked attention), for 6d and 4c
+    _, grads6 = train_step.make_loss_and_grads(lm, remat=True)(
+        trainer.params, batch_at(trainer.data_cfg, trainer.step, dev))
+    mom_b = {"f32": sum(nbytes(*m.values())
+                        for m in trainer.opt_state["moments"].values())}
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    if list(grads6) != names6:
+        fail(f"phase 6b: {len(grads6)} gradients, not one for each of the "
+             f"{len(names6)} parameters")
+
+    # 6c: 10 GB, q8 moments
+    trainer, launches6c, _ = train("6c", TRAIN_BUDGETS[1], TRAIN_STEPS[1])
+    moments6 = trainer.opt_state["moments"]
+    if trainer.opt_cfg.state_codec != "q8" or any(
+            m[k].dtype != torch.int8 for m in moments6.values()
+            for k in ("m_q", "v_q")):
+        fail("phase 6c: the moments are not int8")
+    mom_b["q8"] = sum(nbytes(*m.values()) for m in moments6.values())
+    print(f"phase 6c: moment bytes {mom_b['q8']} (q8, int8 + float32 scales) "
+          f"against {mom_b['f32']} (float32, 6b): "
+          f"{mom_b['q8'] / mom_b['f32']:.4f}")
+    del trainer
+
+    # 6d: both kernels on the real gradients and moments, bit-equal to plain
+    n6d = 0
+    wire6 = {}
+    for name, g in grads6.items():
+        q_, s_ = qb.quantize_blockwise(g)
+        q_p, s_p = qb.quantize_blockwise_plain(g)
+        if not (bit_equal(q_, q_p) and bit_equal(s_, s_p)):
+            fail(f"phase 6d: quantize_blockwise != plain on the gradient of "
+                 f"{name}")
+        if not bit_equal(qb.dequantize_blockwise(q_, s_),
+                         qb.dequantize_blockwise_plain(q_, s_)):
+            fail(f"phase 6d: dequantize_blockwise != plain on the gradient "
+                 f"of {name}")
+        wire6[name] = (q_, s_)
+        n6d += 1
+    for name, m in moments6.items():
+        for k in ("m", "v"):
+            got_d = qb.dequantize_blockwise(m[f"{k}_q"], m[f"{k}_s"])
+            if not bit_equal(got_d, qb.dequantize_blockwise_plain(
+                    m[f"{k}_q"], m[f"{k}_s"])):
+                fail(f"phase 6d: dequantize_blockwise != plain on {k} of "
+                     f"{name}")
+            q_, s_ = qb.quantize_blockwise(got_d)
+            q_p, s_p = qb.quantize_blockwise_plain(got_d)
+            if not (bit_equal(q_, q_p) and bit_equal(s_, s_p)):
+                fail(f"phase 6d: quantize_blockwise != plain on {k} of "
+                     f"{name}")
+            n6d += 1
+    del moments6, got_d, q_, s_, q_p, s_p, grads6
+    print(f"phase 6d: quantize_blockwise and dequantize_blockwise bit-equal "
+          f"to plain on {n6d} real tensors (6b's next step's gradients, "
+          f"6c's q8 m and sqrt v)")
+
+    # 6e: the card against the CPU at width 2048, depth 2, float32 compute
+    lm6e = dataclasses.replace(lm, name=f"{LM_ARCH}-depth2", n_layers=2)
+    p_card = MD.init_params(torch.Generator(dev).manual_seed(0), lm6e,
+                            device=dev)
+    p_cpu = MD.init_params(torch.Generator().manual_seed(0), lm6e,
+                           device="cpu")
+    p_cpu.load_state_dict(p_card.state_dict())
+    opt6e = AdamWConfig(lr=TRAIN_LR, state_codec="q8")
+    data6e = DataConfig(vocab=lm.vocab, batch=1, seq=TRAIN_SEQ, seed=0)
+    got6e = {}
+    for where, p_ in (("card", p_card), ("cpu", p_cpu)):
+        t0 = time.perf_counter()
+        st6 = adamw_init(p_, opt6e)
+        step6 = train_step.make_train_step(
+            lm6e, opt6e, remat=True, grad_compression="q8",
+            compute_dtype=None, attn_impl="chunked")
+        losses6 = []
+        for i in range(2):
+            p_, st6, loss6 = step6(p_, st6, batch_at(data6e, i,
+                                                     p_.embed.device))
+            losses6.append(float(loss6))
+        got6e[where] = (losses6, time.perf_counter() - t0)
+    del st6
+    for a_, b_ in zip(got6e["card"][0], got6e["cpu"][0]):
+        if not math.isclose(a_, b_, rel_tol=TRAIN_LOSS_RTOL):
+            fail(f"phase 6e: card losses {got6e['card'][0]} and CPU losses "
+                 f"{got6e['cpu'][0]} differ beyond rtol {TRAIN_LOSS_RTOL}")
+    far = total = 0
+    worst6e = 0.0
+    for (name, pc), pp in zip(p_card.named_parameters(), p_cpu.parameters()):
+        d = (pc.detach().cpu() - pp.detach()).abs()
+        worst6e = max(worst6e, float(d.max()))
+        far += int((d > TRAIN_PARAM_ATOL).sum())
+        total += d.numel()
+    if worst6e > 6 * TRAIN_LR or far > TRAIN_FAR_SHARE * total:
+        fail(f"phase 6e: parameters differ by up to {worst6e} (6 lr = "
+             f"{6 * TRAIN_LR}); {far} of {total} beyond {TRAIN_PARAM_ATOL}")
+    print(f"phase 6e: width {lm6e.d_model}, depth 2, vocab {lm6e.vocab}, "
+          f"batch 1, seq {TRAIN_SEQ} (two attention chunks each way), float32"
+          f" compute, q8 wire and q8 moments, 2 steps: card losses "
+          f"{got6e['card'][0]} ({got6e['card'][1]:.3f} s), CPU losses "
+          f"{got6e['cpu'][0]} ({got6e['cpu'][1]:.3f} s), within rtol "
+          f"{TRAIN_LOSS_RTOL}; parameters within {6 * TRAIN_LR} everywhere "
+          f"(max {worst6e:.3g}), {far} of {total} beyond {TRAIN_PARAM_ATOL}")
+    del p_card, p_cpu
+
+    # ---- phase 4c: the dequantize kernel at phase 6's shapes ------------
+    # (and quantize at the same shapes: most of its launches are here)
+    dq_cases, q6_cases = [], []
+    for label, keys in (
+            ("embedding gradient", ["embed"]),
+            ("mlp wi gradient", [f"layers.{i}.mlp.wi"
+                                 for i in range(lm.n_layers)]),
+            ("mlp wo gradient", [f"layers.{i}.mlp.wo"
+                                 for i in range(lm.n_layers)]),
+            ("attention wq gradient", [f"layers.{i}.attn.wq"
+                                       for i in range(lm.n_layers)]),
+            ("norm gradient", [f"layers.{i}.norm1.scale"
+                               for i in range(lm.n_layers)])):
+        args = [wire6[k] for k in keys]
+        q0, s0 = args[0]
+        got = qb.dequantize_blockwise(q0, s0)
+        want = qb.dequantize_blockwise_plain(q0, s0)
+        if not bit_equal(got, want):
+            fail(f"dequantize_blockwise != plain on the {label}")
+        numel, nb_ = q0.numel(), s0.shape[-1]
+        b_ms = (numel * 5 + s0.numel() * 4) / HBM_BYTES_PER_S * 1e3
+        o_ms = numel / OPS_PER_S * 1e3
+        lib_ms = None
+        if q0.shape[-1] % 128 == 0:     # one broadcast multiply computes it
+            lib_ms = cycle_ms(lambda q_, s_: q_.view(
+                *q_.shape[:-1], s_.shape[-1], 128) * s_[..., None], args)
+        dq_cases.append({
+            "shape": list(q0.shape), "path": label, "tensors": len(args),
+            "ms": cycle_ms(qb.dequantize_blockwise, args),
+            "plain_ms": cycle_ms(qb.dequantize_blockwise_plain, args,
+                                 reps=2),
+            "library_ms": lib_ms,
+            "bound_ms": max(b_ms, o_ms), "bytes_ms": b_ms, "ops_ms": o_ms,
+            "bound_by": "bytes" if b_ms >= o_ms else "operations",
+            "max_abs_err": float((got - want).abs().max())})
+        # quantize on the wire's float32 input of the same shapes
+        xs6 = [(qb.dequantize_blockwise(q_, s_),) for q_, s_ in args]
+        q_got, s_got = qb.quantize_blockwise(*xs6[0])
+        q_pl, s_pl = qb.quantize_blockwise_plain(*xs6[0])
+        if not (bit_equal(q_got, q_pl) and bit_equal(s_got, s_pl)):
+            fail(f"quantize_blockwise != plain on the {label}'s wire "
+                 f"tensor")
+        qb_ms = (numel * 5 + s0.numel() * 4) / HBM_BYTES_PER_S * 1e3
+        qo_ms = 6 * numel / OPS_PER_S * 1e3
+        q6_cases.append({
+            "shape": list(q0.shape), "path": f"training: {label}",
+            "tensors": len(args),
+            "ms": cycle_ms(qb.quantize_blockwise, xs6),
+            "plain_ms": cycle_ms(qb.quantize_blockwise_plain, xs6, reps=2),
+            "bound_ms": max(qb_ms, qo_ms), "bytes_ms": qb_ms,
+            "ops_ms": qo_ms,
+            "bound_by": "bytes" if qb_ms >= qo_ms else "operations",
+            "max_abs_err": float((q_got.int() - q_pl.int()).abs().max())})
+    del wire6, args, q0, s0, got, want, xs6, q_got, s_got, q_pl, s_pl
+    dq_launches = {"6b": launches6b["dequantize_blockwise"],
+                   "6c": launches6c["dequantize_blockwise"]}
+    for c in dq_cases:
+        lib = (f", one-call broadcast multiply {c['library_ms']:.4f} ms"
+               if c["library_ms"] is not None else
+               ", no one-call equivalent (last dimension not a multiple of "
+               "128)")
+        print(f"kernel dequantize_blockwise: shape {tuple(c['shape'])} "
+              f"{c['path']} (cycling {c['tensors']}): {c['ms']:.4f} ms per "
+              f"call (plain {c['plain_ms']:.4f} ms, bound {c['bound_ms']:.6g}"
+              f" ms by {c['bound_by']}; bytes {c['bytes_ms']:.6g} ms, "
+              f"operations {c['ops_ms']:.6g} ms{lib}), launches "
+              f"{json.dumps(dq_launches)}, max_abs_err {c['max_abs_err']}")
+    for c in q6_cases:
+        print(f"kernel quantize_blockwise: shape {tuple(c['shape'])} "
+              f"{c['path']} (cycling {c['tensors']}): {c['ms']:.4f} ms per "
+              f"call (plain {c['plain_ms']:.4f} ms, bound {c['bound_ms']:.6g}"
+              f" ms by {c['bound_by']}; bytes {c['bytes_ms']:.6g} ms, "
+              f"operations {c['ops_ms']:.6g} ms), max_abs_err "
+              f"{c['max_abs_err']}")
+    h = dq_cases[0]
+    records.append({
+        "name": "dequantize_blockwise", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/quantize_blockwise.cu",
+        "replaces": "src/repro/kernels/quantize_blockwise.py:38",
+        "launches": sum(dq_launches.values()),
+        "launches_by_phase": dq_launches,
+        "max_abs_err": max(c["max_abs_err"] for c in dq_cases),
+        "ms": h["ms"], "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
+        "bound_by": h["bound_by"], "library_ms": h["library_ms"],
+        "shape": h["shape"], "cases": dq_cases})
+    rec_q = next(r for r in records if r["name"] == "quantize_blockwise")
+    rec_q["launches_by_phase"] = {
+        "5": rec_q["launches"], "6b": launches6b["quantize_blockwise"],
+        "6c": launches6c["quantize_blockwise"]}
+    rec_q["launches"] = sum(rec_q["launches_by_phase"].values())
+    rec_q["cases"] += q6_cases
+    print(f"launches of quantize_blockwise by phase: "
+          f"{json.dumps(rec_q['launches_by_phase'])}")
+
     print(json.dumps({"kernels": records}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,58 @@
+"""Deterministic synthetic token pipeline.
+
+batch_at(step) is a PURE function of (seed, step): no iterator state to
+checkpoint, and a restart gets the same batches.
+
+The synthetic language is learnable: with probability ~7/8 the next token
+is an affine function of the current one, else it re-seeds, so training
+loss falls measurably within a few steps.
+
+Counterpart of the JAX package's `data/pipeline.py`: the same NumPy
+generator gives the same tokens and labels, returned as int32 tensors on
+the port's device (the card unless the caller asks for the CPU).  The JAX
+`sharding` argument waits for the distribution slice (ROADMAP.md Queue A
+item 13), and the stub embeddings of the vlm / audio frontends for the
+remaining model families (item 10).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    vocab: int
+    batch: int
+    seq: int
+    seed: int = 0
+
+
+def _tokens_for(cfg: DataConfig, step: int) -> np.ndarray:
+    rng = np.random.default_rng((cfg.seed * 1_000_003 + step) & 0x7FFFFFFF)
+    b, s, v = cfg.batch, cfg.seq, cfg.vocab
+    start = rng.integers(0, v, size=(b, 1))
+    noise = rng.random((b, s)) < 0.125
+    fresh = rng.integers(0, v, size=(b, s))
+    toks = np.empty((b, s), np.int64)
+    toks[:, 0] = start[:, 0]
+    a, c = 31, 7
+    for i in range(1, s):
+        nxt = (toks[:, i - 1] * a + c) % v
+        toks[:, i] = np.where(noise[:, i], fresh[:, i], nxt)
+    return toks.astype(np.int32)
+
+
+def batch_at(cfg: DataConfig, step: int,
+             device="cuda") -> Dict[str, torch.Tensor]:
+    """Batch for `step`: tokens and next-token labels, (batch, seq) int32."""
+    dev = resolve_device(device)
+    toks = _tokens_for(cfg, step)
+    labels = np.concatenate([toks[:, 1:], toks[:, :1]], axis=1)
+    return {"tokens": torch.from_numpy(toks).to(dev),
+            "labels": torch.from_numpy(labels).to(dev)}

@@ -4,14 +4,17 @@ version:
   codec_bytes.py   -- NS, GDICT, LDICT, PREFIX and RLE codec-size kernels
                       (SampleCF)
   planner_score.py -- prob_within and fused_score (the Section 5.2 planner)
-  quantize_blockwise.py -- blockwise int8 quantization (the q8 codec)
+  quantize_blockwise.py -- blockwise int8 quantize and dequantize (the q8
+                      codec: q8 weights, the q8 gradient wire, q8 AdamW
+                      moments)
   dequant_matmul.py -- the fused dequantize-matmul of q8 weights
   build.py         -- nvcc build into shared libraries, loaded with ctypes
 
-Importing builds nothing; the first CUDA call of a wrapper builds its
-library.  `launch_counts` / `reset_launch_counts` read and zero the
-wrappers' launch counters, which count kernel launches only (a CPU call
-runs the plain version and counts nothing).
+Every TPU kernel of the JAX package (`src/repro/kernels/`) has its
+counterpart here.  Importing builds nothing; the first CUDA call of a
+wrapper builds its library.  `launch_counts` / `reset_launch_counts` read
+and zero the wrappers' launch counters, which count kernel launches only
+(a CPU call runs the plain version and counts nothing).
 """
 from typing import Dict
 

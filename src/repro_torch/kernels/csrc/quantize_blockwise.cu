@@ -1,32 +1,53 @@
-// Blockwise int8 quantization along the last dimension.
+// Blockwise int8 quantization along the last dimension, and its inverse.
 //
-// Replaces the Pallas kernel _quantize_kernel of
+// quantize_kernel replaces the Pallas kernel _quantize_kernel of
 // src/repro/kernels/quantize_blockwise.py (l.27): for every (row, block of
 // `block` consecutive elements of the last dimension)
 //     scale = max(absmax, 1e-12) / 127
 //     q     = clip(round_half_even(x / scale), -127, 127)
 // giving an (M, N) int8 tensor and (M, ceil(N / block)) float32 scales.
 //
-// What bounds it on an H100: device memory.  It reads every input element
-// once (4 bytes in float32, 2 in bfloat16) and writes one byte per element
-// plus a scale per block, with a handful of float operations per element:
-// far below the card's ~20 float operations per byte.  The design is the
-// simplest one that streams: one warp per (row, block), so a 128-element
-// block is four coalesced 128-byte reads; the block's absmax is reduced
-// across the warp with shuffles (max is exact in any order); the second
-// pass re-reads the block (from L1) to quantize it.  No shared memory.
+// dequantize_kernel replaces _dequantize_kernel (l.38): out = q * scale of
+// the element's (row, block), one float32 multiply, cast to float32 or
+// bfloat16 (round to nearest even).
 //
-// Exactness contract: q and the scales are bit-equal to the plain PyTorch
-// version (quantize_blockwise_plain): the scale is one IEEE division
-// (nvcc's default -prec-div=true), x / scale another, and rintf rounds
-// half to even like torch.round and jnp.round (never floorf(x + 0.5f)).
-// The library set is built with -fmad=false (build.py).  The ragged last
-// block is masked; the JAX wrapper zero-pads it instead, and a zero never
-// moves an absmax, so the two agree.
+// What bounds both on an H100: device memory.  Quantize reads every input
+// element once (4 bytes in float32, 2 in bfloat16) and writes one byte per
+// element plus a scale per block; dequantize reads one byte and writes 4
+// (or 2); each does a handful of operations per element, far below the
+// card's ~20 float operations per byte.
+//
+// Quantize is the simplest design that streams: one warp per (row, block),
+// so a 128-element block is four coalesced 128-byte reads; the block's
+// absmax is reduced across the warp with shuffles (max is exact in any
+// order); the second pass re-reads the block (from L1) to quantize it.  No
+// shared memory.
+//
+// Dequantize is elementwise over the flattened tensor: each thread takes 4
+// consecutive elements per grid-stride step, finds their row and column
+// with one integer division (32-bit where the tensor has fewer than 2^31
+// elements), and reads the scale at row * nb + col / block.  Where the last
+// dimension and the block are multiples of 4 the 4 elements share a row and
+// a block, so the thread loads them as one char4 and stores one 16-byte
+// (float32) or 8-byte (bfloat16) vector; otherwise it walks them one by
+// one across the row boundary.  The scales (1/32 of the bytes read at block
+// 128) come through L1.
+//
+// Exactness contract: q, the scales and the dequantized values are
+// bit-equal to the plain PyTorch versions (quantize_blockwise_plain,
+// dequantize_blockwise_plain): the scale is one IEEE division (nvcc's
+// default -prec-div=true), x / scale another, and rintf rounds half to even
+// like torch.round and jnp.round (never floorf(x + 0.5f)); q * scale is one
+// rounded float32 multiply and __float2bfloat16_rn rounds like PyTorch's
+// float-to-bfloat16 cast.  The library set is built with -fmad=false
+// (build.py).  The ragged last block is masked; the JAX wrapper zero-pads it
+// instead, and a zero never moves an absmax, so the two agree.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -82,6 +103,82 @@ int launch(const void* x, void* q, void* scales, long long rows, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
+__device__ __forceinline__ void store4(float* o, float a, float b, float c,
+                                       float d) {
+  *reinterpret_cast<float4*>(o) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* o, float a, float b,
+                                       float c, float d) {
+  __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(o);
+  p[0] = __floats2bfloat162_rn(a, b);
+  p[1] = __floats2bfloat162_rn(c, d);
+}
+__device__ __forceinline__ void store1(float* o, float v) { *o = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* o, float v) {
+  *o = __float2bfloat16_rn(v);
+}
+
+// q: (total / n, n) row-major int8; scales: (total / n, nb); out like q.
+// Index is uint32_t when total < 2^31, else uint64_t.  vec (the launcher
+// checks it): n % 4 == 0, block % 4 == 0, q 4-byte and out 16-byte (8-byte
+// for bfloat16) aligned.
+template <typename Index, typename OutT, bool kVec>
+__global__ void dequantize_kernel(const int8_t* __restrict__ q,
+                                  const float* __restrict__ scales,
+                                  OutT* __restrict__ out, Index total,
+                                  Index n, Index block, Index nb) {
+  const Index stride = static_cast<Index>(gridDim.x) * blockDim.x * 4;
+  for (Index e = (static_cast<Index>(blockIdx.x) * blockDim.x + threadIdx.x)
+                 * 4;
+       e < total; e += stride) {
+    Index row = e / n;
+    Index col = e - row * n;
+    if (kVec) {
+      const char4 v = *reinterpret_cast<const char4*>(q + e);
+      const float s = scales[row * nb + col / block];
+      store4(out + e, static_cast<float>(v.x) * s,
+             static_cast<float>(v.y) * s, static_cast<float>(v.z) * s,
+             static_cast<float>(v.w) * s);
+    } else {
+      for (Index j = e; j < e + 4 && j < total; ++j) {
+        store1(out + j,
+               static_cast<float>(q[j]) * scales[row * nb + col / block]);
+        if (++col == n) {
+          col = 0;
+          ++row;
+        }
+      }
+    }
+  }
+}
+
+template <typename Index, typename OutT>
+int launch_dequantize(const void* q, const void* scales, void* out,
+                      long long total, int n, int block, int vec,
+                      void* stream) {
+  constexpr int kDqThreads = 256;
+  const long long groups = (total + 3) / 4;
+  // a grid-stride loop: at most 16 blocks per SM's worth of threads
+  const long long blocks =
+      std::min<long long>((groups + kDqThreads - 1) / kDqThreads, 132 * 16);
+  const Index nb = static_cast<Index>((n + block - 1) / block);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* qp = static_cast<const int8_t*>(q);
+  const auto* sp = static_cast<const float*>(scales);
+  auto* op = static_cast<OutT*>(out);
+  if (vec)
+    dequantize_kernel<Index, OutT, true>
+        <<<static_cast<unsigned>(blocks), kDqThreads, 0, st>>>(
+            qp, sp, op, static_cast<Index>(total), static_cast<Index>(n),
+            static_cast<Index>(block), nb);
+  else
+    dequantize_kernel<Index, OutT, false>
+        <<<static_cast<unsigned>(blocks), kDqThreads, 0, st>>>(
+            qp, sp, op, static_cast<Index>(total), static_cast<Index>(n),
+            static_cast<Index>(block), nb);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -97,6 +194,24 @@ int quantize_blockwise_launch(const void* x, void* q, void* scales,
   if (is_bf16)
     return launch<__nv_bfloat16>(x, q, scales, rows, n, block, stream);
   return launch<float>(x, q, scales, rows, n, block, stream);
+}
+
+// total = q.numel() > 0, n = q.shape[-1]; out_bf16: 0 for a float32
+// output, 1 for a bfloat16 one; vec as dequantize_kernel requires.
+int dequantize_blockwise_launch(const void* q, const void* scales, void* out,
+                                long long total, int n, int block,
+                                int out_bf16, int vec, void* stream) {
+  // 32-bit indices while e + the grid stride (< 2^22) cannot wrap
+  const bool narrow = total < (1LL << 31);
+  if (out_bf16)
+    return narrow ? launch_dequantize<uint32_t, __nv_bfloat16>(
+                        q, scales, out, total, n, block, vec, stream)
+                  : launch_dequantize<uint64_t, __nv_bfloat16>(
+                        q, scales, out, total, n, block, vec, stream);
+  return narrow ? launch_dequantize<uint32_t, float>(q, scales, out, total,
+                                                     n, block, vec, stream)
+                : launch_dequantize<uint64_t, float>(q, scales, out, total,
+                                                     n, block, vec, stream);
 }
 
 }  // extern "C"

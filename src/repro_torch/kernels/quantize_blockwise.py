@@ -1,4 +1,5 @@
-"""Blockwise int8 quantization ("compression") of a tensor's last dimension.
+"""Blockwise int8 quantization ("compression") of a tensor's last
+dimension, and its inverse.
 
 Blocks of `block` consecutive elements along the last dimension share one
 float32 scale = max(absmax, 1e-12) / 127; q = clip(round(x / scale),
@@ -10,19 +11,25 @@ the dictionary the scale.
   last dimension (the ragged last block is masked, which equals the JAX
   package's zero padding).  Returns (q int8 of x's shape, scales float32
   of shape x.shape[:-1] + (ceil(N / block),)).
-* `quantize_blockwise_plain` -- the plain PyTorch version of the same
-  function.
+* `dequantize_blockwise(q, scales, block, dtype)` -- the inverse: q *
+  scale of its block, one float32 multiply, cast to `dtype` (float32 or
+  bfloat16); any rank, any last dimension.
+* `quantize_blockwise_plain`, `dequantize_blockwise_plain` -- the plain
+  PyTorch versions of the same functions.
 
-The wrapper takes its route from the device of its input: on a CUDA
-tensor it launches the hand-written kernel in `csrc/quantize_blockwise.cu`
-(built on first use) or raises; on a CPU tensor it runs the plain version.
-On the card the kernel's q and scales are bit-equal to the plain
-version's.  `LAUNCHES` counts kernel launches.
+Each wrapper takes its route from the device of its input: on a CUDA
+tensor it launches its hand-written kernel in `csrc/quantize_blockwise.cu`
+(one library, built on first use) or raises; on a CPU tensor it runs the
+plain version.  On the card the kernels' results are bit-equal to the
+plain versions'.  `LAUNCHES` counts kernel launches, per wrapper.
 
-The CUDA kernel replaces the Pallas kernel `_quantize_kernel` of the JAX
-package (`kernels/quantize_blockwise.py`); the plain version follows
-`kernels/ref.py` `quantize_blockwise` and the any-rank wrapper
-`kernels/ops.py` `quantize_blockwise`.
+The CUDA kernels replace the Pallas kernels `_quantize_kernel` and
+`_dequantize_kernel` of the JAX package (`kernels/quantize_blockwise.py`);
+the plain versions follow `kernels/ref.py` `quantize_blockwise` /
+`dequantize_blockwise` and the any-rank wrappers of `kernels/ops.py`.
+The q8 codec of the LM stack runs through them: `quantize_mlp` (serving),
+the q8 gradient wire (`train/step.py`) and the q8 AdamW moments
+(`optim/adamw.py`).
 """
 from __future__ import annotations
 
@@ -36,7 +43,7 @@ from . import build
 DEFAULT_BLOCK = 128
 Q_MAX = 127.0
 
-LAUNCHES: Dict[str, int] = {"quantize_blockwise": 0}
+LAUNCHES: Dict[str, int] = {"quantize_blockwise": 0, "dequantize_blockwise": 0}
 
 _lib = None
 
@@ -49,6 +56,9 @@ def _load():
         lib.quantize_blockwise_launch.argtypes = [vp, vp, vp, cll, ci, ci,
                                                   ci, vp]
         lib.quantize_blockwise_launch.restype = ci
+        lib.dequantize_blockwise_launch.argtypes = [vp, vp, vp, cll, ci, ci,
+                                                    ci, ci, vp]
+        lib.dequantize_blockwise_launch.restype = ci
         lib.quantize_error_string.argtypes = [ci]
         lib.quantize_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -106,3 +116,69 @@ def quantize_blockwise(x: torch.Tensor, block: int = DEFAULT_BLOCK
                            f"(CUDA error {err})")
     LAUNCHES["quantize_blockwise"] += 1
     return q, scales
+
+
+def _check_dequantize(q: torch.Tensor, scales: torch.Tensor, block: int,
+                      dtype: torch.dtype) -> None:
+    if q.dtype != torch.int8 or scales.dtype != torch.float32:
+        raise ValueError(f"dequantize_blockwise takes int8 q and float32 "
+                         f"scales, got {q.dtype} and {scales.dtype}")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"dequantize_blockwise gives float32 or bfloat16, "
+                         f"not {dtype}")
+    if q.ndim < 1 or block < 1:
+        raise ValueError("dequantize_blockwise needs a last dimension and "
+                         "block >= 1")
+    want = (*q.shape[:-1], -(-q.shape[-1] // block))
+    if tuple(scales.shape) != want:
+        raise ValueError(f"scales {tuple(scales.shape)} do not fit q "
+                         f"{tuple(q.shape)} at block {block}: want {want}")
+    if scales.device != q.device:
+        raise ValueError(f"q on {q.device}, scales on {scales.device}")
+
+
+def dequantize_blockwise_plain(q: torch.Tensor, scales: torch.Tensor,
+                               block: int = DEFAULT_BLOCK,
+                               dtype: torch.dtype = torch.float32
+                               ) -> torch.Tensor:
+    """Inverse of quantize_blockwise: q (..., N) int8, scales (...,
+    ceil(N/block)) -> (..., N) in `dtype`."""
+    _check_dequantize(q, scales, block, dtype)
+    n = q.shape[-1]
+    qp = torch.nn.functional.pad(q, (0, (-n) % block))
+    blocks = qp.reshape(*qp.shape[:-1], qp.shape[-1] // block, block)
+    out = blocks.to(torch.float32) * scales[..., None]
+    return out.reshape(qp.shape)[..., :n].to(dtype)
+
+
+def dequantize_blockwise(q: torch.Tensor, scales: torch.Tensor,
+                         block: int = DEFAULT_BLOCK,
+                         dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Any-rank blockwise dequantization of the last dimension."""
+    if q.device.type == "cpu":
+        return dequantize_blockwise_plain(q, scales, block, dtype)
+    _check_dequantize(q, scales, block, dtype)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    n = q.shape[-1]
+    out = torch.empty(q.shape, dtype=dtype, device=q.device)
+    total = q.numel()
+    if total == 0:
+        return out
+    if n >= 2 ** 31:
+        raise ValueError(f"shape {tuple(q.shape)} outside the kernel's "
+                         "sizes")
+    q, scales = q.contiguous(), scales.contiguous()
+    # the 4-wide path: 4 consecutive elements share a row and a block, q's
+    # char4 load is aligned (a fresh output always is)
+    vec = n % 4 == 0 and block % 4 == 0 and q.data_ptr() % 4 == 0
+    err = _load().dequantize_blockwise_launch(
+        q.data_ptr(), scales.data_ptr(), out.data_ptr(), total, n, block,
+        int(dtype == torch.bfloat16), int(vec),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        msg = _load().quantize_error_string(err).decode()
+        raise RuntimeError(f"dequantize_blockwise launch failed: {msg} "
+                           f"(CUDA error {err})")
+    LAUNCHES["dequantize_blockwise"] += 1
+    return out

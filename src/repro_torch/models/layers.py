@@ -1,6 +1,6 @@
 """Transformer layers of the dense family: norms, RoPE, GQA attention
-(full sequence and one-token decode over a KV cache), SwiGLU and
-squared-ReLU MLPs, and the q8-weight MLP.
+(full sequence, chunked online-softmax for training, and one-token decode
+over a KV cache), SwiGLU and squared-ReLU MLPs, and the q8-weight MLP.
 
 Counterpart of the JAX package's `models/layers.py`, under the same names.
 Parameters are keyed like the JAX pytree (`nn.ParameterDict`s, and the
@@ -9,8 +9,8 @@ heads, d_head), `wo` (heads, d_head, d)), so weights carried over from the
 JAX package need no reshaping.  Each `init_*` takes
 an explicit `torch.Generator` and a device; the arithmetic follows the
 JAX functions step for step (the same casts, the same finite mask value).
-`attention_chunked`, `chunked_scan` and the MoE layer are still to be
-ported (ROADMAP.md Queue A).
+`chunked_scan` (RWKV and Mamba) and the MoE layer are still to be ported
+(ROADMAP.md Queue A, item 10).
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.dequant_matmul import dequant_matmul, dequant_matmul_plain
 from ..kernels.quantize_blockwise import DEFAULT_BLOCK, quantize_blockwise
@@ -124,6 +125,70 @@ def attention_full(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     ctx = torch.einsum("bhqs,bshk->bqhk", probs, v)
     return torch.einsum("bqhk,hkd->bqd", ctx, p["wo"])
+
+
+def _kv_step(q_blk, k_blk, v_blk, q_pos, kv_pos, m, l, acc):
+    """One online-softmax step of `attention_chunked` over one KV chunk."""
+    sc = torch.einsum("bqhk,bshk->bhqs", q_blk, k_blk) / math.sqrt(
+        q_blk.shape[-1])
+    mask = q_pos[:, None] >= kv_pos[None, :]
+    sc = torch.where(mask[None, None], sc.to(torch.float32), NEG_INF)
+    m_new = torch.maximum(m, sc.amax(dim=-1))
+    alpha = torch.exp(m - m_new)
+    probs = torch.exp(sc - m_new[..., None])
+    l_new = l * alpha + probs.sum(dim=-1)
+    acc_new = acc * alpha[..., None] + torch.einsum(
+        "bhqs,bshk->bhqk", probs.to(q_blk.dtype), v_blk).to(torch.float32)
+    return m_new, l_new, acc_new
+
+
+def attention_chunked(p, x: torch.Tensor, cfg: ModelConfig,
+                      q_chunk: int = 1024, kv_chunk: int = 1024
+                      ) -> torch.Tensor:
+    """Memory-efficient causal attention (online softmax over KV chunks).
+
+    O(q_chunk * kv_chunk) score memory.  Like the JAX function, every
+    (query chunk, KV chunk) pair is computed, masked ones included, in the
+    same KV order, and each KV step is checkpointed (recomputed in the
+    backward pass).  The sequence length must be a multiple of both chunks
+    (after each is cut to it).  x: (B, S, D) -> (B, S, D)
+    """
+    b, s, d = x.shape
+    nh, nkv, hd = cfg.heads, cfg.kv_heads, cfg.d_head
+    positions = torch.arange(s, device=x.device)[None, :]
+    q = apply_rope(torch.einsum("bsd,dhk->bshk", x, p["wq"]), positions,
+                   cfg.rope_theta)
+    k = apply_rope(torch.einsum("bsd,dhk->bshk", x, p["wk"]), positions,
+                   cfg.rope_theta)
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    k = _repeat_kv(k, nh // nkv)
+    v = _repeat_kv(v, nh // nkv)
+
+    q_chunk = min(q_chunk, s)
+    kv_chunk = min(kv_chunk, s)
+    if s % q_chunk or s % kv_chunk:
+        raise ValueError(f"sequence {s} is not a multiple of the chunks "
+                         f"({q_chunk}, {kv_chunk})")
+    ctx = []
+    for qi in range(s // q_chunk):
+        q_blk = q[:, qi * q_chunk:(qi + 1) * q_chunk]
+        q_pos = qi * q_chunk + torch.arange(q_chunk, device=x.device)
+        m = torch.full((b, nh, q_chunk), NEG_INF, dtype=torch.float32,
+                       device=x.device)
+        l = torch.zeros((b, nh, q_chunk), dtype=torch.float32,
+                        device=x.device)
+        acc = torch.zeros((b, nh, q_chunk, hd), dtype=torch.float32,
+                          device=x.device)
+        for kj in range(s // kv_chunk):
+            lo = kj * kv_chunk
+            kv_pos = lo + torch.arange(kv_chunk, device=x.device)
+            m, l, acc = checkpoint(
+                _kv_step, q_blk, k[:, lo:lo + kv_chunk],
+                v[:, lo:lo + kv_chunk], q_pos, kv_pos, m, l, acc,
+                use_reentrant=False)
+        blk = (acc / torch.clamp_min(l, 1e-20)[..., None]).to(x.dtype)
+        ctx.append(blk.transpose(1, 2))                # (B, q_chunk, H, Dh)
+    return torch.einsum("bqhk,hkd->bqd", torch.cat(ctx, dim=1), p["wo"])
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -6,8 +6,10 @@ assembly (`family == "dense"`, `mixer == "attn"`, `frontend == "tokens"`).
 `UniformLM` is a `torch.nn.Module` whose parameters mirror the JAX pytree
 (`params["layers"][i]["attn"]["wq"]` is the JAX `params["layers"]["attn"]
 ["wq"][i]`), and the JAX functions keep their names: `init_params`,
-`forward`, `init_serve_state`, `decode_step`, `reset_slot`.  The scanned
-layer stack becomes a Python loop over `layers`.  Every entry point runs
+`forward`, `loss_fn`, `init_serve_state`, `decode_step`, `reset_slot`.
+The scanned layer stack becomes a Python loop over `layers`, and the JAX
+function's per-layer `jax.checkpoint` (`remat=True`) a
+`torch.utils.checkpoint` of each layer.  Every entry point runs
 on the card unless the caller asks for the CPU; other families raise
 `NotImplementedError` naming the ROADMAP.md item that ports them.
 """
@@ -17,6 +19,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from . import layers as L
@@ -103,18 +106,49 @@ def _mlp_branch(lp, h, cfg):
     return lp["mlp"](h)
 
 
-def forward(params: UniformLM, cfg: ModelConfig,
-            tokens: torch.Tensor) -> torch.Tensor:
-    """Full-sequence forward with full causal attention (the JAX
-    function's attn_impl="full") -> logits (B, S, vocab_p)."""
+ATTN_IMPLS = {"full": L.attention_full, "chunked": L.attention_chunked}
+
+
+def _layer(lp, x, cfg, attention):
+    h = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
+    x = x + attention(lp["attn"], h, cfg)
+    h = L.rmsnorm(lp["norm2"], x, cfg.norm_eps)
+    return x + _mlp_branch(lp, h, cfg)
+
+
+def forward(params: UniformLM, cfg: ModelConfig, tokens: torch.Tensor,
+            attn_impl: str = "full", remat: bool = False) -> torch.Tensor:
+    """Full-sequence forward -> logits (B, S, vocab_p).
+
+    `attn_impl` is "full" or "chunked" (online softmax, for long training
+    sequences); `remat=True` checkpoints each layer (the training memory
+    policy): its activations are recomputed in the backward pass."""
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl {attn_impl!r} is not one of "
+                         f"{sorted(ATTN_IMPLS)}")
+    attention = ATTN_IMPLS[attn_impl]
     x = _embed_input(params, cfg, tokens)
     for lp in params["layers"]:
-        h = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
-        x = x + L.attention_full(lp["attn"], h, cfg)
-        h = L.rmsnorm(lp["norm2"], x, cfg.norm_eps)
-        x = x + _mlp_branch(lp, h, cfg)
+        if remat:
+            x = checkpoint(_layer, lp, x, cfg, attention, use_reentrant=False)
+        else:
+            x = _layer(lp, x, cfg, attention)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return _head(params, cfg, x)
+
+
+def loss_fn(params: UniformLM, cfg: ModelConfig, tokens: torch.Tensor,
+            labels: torch.Tensor, remat: bool = False,
+            attn_impl: str = "full") -> torch.Tensor:
+    """Causal LM loss; padded vocab entries are masked out of the softmax."""
+    logits = forward(params, cfg, tokens, attn_impl=attn_impl,
+                     remat=remat).to(torch.float32)
+    if cfg.vocab_p != cfg.vocab:
+        mask = torch.arange(cfg.vocab_p, device=logits.device) < cfg.vocab
+        logits = torch.where(mask, logits, L.NEG_INF)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.mean(logz - gold)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,126 @@
+"""AdamW with optionally COMPRESSED (blockwise-int8) first/second moments.
+
+The optimizer state is the largest persistent tensor class in training --
+the direct analogue of the paper's clustered index.  The physical-design
+advisor (`repro_torch.design`) decides per tensor class whether moments
+are stored f32 (fast, 8 bytes/param) or q8 (2 bytes/param + scales,
+paying a quantize and a dequantize per moment per step -- the alpha/beta
+of Appendix A).
+
+The q8 codec is `kernels.quantize_blockwise`; v (second moment) is
+quantized in sqrt space to preserve dynamic range.
+
+Counterpart of the JAX package's `optim/adamw.py`, with the same
+arithmetic in the same order (the bias corrections `1 - b ** t` in
+float32 from an int32 step).  Differences:
+
+* The JAX `use_pallas` option is gone.  There it picks between the Pallas
+  kernels (`ops.*`) and their jnp oracles (`ref.*`), which give the same
+  bits; here the device of the tensors picks the route: the hand-written
+  quantize and dequantize kernels on CUDA tensors, their plain versions on
+  CPU tensors, again with the same bits.
+* Parameters are a module (the port's `UniformLM`); gradients and moments
+  are keyed by its parameter names (`named_parameters()`, e.g.
+  "layers.0.attn.wq"), one entry per layer where the JAX pytree stacks the
+  layers (`models.interop.opt_state_from_numpy` converts).
+* `adamw_update` updates in place and returns what it was given, as the
+  JAX function returns new parameters and state: the new values go into
+  the parameter tensors (under `torch.no_grad()`), and each parameter's
+  new moments replace its old ones in the state as they are made, so the
+  old and new moments of only one tensor are in memory at a time (not
+  two copies of every moment).
+* The JAX `q_block` option is gone: the moments use the kernels'
+  `DEFAULT_BLOCK` (128), the block of the gradient wire and of the layout
+  advisor's q8 costing.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Mapping, Tuple
+
+import torch
+from torch import nn
+
+from ..kernels.quantize_blockwise import (DEFAULT_BLOCK,
+                                          dequantize_blockwise,
+                                          quantize_blockwise)
+
+State = Dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    state_codec: str = "f32"      # "f32" | "q8"
+
+
+def adamw_init(params: nn.Module, cfg: AdamWConfig) -> State:
+    """Zero moments for every parameter, and step 0 (an int32 tensor on the
+    parameters' device)."""
+    if cfg.state_codec not in ("f32", "q8"):
+        raise ValueError(f"state_codec {cfg.state_codec!r} is not f32 or q8")
+    moments = {}
+    for name, p in params.named_parameters():
+        if cfg.state_codec == "q8":
+            s_shape = (*p.shape[:-1], -(-p.shape[-1] // DEFAULT_BLOCK))
+            moments[name] = {
+                "m_q": torch.zeros(p.shape, dtype=torch.int8,
+                                   device=p.device),
+                "m_s": torch.zeros(s_shape, dtype=torch.float32,
+                                   device=p.device),
+                "v_q": torch.zeros(p.shape, dtype=torch.int8,
+                                   device=p.device),
+                "v_s": torch.zeros(s_shape, dtype=torch.float32,
+                                   device=p.device)}
+        else:
+            moments[name] = {"m": torch.zeros(p.shape, dtype=torch.float32,
+                                              device=p.device),
+                             "v": torch.zeros(p.shape, dtype=torch.float32,
+                                              device=p.device)}
+    device = next(params.parameters()).device
+    return {"step": torch.zeros((), dtype=torch.int32, device=device),
+            "moments": moments}
+
+
+@torch.no_grad()
+def adamw_update(params: nn.Module, grads: Mapping[str, torch.Tensor],
+                 state: State, cfg: AdamWConfig) -> Tuple[nn.Module, State]:
+    step = state["step"] + 1
+    t = step.to(torch.float32)
+    bc1 = 1.0 - cfg.b1 ** t
+    bc2 = 1.0 - cfg.b2 ** t
+
+    def new_param(p, m, v):
+        update = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+        return p - cfg.lr * (update + cfg.weight_decay * p.to(torch.float32)
+                             ).to(p.dtype)
+
+    def upd_f32(p, g, mom):
+        g = g.to(torch.float32)
+        m = cfg.b1 * mom["m"] + (1 - cfg.b1) * g
+        v = cfg.b2 * mom["v"] + (1 - cfg.b2) * g * g
+        p.copy_(new_param(p, m, v))
+        return {"m": m, "v": v}
+
+    def upd_q8(p, g, mom):
+        g = g.to(torch.float32)
+        m = dequantize_blockwise(mom["m_q"], mom["m_s"])
+        v_sqrt = dequantize_blockwise(mom["v_q"], mom["v_s"])
+        v = v_sqrt * v_sqrt
+        m = cfg.b1 * m + (1 - cfg.b1) * g
+        v = cfg.b2 * v + (1 - cfg.b2) * g * g
+        p.copy_(new_param(p, m, v))
+        m_q, m_s = quantize_blockwise(m)
+        v_q, v_s = quantize_blockwise(torch.sqrt(v))
+        return {"m_q": m_q, "m_s": m_s, "v_q": v_q, "v_s": v_s}
+
+    upd = upd_q8 if cfg.state_codec == "q8" else upd_f32
+    moments = state["moments"]
+    for name, p in params.named_parameters():
+        moments[name] = upd(p, grads[name], moments[name])
+    state["step"] = step
+    return params, state

@@ -1,0 +1,125 @@
+"""Training loop.
+
+* straggler mitigation: per-step wall-time EMA; a step slower than
+  `straggler_factor` x EMA is logged and counted -- the hook where a
+  multi-host deployment would trigger re-sharding away from the slow host
+  (`on_straggler` exposes it for tests and integrations);
+* gradient compression and compressed optimizer moments come from the
+  design advisor's LayoutPlan (the paper's technique driving the trainer).
+
+Counterpart of the JAX package's `train/loop.py` on one card (the plan is
+made for `n_chips = 1`).  Checkpointing waits for a decision on the
+checkpoint format: the JAX checkpoint stores integer leaves as
+`raw+zstd`, and the card's machine has no `zstandard` (ROADMAP.md Queue A
+item 11, `checkpoint/manager.py`), so a `checkpoint_dir` raises and
+`restore` is not here; `reshard` (elastic scaling) waits for the
+distribution slice (item 13).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Dict, List, Optional
+
+import torch
+
+from ..data.pipeline import DataConfig, batch_at
+from ..design.advisor import plan_layout
+from ..device import resolve_device
+from ..models import model as MD
+from ..models.config import ModelConfig
+from ..optim import AdamWConfig, adamw_init
+from .step import make_train_step
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    steps: int = 100
+    batch: int = 8
+    seq: int = 64
+    lr: float = 3e-4
+    checkpoint_dir: Optional[str] = None   # anything but None raises
+    straggler_factor: float = 3.0
+    # one H100's device memory; the JAX package's default is 16e9 (a TPU
+    # v5e chip's HBM)
+    hbm_budget_bytes: float = 80e9
+    use_design_advisor: bool = True
+    seed: int = 0
+    log_every: int = 10
+
+
+class Trainer:
+    def __init__(self, cfg: ModelConfig, tc: TrainConfig,
+                 on_straggler: Optional[Callable[[int, float], None]] = None,
+                 device="cuda"):
+        if tc.checkpoint_dir is not None:
+            raise NotImplementedError(
+                "checkpointing is not ported yet (ROADMAP.md Queue A, item "
+                "11: checkpoint/manager.py; the JAX checkpoint format needs "
+                "zstandard, which the card's machine does not have)")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.tc = tc
+        self.on_straggler = on_straggler
+        self.straggler_events: List[int] = []
+        self.history: List[Dict[str, float]] = []
+
+        # --- the paper's advisor chooses the physical layout ---
+        n_chips = 1
+        flops = 6.0 * cfg.param_count() * tc.batch * tc.seq / n_chips
+        if tc.use_design_advisor:
+            self.plan = plan_layout(cfg, "train", tc.batch, tc.seq, n_chips,
+                                    tc.hbm_budget_bytes,
+                                    base_flops_per_chip=flops)
+            moments = ("q8" if self.plan.choices.get("adam_m") == "q8"
+                       else "f32")
+            grad_comp = ("q8" if self.plan.choices.get("grad_wire") == "q8"
+                         else None)
+        else:
+            self.plan = None
+            moments, grad_comp = "f32", None
+
+        self.opt_cfg = AdamWConfig(lr=tc.lr, state_codec=moments)
+        self.data_cfg = DataConfig(vocab=cfg.vocab, batch=tc.batch,
+                                   seq=tc.seq, seed=tc.seed)
+        self._step_fn = make_train_step(
+            cfg, self.opt_cfg, remat=True, grad_compression=grad_comp,
+            attn_impl="chunked" if tc.seq >= 2048 else "full")
+
+        self.params = MD.init_params(
+            torch.Generator(self.device).manual_seed(tc.seed), cfg,
+            self.device)
+        self.opt_state = adamw_init(self.params, self.opt_cfg)
+        self.step = 0
+
+    def run(self, steps: Optional[int] = None) -> Dict[str, Any]:
+        steps = steps if steps is not None else self.tc.steps
+        ema = None
+        target = self.step + steps
+        first = True
+        while self.step < target:
+            batch = batch_at(self.data_cfg, self.step, self.device)
+            t0 = time.perf_counter()
+            self.params, self.opt_state, loss = self._step_fn(
+                self.params, self.opt_state, batch)
+            loss = float(loss)          # waits for the step's device work
+            dt = time.perf_counter() - t0
+            if first:
+                first = False  # first step (kernel builds): not in the EMA
+            elif ema is None:
+                ema = dt
+            else:
+                if dt > self.tc.straggler_factor * ema:
+                    self.straggler_events.append(self.step)
+                    if self.on_straggler:
+                        self.on_straggler(self.step, dt / ema)
+                ema = 0.9 * ema + 0.1 * dt
+            self.history.append({"step": self.step, "loss": loss,
+                                 "seconds": dt})
+            if self.step % self.tc.log_every == 0:
+                print(f"[trainer] step {self.step:5d} loss {loss:.4f} "
+                      f"({dt*1e3:.0f} ms)")
+            self.step += 1
+        return {"final_loss": self.history[-1]["loss"],
+                "first_loss": self.history[0]["loss"],
+                "stragglers": list(self.straggler_events)}

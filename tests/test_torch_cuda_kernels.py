@@ -13,6 +13,8 @@ winners equal; prob consistency bitwise.  Blockwise quantization bit-equal
 (q and scales: the same IEEE divisions and round-half-even);
 dequant-matmul within rtol and atol 1e-4 of the plain version's IEEE
 float32 product (another summation order).
+Blockwise dequantization bit-equal in float32 and bfloat16 (one rounded
+multiply, a round-to-nearest-even cast).
 """
 import numpy as np
 import pytest
@@ -166,6 +168,35 @@ def test_cuda_quantize_bit_equal_plain(cuda, label, x, dtype):
     torch.cuda.synchronize()
     assert launch_counts()["quantize_blockwise"] == before + 1
     assert torch.equal(q, q_p) and torch.equal(s, s_p)
+
+
+DEQUANTIZE_SHAPES = [(8, 64), (4, 128), (6, 200), (3, 384), (200,), (384,),
+                     (2, 3, 200), (2, 2, 3, 384), (5, 7), (9, 130),
+                     (64, 32, 64), (2048,)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", DEQUANTIZE_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "offset"])
+def test_cuda_dequantize_bit_equal_plain(cuda, shape, dtype, aligned):
+    rng = np.random.default_rng(sum(shape))
+    x = (rng.standard_normal(shape) * 3).astype(np.float32)
+    if shape[-1] > 128:
+        x[..., :128] = 0.0                  # an all-zero block
+    q, s = qb.quantize_blockwise_plain(torch.as_tensor(x, device=cuda))
+    if not aligned:   # a contiguous q at an odd address: the 1-wide path
+        buf = torch.empty(q.numel() + 1, dtype=torch.int8, device=cuda)
+        q = buf[1:].view(q.shape).copy_(q)
+    dt = getattr(torch, dtype)
+    before = launch_counts()["dequantize_blockwise"]
+    got = qb.dequantize_blockwise(q, s, dtype=dt)
+    want = qb.dequantize_blockwise_plain(q, s, dtype=dt)
+    torch.cuda.synchronize()
+    assert launch_counts()["dequantize_blockwise"] == before + 1
+    assert got.dtype == want.dtype == dt and got.shape == q.shape
+    as_int = torch.int16 if dt == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(as_int), want.view(as_int))
 
 
 @pytest.mark.cuda
