@@ -1,0 +1,152 @@
+#!/usr/bin/env python3
+"""Time the LDICT and dequantize kernels of this checkout on one GPU.
+
+    python3 chip_kernel_times.py
+
+LDICT (`kernels.codec_bytes.ldict_bytes`) is timed on every distinct input
+that the advisor runs of `chip_smoke.py` phases 3 and 3b give it (DTAc
+`recommend` at TPC-H SF1 size on the TPC-H workload, then on 10,000
+statements with all five codecs and compression_budget 128); the single
+dequantize call (`kernels.quantize_blockwise.dequantize_blockwise`,
+float32 output) at the q8 gradient wire's (32000, 2048) and (2048,)
+shapes, on as many tensors as one training step sends (2 and 45), beside
+the one-call broadcast multiply.  Each result is held against its plain
+version.  Every time is taken two ways:
+
+* per call: CUDA events around back-to-back calls, the host's first
+  launch included; the median of 5 runs (as `chip_smoke.py` times);
+* device time: the same calls enqueued behind `torch.cuda._sleep`, so no
+  host gap falls between the events; the least of 3 runs.
+
+It calls only entry points that the port's earlier checkouts have too, so
+two checkouts compare by copying this file into each and running both on
+one card in turns (a, b, b, a).  It prints the card's name and power limit,
+then one JSON object.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+FIVE = ("NS", "GDICT", "LDICT", "PREFIX", "RLE")
+WIRE = (((32000, 2048), 2), ((2048,), 45))     # (shape, tensors a step)
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_kernel_times: no CUDA card", file=sys.stderr)
+        return 2
+    from repro_torch import core as pt
+    from repro_torch.kernels import codec_bytes as cb, quantize_blockwise as qb
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(f"card: {card}")
+
+    def per_call_ms(fn, calls, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        runs = []
+        for _ in range(5):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(reps):
+                fn()
+            b.record()
+            torch.cuda.synchronize()
+            runs.append(a.elapsed_time(b) / (reps * calls))
+        return float(np.median(runs))
+
+    def device_ms(fn, calls, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        runs = []
+        for _ in range(3):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(40_000_000)          # 4e7 clock cycles
+            a.record()
+            for _ in range(reps):
+                fn()
+            b.record()
+            torch.cuda.synchronize()
+            runs.append(a.elapsed_time(b) / (reps * calls))
+        return min(runs)
+
+    # LDICT: the distinct (shape, rpp) inputs of the two advisor runs
+    schema = pt.make_tpch_like(scale=100, z=0.0, seed=0)
+    budget = 0.25 * sum(t.nrows * (sum(c.width for c in t.columns) + 4)
+                        for t in schema.tables.values())
+    seen = {}
+    ldict = cb.ldict_bytes
+
+    def capture(cols, widths, rpp):
+        seen.setdefault((tuple(cols.shape), int(rpp)), (cols, widths))
+        return ldict(cols, widths, rpp)
+    cb.ldict_bytes = capture
+    try:
+        wl = pt.make_tpch_workload(schema, insert_weight=0.1)
+        pt.DesignAdvisor(wl, pt.AdvisorOptions(
+            backend="torch", device="cuda")).recommend(budget)
+        wl_big = pt.make_scaled_workload(schema, n_statements=10_000,
+                                         insert_fraction=0.1, seed=0)
+        pt.DesignAdvisor(wl_big, pt.AdvisorOptions(
+            backend="torch", device="cuda", methods=FIVE,
+            compression_budget=128)).recommend(budget)
+    finally:
+        cb.ldict_bytes = ldict
+    ld = []
+    for (shape, rpp), (cols, widths) in sorted(seen.items()):
+        if not torch.equal(ldict(cols, widths, rpp),
+                           cb.ldict_bytes_plain(cols, widths, rpp)):
+            raise SystemExit(f"ldict_bytes != plain on {shape}, rpp {rpp}")
+        ld.append({"shape": list(shape), "rpp": rpp,
+                   "pages": shape[0] * -(-shape[1] // rpp),
+                   "ms": per_call_ms(lambda: ldict(cols, widths, rpp), 1, 20),
+                   "device_ms": device_ms(lambda: ldict(cols, widths, rpp),
+                                          1)})
+
+    # dequantize at the wire's shapes, random q8 tensors from seed 0
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dq = []
+    for shape, count in WIRE:
+        nb = -(-shape[-1] // qb.DEFAULT_BLOCK)
+        args = [(torch.randint(-127, 128, shape, dtype=torch.int8,
+                               device="cuda", generator=gen),
+                 torch.rand(*shape[:-1], nb, device="cuda", generator=gen))
+                for _ in range(count)]
+        for q, s in args:
+            got = qb.dequantize_blockwise(q, s)
+            want = qb.dequantize_blockwise_plain(q, s)
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                raise SystemExit(f"dequantize_blockwise != plain at {shape}")
+
+        def calls():
+            for q, s in args:
+                qb.dequantize_blockwise(q, s)
+
+        def multiplies():
+            for q, s in args:
+                q.view(*shape[:-1], nb, -1) * s[..., None]
+        dq.append({"shape": list(shape), "tensors": count,
+                   "ms": per_call_ms(calls, count),
+                   "device_ms": device_ms(calls, count),
+                   "multiply_ms": per_call_ms(multiplies, count),
+                   "multiply_device_ms": device_ms(multiplies, count)})
+    print(json.dumps({"card": card, "ldict": ld,
+                      "ldict_device_ms_sum": sum(r["device_ms"] for r in ld),
+                      "dequantize": dq}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

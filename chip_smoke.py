@@ -11,8 +11,11 @@ Phases (any failure exits non-zero; nothing is caught), run in the order
      (four libraries, one nvcc per source, all started together);
   2. hold each kernel against its plain PyTorch version on the card on
      edge cases: the five codec kernels (NS, GDICT, LDICT, PREFIX, RLE),
-     blockwise quantization and blockwise dequantization (float32 and
-     bfloat16 output) bit-equal; prob_within and fused_score
+     and LDICT once more on page sizes around its warp and block paths,
+     the int64 extremes and grids of more than 65,535 pages, blockwise
+     quantization and blockwise dequantization (float32 and bfloat16
+     output; single calls and groups, one of them longer than one launch
+     takes) bit-equal; prob_within and fused_score
      within the stated tolerances, plus their two bitwise properties (prob
      consistency, K-pad invariance); dequant-matmul within rtol and atol
      1e-4 of the plain IEEE float32 product;
@@ -31,7 +34,9 @@ Phases (any failure exits non-zero; nothing is caught), run in the order
   4. hold each advisor kernel against its plain version again on the
      largest inputs phases 3 and 3b gave it (GDICT, on no advisor path:
      every column of the SF1 lineitem sample at f = 0.01), and time both
-     there;
+     there; LDICT's device time over the second runs of 3 and 3b
+     (torch.profiler) beside their SampleCF seconds, and LDICT at each
+     phase's largest input;
   5. LM serving at TinyLlama-1.1B's published size (22 layers, d_model
      2048, float32 weights from the port's init_params, seed 0): 5a the
      layout advisor's plan for the serve job at an 80 GB and a 1.5 GB
@@ -52,20 +57,24 @@ Phases (any failure exits non-zero; nothing is caught), run in the order
      plan for the train job at an 80 GB and a 10 GB budget (the q8
      gradient wire at both, q8 Adam moments at 10 GB required); 6b
      Trainer for 6 steps at 80 GB (float32 moments): losses finite, the
-     first near ln(32000), the last below it, exactly one quantize and
-     one dequantize launch per gradient tensor per step, step time,
+     first near ln(32000), the last below it, exactly one quantize launch
+     per gradient tensor and one grouped dequantize launch per wire
+     bucket per step, step time,
      tokens/s, share of the bf16 peak, peak device memory, then one more
      step traced with torch.profiler (device busy share, device time by
-     kernel family); 6c the same for 4 steps at 10 GB (q8 moments: three
-     launches of each kernel per parameter per step); 6d both kernels
-     bit-equal to their plain versions on the gradients of 6b's next
-     step (from the step's own loss-and-gradient function) and 6c's
-     moments; 6e a two-layer model at width 2048 trained for 2 steps in
+     kernel family); 6c the same for 4 steps at 10 GB (q8 moments: two
+     more launches of each kernel per parameter per step); 6d both
+     kernels, and the grouped dequantize on the wire's buckets, bit-equal
+     to their plain versions on the gradients of 6b's next step (from the
+     step's own loss-and-gradient function) and 6c's moments; 6e a two-layer model at width 2048 trained for 2 steps in
      float32 on the card and on the CPU, held to the CPU tests'
      tolerances;
-  4c. time the dequantize kernel (and quantize) at phase 6's shapes,
-     cycling through the 22 layers' gradients, beside the plain version
-     and the one PyTorch call that computes the same function.
+  4c. time the dequantize kernel (and quantize) at every distinct shape
+     of phase 6's wire, cycling through its tensors (per call and in
+     device time), beside the plain version and the one PyTorch call that
+     computes the same function; the grouped launch over all 201 wire
+     tensors beside their summed bytes bound, 201 single calls and 201
+     one-call multiplies; the single call's host microseconds by part.
 
 Prints the per-phase wall times, launch counts, kernel times beside their
 bounds, peak device memory, a JSON line of kernel records, the card line,
@@ -95,6 +104,11 @@ FIVE = ("NS", "GDICT", "LDICT", "PREFIX", "RLE")
 CODECS = ("ns_bytes", "gdict_bytes", "ldict_bytes", "prefix_bytes",
           "rle_bytes")
 ORD_IND = ("ns_bytes", "gdict_bytes")     # wrappers that take no rpp
+# phase 2: LDICT page sizes around a warp's 32 lanes, its warp / block
+# split (512 rows), the main path's 273 and the largest (1638), and grids
+# of more than 65,535 pages
+LDICT_RPPS = (1, 31, 32, 33, 273, 512, 513, 1638)
+LDICT_GRIDS = (((1, 65535), 1), ((240, 75000), 273), ((41, 1638 * 1600), 1638))
 N_SCALED = 10_000                # phase 3b: statements before compression
 COMPRESSION_BUDGET = 128         # phase 3b: representatives advised on
 # GDICT is priced on the host by the Adaptive Estimator in SampleCF (as in
@@ -125,10 +139,10 @@ FIRST_LOSS = (10.0, 11.5)
 # so an element whose gradient or q8 level sits at a rounding boundary can
 # move by up to 2 lr more on one side)
 # phase 6b's trace: kernel families by substrings of the kernel name (the
-# first match wins; dequantize before quantize, which its name contains)
+# first match wins)
 KERNEL_FAMILIES = (
     ("matrix products", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
-    ("q8 dequantize (ours)", ("dequantize_kernel",)),
+    ("q8 dequantize (ours)", ("dequantize_group_kernel",)),
     ("q8 quantize (ours)", ("quantize_kernel",)),
     ("softmax / logsumexp", ("softmax", "logsumexp")),
     ("reductions", ("reduce",)),
@@ -259,6 +273,47 @@ def main() -> int:
     print(f"codec kernels: {', '.join(CODECS)} bit-equal to plain on "
           f"{n_cases} cases")
 
+    # LDICT's hash set: page sizes on both sides of its warp / block split
+    # and of a warp's 32 lanes, ragged last pages and single short pages,
+    # rows all equal, all distinct, at the int64 extremes (INT64_MIN is its
+    # empty-slot marker) or differing only in their high bits; then grids
+    # of more than 65,535 pages
+    i64_min, i64_max = -(1 << 63), (1 << 63) - 1
+    n_ld = 0
+    for rpp in LDICT_RPPS:
+        for n in (3 * rpp + rpp // 2 + 1, max(1, rpp - 3)):
+            ext = rng.choice([i64_min, i64_max, 0, -1, 1], size=n)
+            ext[0], ext[-1] = i64_min, i64_max
+            stack = np.stack([np.full(n, 5), np.arange(n) * 7 - n, ext,
+                              np.full(n, i64_min), np.full(n, i64_max),
+                              rng.integers(0, 256, size=n) << 55,
+                              rng.integers(0, 5, size=n),
+                              rng.integers(i64_min, i64_max, size=n,
+                                           endpoint=True)])
+            # as they are (few pages: a block per page) and 256 times over
+            # (>= 1,024 pages: a warp per page, where a page has <= 512 rows)
+            for copies in (1, 256):
+                cols = t64(np.tile(stack, (copies, 1)))
+                widths = t64([1, 2, 8, 8, 8, 8, 1, 8] * copies)
+                if not torch.equal(cb.ldict_bytes(cols, widths, rpp),
+                                   cb.ldict_bytes_plain(cols, widths, rpp)):
+                    fail(f"ldict_bytes != plain on edge rows, rpp {rpp}, n "
+                         f"{n}, {copies} copies")
+                n_ld += 1
+    for shape, rpp in LDICT_GRIDS:
+        cols = t64(rng.integers(0, 1 << 24, size=shape))
+        widths = t64(rng.integers(1, 9, size=shape[0]))
+        if not torch.equal(cb.ldict_bytes(cols, widths, rpp),
+                           cb.ldict_bytes_plain(cols, widths, rpp)):
+            fail(f"ldict_bytes != plain on {shape} at rpp {rpp} "
+                 f"({shape[0] * -(-shape[1] // rpp)} pages)")
+        n_ld += 1
+    del cols, widths, stack, ext
+    print(f"codec kernels: ldict_bytes bit-equal to plain on {n_ld} more "
+          f"cases (rpp {LDICT_RPPS}, ragged and single short pages, equal, "
+          f"distinct and int64-extreme rows, on few pages and on many; "
+          f"grids {LDICT_GRIDS})")
+
     e, q = 0.5, 0.9
 
     def f32(a):
@@ -365,6 +420,45 @@ def main() -> int:
                 fail(f"dequantize_blockwise != plain on {label} ({out_dt})")
             n_dq += 1
 
+    # grouped dequantization: a mixed list (ranks 1-4, ragged last blocks,
+    # last dimensions under one block, both output types, a q at an odd
+    # address) in one launch, then a list longer than one parameter struct
+    def group_case(shapes, seed):
+        r = np.random.default_rng(seed)
+        items = []
+        for i, shape in enumerate(shapes):
+            gq, gs = qb.quantize_blockwise_plain(f32(r.standard_normal(shape)
+                                                     * 3))
+            if i == 4:
+                buf = torch.empty(gq.numel() + 1, dtype=torch.int8,
+                                  device=dev)
+                gq = buf[1:].view(gq.shape).copy_(gq)
+            items.append((gq, gs, torch.full(
+                shape, float("nan"), device=dev,
+                dtype=torch.bfloat16 if i % 3 == 1 else torch.float32)))
+        before = launch_counts()["dequantize_blockwise"]
+        qb.dequantize_blockwise_group(items)
+        launched = launch_counts()["dequantize_blockwise"] - before
+        if launched != -(-len(items) // qb.group_capacity()):
+            fail(f"dequantize_blockwise_group launched {launched} times for "
+                 f"{len(items)} items")
+        for gq, gs, out in items:
+            if not bit_equal(out, qb.dequantize_blockwise_plain(
+                    gq, gs, dtype=out.dtype)):
+                fail(f"dequantize_blockwise_group != plain on "
+                     f"{tuple(gq.shape)} ({out.dtype})")
+        return len(items)
+
+    cap = qb.group_capacity()
+    r = np.random.default_rng(5)
+    n_group = group_case([(2048,), (300,), (7,), (32, 64), (9, 130),
+                          (128, 256), (3, 5, 200), (2, 3, 4, 384),
+                          (2, 2, 2, 129), (1000,)], 4)
+    n_group += group_case([(int(r.integers(1, 4)), int(r.integers(1, 300)))
+                           for _ in range(cap + 5)], 6)
+    print(f"LM kernels: dequantize_blockwise_group bit-equal to plain on "
+          f"{n_group} tensors in 2 groups (one launch per {cap} items)")
+
     # dequant-matmul within DMM_TOL of the plain IEEE float32 product
     if torch.backends.cuda.matmul.allow_tf32:
         fail("the plain dequant-matmul would run in TF32")
@@ -391,13 +485,17 @@ def main() -> int:
                          f"K={dm_k} N={dm_n}")
                 worst = max(worst, float((got - want).abs().max()))
                 n_dmm += 1
-    del a, qw, sw, got, want, xt, qt, st, qt_p, st_p, dq_q, dq_s, buf
+    del a, qw, sw, got, want, xt, qt, st, qt_p, st_p, dq_q, dq_s, buf, r
     print(f"LM kernels: quantize_blockwise bit-equal to plain on "
           f"{len(q_cases)} cases (round half to even); dequant_matmul within "
           f"rtol/atol {DMM_TOL} of plain on {n_dmm} cases (max abs err "
           f"{worst:.3g})")
     print(f"LM kernels: dequantize_blockwise bit-equal to plain on {n_dq} "
           "cases (float32 and bfloat16 output)")
+
+    # phase 2's large edge cases must not weigh on phase 3's host code
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # ---- phase 3: the main path at TPC-H SF1 -------------------------
     t0 = time.perf_counter()
@@ -416,20 +514,25 @@ def main() -> int:
     # keeps each kernel's largest inputs for phase 4 (holding them would
     # raise a measured run's peak memory)
     captured = {}
+    # LDICT's inputs per phase, one for each (shape, rpp) it was given
+    ldict_inputs = {}
 
-    def capture(mod, name, size_of):
+    def capture(mod, name, size_of, label=None):
         orig = getattr(mod, name)
 
         def wrapper(*a, **kw):
             size = size_of(*a)
             if name not in captured or size > captured[name][0]:
                 captured[name] = (size, a)
+            if name == "ldict_bytes":
+                ldict_inputs.setdefault(label, {}).setdefault(
+                    (tuple(a[0].shape), int(a[2])), a)
             return orig(*a, **kw)
         setattr(mod, name, wrapper)
         return orig
 
-    def captured_run(make):
-        originals = {(cb, n): capture(cb, n, lambda c, *r: c.numel())
+    def captured_run(make, label):
+        originals = {(cb, n): capture(cb, n, lambda c, *r: c.numel(), label)
                      for n in CODECS}
         originals[(ps, "prob_within")] = capture(
             ps, "prob_within", lambda mm, ss, ee: mm.numel())
@@ -588,14 +691,33 @@ def main() -> int:
     judge_config("phase 3c", rec_st, rec_sn, staged_price)
 
     # ---- phase 4: kernels at the main paths' inputs -------------------
+    # the second run of each path is traced: LDICT's device time over its
+    # launches beside the measured run's SampleCF seconds
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    ldict_dev = {}
     for label, w, o, rec in (("phase 3", wl, opts, rec_t),
                              ("phase 3b", wl_big, opts5, rec_t5)):
-        again = captured_run(
-            lambda: pt.DesignAdvisor(w, o).recommend(budget))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            again = captured_run(
+                lambda: pt.DesignAdvisor(w, o).recommend(budget), label)
         if (again.cost, again.used_bytes, again.steps) != \
                 (rec.cost, rec.used_bytes, rec.steps):
             fail(f"a second {label} torch/cuda recommend differs from the "
                  "first")
+        spans = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and "ldict" in e.name]
+        ldict_dev[label] = sum(spans) / 1e3
+        print(f"phase 4: {label}: LDICT device time {ldict_dev[label]:.4f} ms "
+              f"over {len(spans)} kernel runs (torch.profiler, the traced "
+              f"second run; {len(ldict_inputs.get(label, {}))} distinct "
+              f"inputs) beside SampleCF {rec.phase_seconds['samplecf']:.4f} s "
+              f"of the measured run ({again.phase_seconds['samplecf']:.4f} s "
+              "traced)")
+    print(f"phase 4: LDICT device time over phases 3 and 3b "
+          f"{sum(ldict_dev.values()):.4f} ms beside SampleCF "
+          f"{rec_t.phase_seconds['samplecf'] + rec_t5.phase_seconds['samplecf']:.4f}"
+          " s")
     sample = pt.SampleManager(schema.tables, seed=0).get_sample(
         "lineitem", 0.01)
     li_cols = torch.as_tensor(np.stack([sample.values[c.name]
@@ -619,6 +741,25 @@ def main() -> int:
             torch.cuda.synchronize()
             runs.append(a.elapsed_time(b) / reps)
         return float(np.median(runs))
+
+    def device_ms(fn, reps):
+        """ms of device time per call of fn: the launches are enqueued
+        while the stream is kept busy (torch.cuda._sleep), so no host gap
+        falls between the two events; the least of 3 runs."""
+        fn()
+        torch.cuda.synchronize()
+        runs = []
+        for _ in range(3):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(40_000_000)          # 4e7 clock cycles
+            a.record()
+            for _ in range(reps):
+                fn()
+            b.record()
+            torch.cuda.synchronize()
+            runs.append(a.elapsed_time(b) / reps)
+        return min(runs)
 
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
@@ -731,9 +872,23 @@ def main() -> int:
                         "bound_by": bound_by, "library_ms": None})
     # the timing launches above count too; the record keeps the measured
     # paths' counts (phases 3, 3b and 3c)
+    rec_ld = next(r for r in records if r["name"] == "ldict_bytes")
+    rec_ld["device_ms_by_phase"] = ldict_dev
+    rec_ld["largest_by_phase"] = {}
+    for label, inputs in ldict_inputs.items():
+        (shape, rpp), args = max(inputs.items(),
+                                 key=lambda kv: kv[1][0].numel())
+        bytes_ms = (nbytes(*args[:2]) + shape[0] * 8) / HBM_BYTES_PER_S * 1e3
+        ms = time_ms(lambda: cb.ldict_bytes(*args), 20)
+        rec_ld["largest_by_phase"][label] = {
+            "shape": list(shape), "rpp": rpp, "ms": ms, "bound_ms": bytes_ms}
+        print(f"kernel ldict_bytes: largest input of {label}: shape {shape} "
+              f"rpp {rpp}: {ms:.4f} ms per call (bound {bytes_ms:.6g} ms by "
+              "bytes)")
     # phase 4's inputs must not count in phase 5's peak device memory
     captured.clear()
-    del li_cols, srt, args, got, want
+    ldict_inputs.clear()
+    del li_cols, srt, args, got, want, inputs
 
     # ---- phase 5: LM serving at TinyLlama-1.1B -------------------------
     from repro_torch.configs import get_config
@@ -1087,8 +1242,12 @@ def main() -> int:
         losses = [h["loss"] for h in trainer.history]
         secs = [h["seconds"] for h in trainer.history]
         names = [n for n, _ in trainer.params.named_parameters()]
-        n_wire = sum(1 for _, p_ in trainer.params.named_parameters()
-                     if p_.ndim > 0 and p_.shape[-1] >= 8)
+        plist = [p_ for _, p_ in trainer.params.named_parameters()]
+        n_wire = sum(1 for p_ in plist if train_step.on_wire(p_))
+        buckets = train_step.wire_buckets(plist)
+        n_buckets = len(buckets)
+        # one grouped launch per bucket (per group_capacity() tensors)
+        n_group = sum(-(-len(b) // qb.group_capacity()) for b in buckets)
         step_s = sum(secs[1:]) / len(secs[1:])
         print(f"phase {label}: Trainer({LM_ARCH}, batch {TRAIN_BATCH}, seq "
               f"{TRAIN_SEQ}, lr {TRAIN_LR}, hbm_budget_bytes {hbm:.3g}): "
@@ -1109,17 +1268,23 @@ def main() -> int:
                  f"{FIRST_LOSS}")
         if not losses[-1] < losses[0]:
             fail(f"phase {label}: the loss did not fall: {losses}")
-        per_step = n_wire + (2 * len(names)
-                             if trainer.opt_cfg.state_codec == "q8" else 0)
-        for k in ("quantize_blockwise", "dequantize_blockwise"):
-            if counts[k] != steps * per_step:
+        # the wire: a quantize per gradient, a grouped dequantize per
+        # bucket; q8 moments: 2 + 2 per parameter
+        per_param = 2 * len(names) if trainer.opt_cfg.state_codec == "q8" \
+            else 0
+        per_step = {"quantize_blockwise": n_wire + per_param,
+                    "dequantize_blockwise": n_group + per_param}
+        for k, n_k in per_step.items():
+            if counts[k] != steps * n_k:
                 fail(f"phase {label}: {counts[k]} {k} launches, not {steps} "
-                     f"steps x {per_step}")
+                     f"steps x {n_k}")
         moments = (f", and m and sqrt v of {len(names)} parameters"
-                   if per_step > n_wire else "")
-        print(f"phase {label}: {per_step} quantize_blockwise and {per_step} "
+                   if per_param else "")
+        print(f"phase {label}: {per_step['quantize_blockwise']} "
+              f"quantize_blockwise and {per_step['dequantize_blockwise']} "
               f"dequantize_blockwise launches per step ({n_wire} gradient "
-              f"tensors on the q8 wire{moments})")
+              f"tensors on the q8 wire in {n_buckets} buckets of at most "
+              f"{train_step.WIRE_BUCKET_BYTES} q8 bytes{moments})")
         return trainer, counts, names
 
     def trace_step(trainer):
@@ -1219,10 +1384,21 @@ def main() -> int:
                 fail(f"phase 6d: quantize_blockwise != plain on {k} of "
                      f"{name}")
             n6d += 1
-    del moments6, got_d, q_, s_, q_p, s_p, grads6
+    # the grouped dequantize on the wire's buckets of the same gradients
+    wire_list = list(wire6.values())
+    for bucket in train_step.wire_buckets([q_ for q_, _ in wire_list]):
+        items = [(*wire_list[i], torch.empty(wire_list[i][0].shape,
+                                             device=dev)) for i in bucket]
+        qb.dequantize_blockwise_group(items)
+        for q_, s_, out in items:
+            if not bit_equal(out, qb.dequantize_blockwise_plain(q_, s_)):
+                fail(f"phase 6d: dequantize_blockwise_group != plain on a "
+                     f"{tuple(q_.shape)} gradient")
+    del moments6, got_d, q_, s_, q_p, s_p, grads6, items, out, wire_list
     print(f"phase 6d: quantize_blockwise and dequantize_blockwise bit-equal "
           f"to plain on {n6d} real tensors (6b's next step's gradients, "
-          f"6c's q8 m and sqrt v)")
+          f"6c's q8 m and sqrt v); dequantize_blockwise_group bit-equal on "
+          f"the {len(wire6)} gradients in the wire's buckets")
 
     # 6e: the card against the CPU at width 2048, depth 2, float32 compute
     lm6e = dataclasses.replace(lm, name=f"{LM_ARCH}-depth2", n_layers=2)
@@ -1271,37 +1447,44 @@ def main() -> int:
     del p_card, p_cpu
 
     # ---- phase 4c: the dequantize kernel at phase 6's shapes ------------
-    # (and quantize at the same shapes: most of its launches are here)
+    # (and quantize at the same shapes: most of its launches are here):
+    # every distinct shape on the q8 wire, cycling through its tensors
+    by_shape = {}
+    for name, (q_, s_) in wire6.items():
+        by_shape.setdefault(tuple(q_.shape), []).append((name, q_, s_))
+
+    def one_call(q_, s_):
+        """The one PyTorch call that dequantizes q_, a broadcast multiply,
+        where there is one (a last dimension of whole blocks, or of one)."""
+        if q_.shape[-1] % qb.DEFAULT_BLOCK == 0:
+            return q_.view(*q_.shape[:-1], s_.shape[-1],
+                           qb.DEFAULT_BLOCK) * s_[..., None]
+        return q_ * s_ if s_.shape[-1] == 1 else None
+
     dq_cases, q6_cases = [], []
-    for label, keys in (
-            ("embedding gradient", ["embed"]),
-            ("mlp wi gradient", [f"layers.{i}.mlp.wi"
-                                 for i in range(lm.n_layers)]),
-            ("mlp wo gradient", [f"layers.{i}.mlp.wo"
-                                 for i in range(lm.n_layers)]),
-            ("attention wq gradient", [f"layers.{i}.attn.wq"
-                                       for i in range(lm.n_layers)]),
-            ("norm gradient", [f"layers.{i}.norm1.scale"
-                               for i in range(lm.n_layers)])):
-        args = [wire6[k] for k in keys]
+    for shape, entries in sorted(by_shape.items(),
+                                 key=lambda kv: -math.prod(kv[0])):
+        label = entries[0][0].replace("layers.0.", "") + " gradient"
+        args = [(q_, s_) for _, q_, s_ in entries]
         q0, s0 = args[0]
         got = qb.dequantize_blockwise(q0, s0)
         want = qb.dequantize_blockwise_plain(q0, s0)
         if not bit_equal(got, want):
             fail(f"dequantize_blockwise != plain on the {label}")
+        lib = one_call(q0, s0)
+        if lib is not None and not bit_equal(lib.reshape(want.shape), want):
+            fail(f"the broadcast multiply != plain on the {label}")
         numel, nb_ = q0.numel(), s0.shape[-1]
         b_ms = (numel * 5 + s0.numel() * 4) / HBM_BYTES_PER_S * 1e3
         o_ms = numel / OPS_PER_S * 1e3
-        lib_ms = None
-        if q0.shape[-1] % 128 == 0:     # one broadcast multiply computes it
-            lib_ms = cycle_ms(lambda q_, s_: q_.view(
-                *q_.shape[:-1], s_.shape[-1], 128) * s_[..., None], args)
         dq_cases.append({
             "shape": list(q0.shape), "path": label, "tensors": len(args),
             "ms": cycle_ms(qb.dequantize_blockwise, args),
+            "device_ms": device_ms(lambda: [qb.dequantize_blockwise(*a)
+                                            for a in args], 3) / len(args),
             "plain_ms": cycle_ms(qb.dequantize_blockwise_plain, args,
                                  reps=2),
-            "library_ms": lib_ms,
+            "library_ms": None if lib is None else cycle_ms(one_call, args),
             "bound_ms": max(b_ms, o_ms), "bytes_ms": b_ms, "ops_ms": o_ms,
             "bound_by": "bytes" if b_ms >= o_ms else "operations",
             "max_abs_err": float((got - want).abs().max())})
@@ -1323,17 +1506,88 @@ def main() -> int:
             "ops_ms": qo_ms,
             "bound_by": "bytes" if qb_ms >= qo_ms else "operations",
             "max_abs_err": float((q_got.int() - q_pl.int()).abs().max())})
-    del wire6, args, q0, s0, got, want, xs6, q_got, s_got, q_pl, s_pl
+    del args, q0, s0, got, want, lib, xs6, q_got, s_got, q_pl, s_pl
+
+    # the grouped launch over every tensor on the wire: its time per call
+    # (CUDA events) and its kernel's device time (torch.profiler) beside
+    # the summed bytes bound, the single calls and the one-call multiplies
+    wire_all = list(wire6.values())
+    items = [(q_, s_, torch.empty(q_.shape, device=dev))
+             for q_, s_ in wire_all]
+    before = launch_counts()["dequantize_blockwise"]
+    qb.dequantize_blockwise_group(items)
+    g_launches = launch_counts()["dequantize_blockwise"] - before
+    for q_, s_, out in items:
+        if not bit_equal(out, qb.dequantize_blockwise_plain(q_, s_)):
+            fail(f"dequantize_blockwise_group != plain on a "
+                 f"{tuple(q_.shape)} gradient")
+    g_bound = sum(q_.numel() * 5 + s_.numel() * 4
+                  for q_, s_ in wire_all) / HBM_BYTES_PER_S * 1e3
+    g_ms = time_ms(lambda: qb.dequantize_blockwise_group(items), 5)
+    g_dev = device_ms(lambda: qb.dequantize_blockwise_group(items), 5)
+    g_singles = time_ms(lambda: [qb.dequantize_blockwise(q_, s_)
+                                 for q_, s_ in wire_all], 3)
+    g_mults = time_ms(lambda: [one_call(q_, s_) for q_, s_ in wire_all], 3)
+    group = {"tensors": len(items), "launches": g_launches, "ms": g_ms,
+             "device_ms": g_dev, "bound_ms": g_bound,
+             "single_calls_ms": g_singles, "one_call_multiplies_ms": g_mults}
+    print(f"kernel dequantize_blockwise_group: all {len(items)} wire tensors "
+          f"in {g_launches} launch(es): {g_ms:.4f} ms per call (CUDA events), "
+          f"device time {g_dev:.4f} ms (CUDA events, launches enqueued "
+          f"behind a busy stream), bytes bound {g_bound:.6g} ms "
+          f"({g_bound / g_dev:.4f} of it in device time); "
+          f"{len(items)} single calls {g_singles:.4f} ms, {len(items)} "
+          f"one-call broadcast multiplies {g_mults:.4f} ms")
+    del items, out
+
+    # where a single call's host microseconds go, at the (d_model,) norm
+    # gradient: each part alone, enqueued 2,000 times (the raw launches
+    # here are timing, not a wrapper's work, and count nowhere)
+    _, qn, sn = by_shape[(lm.d_model,)][0]
+    out_n = torch.empty(qn.shape, device=dev)
+    launch = qb._load().dequantize_blockwise_launch
+    st = qb._stream(qn.get_device())
+    ptrs = (qn.data_ptr(), sn.data_ptr(), out_n.data_ptr(), 1,
+            qn.shape[-1], qb.DEFAULT_BLOCK, 0, st)
+
+    def host_us(fn, n=2000):
+        for _ in range(100):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        took = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return took / n * 1e6
+
+    host = {
+        "whole call": host_us(lambda: qb.dequantize_blockwise(qn, sn)),
+        "checks": host_us(lambda: qb._check_dequantize(
+            qn, sn, qb.DEFAULT_BLOCK, torch.float32)),
+        "torch.empty": host_us(lambda: torch.empty(qn.shape, device=dev)),
+        "is_contiguous x2": host_us(lambda: (qn.is_contiguous(),
+                                             sn.is_contiguous())),
+        "stream handle": host_us(lambda: qb._stream(qn.get_device())),
+        "data_ptr x3": host_us(lambda: (qn.data_ptr(), sn.data_ptr(),
+                                        out_n.data_ptr())),
+        "ctypes call and launch": host_us(lambda: launch(*ptrs)),
+        "one-call broadcast multiply": host_us(lambda: one_call(qn, sn))}
+    print("phase 4c: host microseconds per dequantize_blockwise call at "
+          f"{tuple(qn.shape)}, by part: " + ", ".join(
+              f"{k} {v:.2f}" for k, v in host.items()))
+    del wire6, by_shape, qn, sn, out_n, wire_all
     dq_launches = {"6b": launches6b["dequantize_blockwise"],
                    "6c": launches6c["dequantize_blockwise"]}
     for c in dq_cases:
         lib = (f", one-call broadcast multiply {c['library_ms']:.4f} ms"
                if c["library_ms"] is not None else
-               ", no one-call equivalent (last dimension not a multiple of "
-               "128)")
+               ", no one-call equivalent (a ragged last block)")
         print(f"kernel dequantize_blockwise: shape {tuple(c['shape'])} "
               f"{c['path']} (cycling {c['tensors']}): {c['ms']:.4f} ms per "
-              f"call (plain {c['plain_ms']:.4f} ms, bound {c['bound_ms']:.6g}"
+              f"call, device time {c['device_ms']:.4f} ms ("
+              f"{c['bound_ms'] / c['device_ms']:.4f} of the bound) (plain "
+              f"{c['plain_ms']:.4f} ms, bound {c['bound_ms']:.6g}"
               f" ms by {c['bound_by']}; bytes {c['bytes_ms']:.6g} ms, "
               f"operations {c['ops_ms']:.6g} ms{lib}), launches "
               f"{json.dumps(dq_launches)}, max_abs_err {c['max_abs_err']}")
@@ -1352,9 +1606,11 @@ def main() -> int:
         "launches": sum(dq_launches.values()),
         "launches_by_phase": dq_launches,
         "max_abs_err": max(c["max_abs_err"] for c in dq_cases),
-        "ms": h["ms"], "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
-        "bound_by": h["bound_by"], "library_ms": h["library_ms"],
-        "shape": h["shape"], "cases": dq_cases})
+        "ms": h["ms"], "device_ms": h["device_ms"], "plain_ms": h["plain_ms"],
+        "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
+        "library_ms": h["library_ms"], "shape": h["shape"], "cases": dq_cases,
+        "group": group,
+        "host_us_at_norm": host})
     rec_q = next(r for r in records if r["name"] == "quantize_blockwise")
     rec_q["launches_by_phase"] = {
         "5": rec_q["launches"], "6b": launches6b["quantize_blockwise"],

@@ -30,7 +30,8 @@ import torch
 from . import build
 
 PAGE_META = 16          # per-page metadata bytes of page-local methods
-MAX_PAGE_P2 = 4096      # largest padded page the LDICT kernel sorts
+MAX_PAGE_P2 = 4096      # largest page (rounded up to a power of two) the
+                        # LDICT kernel's shared-memory hash set takes
 
 LAUNCHES: Dict[str, int] = {"ns_bytes": 0, "gdict_bytes": 0,
                             "ldict_bytes": 0, "prefix_bytes": 0,
@@ -46,11 +47,10 @@ def _load():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.ns_bytes_launch.argtypes = [vp, vp, vp, ci, ci, vp]
         lib.ns_bytes_launch.restype = ci
-        lib.ldict_bytes_launch.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
-        lib.ldict_bytes_launch.restype = ci
         lib.gdict_bytes_launch.argtypes = [vp, vp, vp, ci, ci, vp]
         lib.gdict_bytes_launch.restype = ci
-        for fn in (lib.prefix_bytes_launch, lib.rle_bytes_launch):
+        for fn in (lib.ldict_bytes_launch, lib.prefix_bytes_launch,
+                   lib.rle_bytes_launch):
             fn.argtypes = [vp, vp, vp, ci, ci, ci, vp]
             fn.restype = ci
         lib.codec_error_string.argtypes = [ci]
@@ -228,23 +228,10 @@ def ldict_bytes(cols: torch.Tensor, widths: torch.Tensor,
     m, n = cols.shape
     if m == 0 or n == 0:
         return torch.zeros(m, dtype=torch.int64, device=cols.device)
-    npages = -(-n // rpp)
-    p2 = 1 << (min(rpp, n) - 1).bit_length()
-    if p2 > MAX_PAGE_P2:
+    if 1 << (min(rpp, n) - 1).bit_length() > MAX_PAGE_P2:
         raise ValueError(f"a page of {min(rpp, n)} rows exceeds the "
                          f"kernel's {MAX_PAGE_P2}-row shared-memory page")
-    if m * npages >= 2 ** 31 or n >= 2 ** 31:
-        raise ValueError(f"stack {tuple(cols.shape)} at rpp {rpp} exceeds "
-                         "the kernel's grid")
-    cols = cols.contiguous()
-    widths = widths.contiguous()
-    out = torch.zeros(m, dtype=torch.int64, device=cols.device)
-    err = _load().ldict_bytes_launch(cols.data_ptr(), widths.data_ptr(),
-                                     out.data_ptr(), m, n, rpp, p2,
-                                     _stream(cols))
-    _launch_check(err, "ldict_bytes")
-    LAUNCHES["ldict_bytes"] += 1
-    return out
+    return _paged_launch("ldict_bytes", cols, widths, rpp)
 
 
 def gdict_bytes(cols: torch.Tensor, widths: torch.Tensor) -> torch.Tensor:
@@ -283,7 +270,8 @@ def gdict_bytes_sorted(srt: torch.Tensor,
 
 def _paged_launch(name: str, cols: torch.Tensor, widths: torch.Tensor,
                   rpp: int) -> torch.Tensor:
-    """Launch the one-block-per-(row, page) kernel `name` on a CUDA stack."""
+    """Launch the paged kernel `name` (LDICT, PREFIX or RLE) on a CUDA
+    stack."""
     m, n = cols.shape
     if m == 0 or n == 0:
         return torch.zeros(m, dtype=torch.int64, device=cols.device)

@@ -7,8 +7,8 @@
 //   gdict_bytes_kernel  <- _gdict_kernel (l.104); the row sort before it
 //                          (lax.sort, l.179-180) stays a library sort
 //                          (torch.sort), as it was XLA's on the TPU
-//   ldict_bytes_kernel  <- _ldict_kernel (l.113) AND the per-page lax.sort
-//                          pre-pass of _codec_call (l.187-191)
+//   ldict_warp_kernel,  <- _ldict_kernel (l.113) AND the per-page lax.sort
+//   ldict_block_kernel     pre-pass of _codec_call (l.187-191)
 //   prefix_bytes_kernel <- _prefix_kernel (l.128)
 //   rle_bytes_kernel    <- _rle_kernel (l.149)
 // The TPU version split each int64 into two uint32 planes because the TPU
@@ -23,17 +23,37 @@
 // device memory (8 bytes) and costs a handful of integer operations, far
 // below the card's integer rate, so the floor is m * n * 8 bytes over
 // 3.35 TB/s.  NS and GDICT: one block per row, a block-strided loop of
-// coalesced loads and a block reduction.  LDICT, PREFIX and RLE: one block
-// per (row, page), whose byte count is added to the row total with a 64-bit
-// integer atomic (order-free, hence deterministic).  LDICT sorts its page
-// (rpp <= 1638 rows, padded to a power of two <= 4096) in shared memory
-// with a bitonic network and counts distinct values as adjacent unequal
-// pairs; PREFIX reduces the page's min and max; RLE counts adjacent unequal
-// pairs in the order given.  Only a page's real rows are read: the
-// reference edge-pads the last page with its last value, which adds no
-// distinct value, no run and no new min or max.
+// coalesced loads and a block reduction.  PREFIX and RLE: one block per
+// (row, page), whose byte count is added to the row total with a 64-bit
+// integer atomic (order-free, hence deterministic); PREFIX reduces the
+// page's min and max, RLE counts adjacent unequal pairs in the order given.
+//
+// LDICT counts each page's distinct values with a hash set in shared
+// memory, not a sort: a sort of a 273-row page in shared memory, padded to
+// 512 keys, is a bitonic network of 45 stages, each ending in a block-wide
+// barrier, for 2.2 KB of input.  Each page gets an open-addressing table
+// (linear probing, Fibonacci hashing, at least 7 slots per 4 rows).  With
+// many pages (>= 1,024), pages of up to 512 rows go one to a warp, four
+// warps to a block, each warp with a table of its own of 64..1024 slots:
+// the warp loads its page with coalesced 8-byte loads into registers and
+// places the values without atomics, in rounds of read, write if empty,
+// __syncwarp, read back (ldict_warp_kernel says why that is exact); ndv is
+// the number of filled slots, counted as the warp empties its table.  No
+// barrier but __syncwarp, no shared-memory atomic.  Pages of 513..4096
+// rows, and any pages when there are too few to give each SM several warps
+// (a page's latency decides there), take one 256-thread block per page,
+// a table of up to 8192 slots in dynamic shared memory and 64-bit
+// atomicCAS inserts that count the values that claimed an empty slot.
+// A team (warp or block) walks a run of up to 8 consecutive pages and adds
+// its bytes to the row total with one atomic per row it touched.
+// Every int64 is a legal value, so "empty" is INT64_MIN and a real INT64_MIN
+// is kept out of the table and counted with a flag.  Only a page's real
+// rows are read: the reference edge-pads the last page with its last
+// value, which adds no distinct value, no run and no new min or max.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -115,52 +135,205 @@ __global__ void ns_bytes_kernel(const long long* __restrict__ cols,
   if (threadIdx.x == 0) out[row] = (acc + 1) / 2;
 }
 
-__global__ void ldict_bytes_kernel(const long long* __restrict__ cols,
-                                   const long long* __restrict__ widths,
-                                   unsigned long long* __restrict__ out,
-                                   int n, int rpp, int npages, int p2) {
-  extern __shared__ long long page[];
-  const int row = blockIdx.x / npages;
-  const int pg = blockIdx.x - row * npages;
-  const long long w = widths[row];
-  const int start = pg * rpp;
-  const int rows = (pg == npages - 1) ? n - start : rpp;
-  const long long* __restrict__ src =
-      cols + static_cast<long long>(row) * n + start;
-  // pad with the int64 maximum: pads sort last, and only the first `rows`
-  // sorted entries are counted (a real maximum value among them still
-  // counts once, since pads and it compare equal)
-  for (int i = threadIdx.x; i < p2; i += kThreads)
-    page[i] = i < rows ? src[i] : 0x7fffffffffffffffll;
-  __syncthreads();
-  // bitonic sort, ascending, of p2 (a power of two) keys
-  for (int k = 2; k <= p2; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int t = threadIdx.x; t < (p2 >> 1); t += kThreads) {
-        const int i = 2 * t - (t & (j - 1));
-        const int ixj = i + j;
-        const long long a = page[i];
-        const long long b = page[ixj];
-        const bool up = (i & k) == 0;
-        if ((a > b) == up) {
-          page[i] = b;
-          page[ixj] = a;
+constexpr unsigned long long kEmpty = 0x8000000000000000ull;   // INT64_MIN
+constexpr int kLdictTeams = 4;          // warps (one page each) per block
+constexpr int kLdictMaxGroup = 8;       // pages a team walks, at most
+constexpr long long kLdictBlockPages = 1024;   // fewer: a block per page
+
+__device__ __forceinline__ long long ldict_page_bytes(long long ndv,
+                                                      long long rows,
+                                                      long long w) {
+  return min(ndv * w + rows * ptr_bytes(ndv) + kPageMeta,
+             rows * w + kPageMeta);
+}
+
+__device__ __forceinline__ unsigned ldict_hash(unsigned long long v,
+                                               int log_slots) {
+  return static_cast<unsigned>(
+      ((v ^ (v >> 32)) * 0x9E3779B97F4A7C15ull) >> (64 - log_slots));
+}
+
+// Inserts v (!= kEmpty) into an open-addressing table of 2^log_slots
+// slots shared by a block (linear probing).  Returns the slot v claimed,
+// or -1 when v was there already.  Slots are only ever claimed while a
+// page is inserted, so a slot that holds another value stays that way
+// and probing past it is safe; the table is never more than 4/7 full, so
+// the probe ends.
+__device__ __forceinline__ int ldict_insert(unsigned long long* table,
+                                            int log_slots,
+                                            unsigned long long v) {
+  const unsigned mask = (1u << log_slots) - 1;
+  unsigned h = ldict_hash(v, log_slots);
+  for (;;) {
+    unsigned long long cur =
+        *reinterpret_cast<volatile unsigned long long*>(table + h);
+    if (cur == v) return -1;
+    if (cur == kEmpty) {
+      cur = atomicCAS(table + h, kEmpty, v);
+      if (cur == kEmpty) return static_cast<int>(h);
+      if (cur == v) return -1;
+    }
+    h = (h + 1) & mask;
+  }
+}
+
+// One warp per page of <= 32 * kPerLane rows, kLdictTeams warps per
+// block; pages [team * group, team * group + group) of the flattened
+// (row, page) space go to one warp in turn.  A warp inserts without
+// atomics, in rounds: every lane with a value still to place reads its
+// probe slot; lanes that found it empty write their value; after a
+// __syncwarp each re-reads the slot: its own value there (written by it
+// or by a lane holding the same value) means placed, another value means
+// probe on.  A value once placed is never overwritten (writes go only to
+// slots read as empty in the same round), so each distinct value ends in
+// exactly one slot, and ndv is the count of filled slots, which the warp
+// counts while it empties the table for the next page.
+template <int kLogSlots, int kPerLane>
+__global__ void __launch_bounds__(kLdictTeams * 32)
+ldict_warp_kernel(const long long* __restrict__ cols,
+                  const long long* __restrict__ widths,
+                  unsigned long long* __restrict__ out, int n, int rpp,
+                  int npages, long long total_pages, int group) {
+  constexpr unsigned kMask = (1u << kLogSlots) - 1;
+  __shared__ unsigned long long tables[kLdictTeams][1 << kLogSlots];
+  const int lane = threadIdx.x & 31;
+  volatile unsigned long long* table = tables[threadIdx.x >> 5];
+  for (int i = lane; i < (1 << kLogSlots); i += 32) table[i] = kEmpty;
+  __syncwarp();
+  long long gp =
+      (static_cast<long long>(blockIdx.x) * kLdictTeams + (threadIdx.x >> 5)) *
+      group;
+  const long long stop = min(gp + group, total_pages);
+  long long run_row = -1;
+  long long run_bytes = 0;
+  for (; gp < stop; ++gp) {
+    const long long row = gp / npages;
+    const int pg = static_cast<int>(gp - row * npages);
+    const int start = pg * rpp;
+    const int rows = (pg == npages - 1) ? n - start : rpp;
+    const long long* __restrict__ src = cols + row * n + start;
+    unsigned long long v[kPerLane];
+#pragma unroll
+    for (int i = 0; i < kPerLane; ++i)
+      v[i] = lane + 32 * i < rows
+                 ? static_cast<unsigned long long>(src[lane + 32 * i])
+                 : 0ull;
+    bool has_min = false;
+#pragma unroll
+    for (int i = 0; i < kPerLane; ++i) {
+      bool todo = lane + 32 * i < rows;
+      if (todo && v[i] == kEmpty) {
+        has_min = true;
+        todo = false;
+      }
+      unsigned h = ldict_hash(v[i], kLogSlots);
+      while (__any_sync(0xffffffffu, todo)) {
+        unsigned long long cur = todo ? table[h] : 0ull;
+        const bool write = todo && cur == kEmpty;
+        __syncwarp();
+        if (write) table[h] = v[i];
+        __syncwarp();
+        if (write) cur = table[h];
+        if (todo) {
+          if (cur == v[i]) todo = false;
+          else h = (h + 1) & kMask;
         }
       }
-      __syncthreads();
+    }
+    __syncwarp();                 // every value placed
+    int filled = 0;
+    for (int i = lane; i < (1 << kLogSlots); i += 32) {
+      if (table[i] != kEmpty) {
+        ++filled;
+        table[i] = kEmpty;
+      }
+    }
+    const long long ndv = __reduce_add_sync(0xffffffffu, filled) +
+                          (__any_sync(0xffffffffu, has_min) ? 1 : 0);
+    __syncwarp();                 // the table is empty again
+    if (row != run_row) {
+      if (lane == 0 && run_row >= 0)
+        atomicAdd(out + run_row, static_cast<unsigned long long>(run_bytes));
+      run_row = row;
+      run_bytes = 0;
+    }
+    run_bytes += ldict_page_bytes(ndv, rows, widths[row]);
+  }
+  if (lane == 0 && run_row >= 0)
+    atomicAdd(out + run_row, static_cast<unsigned long long>(run_bytes));
+}
+
+// One page per kThreads-thread block at a time (16 values a thread at
+// most, so up to 4096 rows), a table of 2^log_slots slots in dynamic
+// shared memory, values inserted with atomicCAS; pages [blockIdx.x *
+// group, ... + group) in turn.  Pages of more than 512 rows, and any pages
+// when there are too few to fill the card one warp each, take it.
+constexpr int kLdictBlockPerThread = 4096 / kThreads;
+
+__global__ void __launch_bounds__(kThreads)
+ldict_block_kernel(const long long* __restrict__ cols,
+                   const long long* __restrict__ widths,
+                   unsigned long long* __restrict__ out, int n, int rpp,
+                   int npages, long long total_pages, int group,
+                   int log_slots) {
+  extern __shared__ unsigned long long table[];
+  for (int i = threadIdx.x; i < (1 << log_slots); i += kThreads)
+    table[i] = kEmpty;
+  __syncthreads();
+  long long gp = static_cast<long long>(blockIdx.x) * group;
+  const long long stop = min(gp + group, total_pages);
+  long long run_row = -1;
+  long long run_bytes = 0;
+  for (; gp < stop; ++gp) {
+    const long long row = gp / npages;
+    const int pg = static_cast<int>(gp - row * npages);
+    const int start = pg * rpp;
+    const int rows = (pg == npages - 1) ? n - start : rpp;
+    const long long* __restrict__ src = cols + row * n + start;
+    unsigned long long v[kLdictBlockPerThread];
+#pragma unroll
+    for (int i = 0; i < kLdictBlockPerThread; ++i) {
+      const int j = threadIdx.x + kThreads * i;
+      v[i] = j < rows ? static_cast<unsigned long long>(src[j]) : 0ull;
+    }
+    int slot[kLdictBlockPerThread];
+    long long fresh = 0;
+    int has_min = 0;
+#pragma unroll
+    for (int i = 0; i < kLdictBlockPerThread; ++i) {
+      slot[i] = -1;
+      const bool mine = threadIdx.x + kThreads * i < rows;
+      if (mine && v[i] == kEmpty) has_min = 1;
+      // one lane inserts each value the warp holds, the lowest holding it:
+      // a page of few distinct values would otherwise queue a warp's
+      // atomics on one slot
+      const unsigned live =
+          __ballot_sync(0xffffffffu, mine && v[i] != kEmpty);
+      const unsigned peers = __match_any_sync(0xffffffffu, v[i]) & live;
+      if (((live >> (threadIdx.x & 31)) & 1) &&
+          __ffs(peers) - 1 == static_cast<int>(threadIdx.x & 31)) {
+        slot[i] = ldict_insert(table, log_slots, v[i]);
+        fresh += slot[i] >= 0 ? 1 : 0;
+      }
+    }
+    has_min = __syncthreads_or(has_min);   // every insert done
+#pragma unroll
+    for (int i = 0; i < kLdictBlockPerThread; ++i)
+      if (slot[i] >= 0) table[slot[i]] = kEmpty;
+    fresh = block_sum(fresh);              // its barrier orders the clears
+    if (threadIdx.x == 0) {
+      if (row != run_row) {
+        if (run_row >= 0)
+          atomicAdd(out + run_row,
+                    static_cast<unsigned long long>(run_bytes));
+        run_row = row;
+        run_bytes = 0;
+      }
+      run_bytes += ldict_page_bytes(fresh + has_min, rows, widths[row]);
     }
   }
-  long long neq = 0;
-  for (int i = 1 + threadIdx.x; i < rows; i += kThreads)
-    neq += page[i] != page[i - 1] ? 1 : 0;
-  neq = block_sum(neq);
-  if (threadIdx.x == 0) {
-    const long long ndv = 1 + neq;
-    const long long per_page = ndv * w + rows * ptr_bytes(ndv) + kPageMeta;
-    const long long cap = rows * w + kPageMeta;
-    atomicAdd(out + row,
-              static_cast<unsigned long long>(min(per_page, cap)));
-  }
+  if (threadIdx.x == 0 && run_row >= 0)
+    atomicAdd(out + run_row, static_cast<unsigned long long>(run_bytes));
 }
 
 // rows arrive sorted (torch.sort); ndv = 1 + #(adjacent unequal)
@@ -256,16 +429,63 @@ int ns_bytes_launch(const void* cols, const void* widths, void* out, int m,
 }
 
 // out: (m,) int64, zeroed by the caller; pages are added into it.
-// m * ceil(n / rpp) < 2^31 blocks.
-// p2: power of two >= min(rpp, n), at most 4096 (32 KB of shared memory).
+// m * ceil(n / rpp) < 2^31 pages; min(rpp, n) <= 4096 rows.
 int ldict_bytes_launch(const void* cols, const void* widths, void* out, int m,
-                       int n, int rpp, int p2, void* stream) {
+                       int n, int rpp, void* stream) {
   const int npages = (n + rpp - 1) / rpp;
-  ldict_bytes_kernel<<<m * npages, kThreads, p2 * sizeof(long long),
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const long long*>(cols),
-      static_cast<const long long*>(widths),
-      static_cast<unsigned long long*>(out), n, rpp, npages, p2);
+  const int rows = std::min(rpp, n);
+  const long long pages = static_cast<long long>(m) * npages;
+  // at least 7 slots per 4 rows, 64 at least
+  int log_slots = 6;
+  while ((1 << log_slots) < (7 * rows + 3) / 4) ++log_slots;
+  // a run of up to 8 pages per team once there are pages enough to fill
+  // the card (132 SMs x ~64 resident warps)
+  const int group = static_cast<int>(
+      std::max(1ll, std::min(static_cast<long long>(kLdictMaxGroup),
+                             pages / 8192)));
+  const long long teams = (pages + group - 1) / group;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* c = static_cast<const long long*>(cols);
+  const auto* w = static_cast<const long long*>(widths);
+  auto* o = static_cast<unsigned long long*>(out);
+  // a warp per page needs many pages: under ~1,000 (132 SMs x 8) a page's
+  // latency decides, and 256 threads per page shorten it
+  if (rows > 512 || pages < kLdictBlockPages) {
+    const int smem = static_cast<int>(sizeof(unsigned long long)) << log_slots;
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          ldict_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    ldict_block_kernel<<<static_cast<unsigned>(teams), kThreads, smem, st>>>(
+        c, w, o, n, rpp, npages, pages, group, log_slots);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const unsigned blocks =
+      static_cast<unsigned>((teams + kLdictTeams - 1) / kLdictTeams);
+  switch (log_slots) {   // rows <= 4/7 of the slots, <= 32 * kPerLane
+    case 6:
+      ldict_warp_kernel<6, 2><<<blocks, kLdictTeams * 32, 0, st>>>(
+          c, w, o, n, rpp, npages, pages, group);
+      break;
+    case 7:
+      ldict_warp_kernel<7, 3><<<blocks, kLdictTeams * 32, 0, st>>>(
+          c, w, o, n, rpp, npages, pages, group);
+      break;
+    case 8:
+      ldict_warp_kernel<8, 6><<<blocks, kLdictTeams * 32, 0, st>>>(
+          c, w, o, n, rpp, npages, pages, group);
+      break;
+    case 9:
+      ldict_warp_kernel<9, 11><<<blocks, kLdictTeams * 32, 0, st>>>(
+          c, w, o, n, rpp, npages, pages, group);
+      break;
+    default:
+      ldict_warp_kernel<10, 16><<<blocks, kLdictTeams * 32, 0, st>>>(
+          c, w, o, n, rpp, npages, pages, group);
+      break;
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -14,27 +14,34 @@ the dictionary the scale.
 * `dequantize_blockwise(q, scales, block, dtype)` -- the inverse: q *
   scale of its block, one float32 multiply, cast to `dtype` (float32 or
   bfloat16); any rank, any last dimension.
-* `quantize_blockwise_plain`, `dequantize_blockwise_plain` -- the plain
-  PyTorch versions of the same functions.
+* `dequantize_blockwise_group(items, block)` -- the same for a list of
+  (q, scales, out) triples, written into each `out` (its dtype, float32 or
+  bfloat16, is the output type) in one launch per `group_capacity()`
+  items.
+* `quantize_blockwise_plain`, `dequantize_blockwise_plain`,
+  `dequantize_blockwise_group_plain` -- the plain PyTorch versions of the
+  same functions.
 
 Each wrapper takes its route from the device of its input: on a CUDA
 tensor it launches its hand-written kernel in `csrc/quantize_blockwise.cu`
 (one library, built on first use) or raises; on a CPU tensor it runs the
 plain version.  On the card the kernels' results are bit-equal to the
-plain versions'.  `LAUNCHES` counts kernel launches, per wrapper.
+plain versions'.  `LAUNCHES` counts kernel launches, per wrapper (the
+single and the grouped dequantize run one kernel and count under
+"dequantize_blockwise").
 
 The CUDA kernels replace the Pallas kernels `_quantize_kernel` and
 `_dequantize_kernel` of the JAX package (`kernels/quantize_blockwise.py`);
 the plain versions follow `kernels/ref.py` `quantize_blockwise` /
 `dequantize_blockwise` and the any-rank wrappers of `kernels/ops.py`.
 The q8 codec of the LM stack runs through them: `quantize_mlp` (serving),
-the q8 gradient wire (`train/step.py`) and the q8 AdamW moments
-(`optim/adamw.py`).
+the q8 gradient wire (`train/step.py`, grouped dequantize) and the q8
+AdamW moments (`optim/adamw.py`, one tensor at a time).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -42,6 +49,7 @@ from . import build
 
 DEFAULT_BLOCK = 128
 Q_MAX = 127.0
+_MAX_ITEM = 2 ** 31     # a dequantize kernel item holds fewer elements
 
 LAUNCHES: Dict[str, int] = {"quantize_blockwise": 0, "dequantize_blockwise": 0}
 
@@ -57,12 +65,28 @@ def _load():
                                                   ci, vp]
         lib.quantize_blockwise_launch.restype = ci
         lib.dequantize_blockwise_launch.argtypes = [vp, vp, vp, cll, ci, ci,
-                                                    ci, ci, vp]
+                                                    ci, vp]
         lib.dequantize_blockwise_launch.restype = ci
+        lib.dequantize_group_launch.argtypes = [vp, ci, ci, vp]
+        lib.dequantize_group_launch.restype = ci
+        lib.dequantize_group_capacity.argtypes = []
+        lib.dequantize_group_capacity.restype = ci
         lib.quantize_error_string.argtypes = [ci]
         lib.quantize_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def _stream(index: int) -> int:
+    """The handle of CUDA device `index`'s current stream, without building
+    a `torch.cuda.Stream`."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def _launch_check(err: int, what: str) -> None:
+    if err != 0:
+        msg = _load().quantize_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: {msg} (CUDA error {err})")
 
 
 def quantize_blockwise_plain(x: torch.Tensor, block: int = DEFAULT_BLOCK
@@ -108,32 +132,35 @@ def quantize_blockwise(x: torch.Tensor, block: int = DEFAULT_BLOCK
     x = x.contiguous()
     err = _load().quantize_blockwise_launch(
         x.data_ptr(), q.data_ptr(), scales.data_ptr(), rows, n, block,
-        int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        msg = _load().quantize_error_string(err).decode()
-        raise RuntimeError(f"quantize_blockwise launch failed: {msg} "
-                           f"(CUDA error {err})")
+        int(x.dtype == torch.bfloat16), _stream(x.get_device()))
+    _launch_check(err, "quantize_blockwise")
     LAUNCHES["quantize_blockwise"] += 1
     return q, scales
 
 
 def _check_dequantize(q: torch.Tensor, scales: torch.Tensor, block: int,
                       dtype: torch.dtype) -> None:
-    if q.dtype != torch.int8 or scales.dtype != torch.float32:
+    # plain ints, `is` on the dtype singletons and no new torch.Size: a
+    # single call at a small shape is host work, and this runs on every one
+    if q.dtype is not torch.int8 or scales.dtype is not torch.float32:
         raise ValueError(f"dequantize_blockwise takes int8 q and float32 "
                          f"scales, got {q.dtype} and {scales.dtype}")
-    if dtype not in (torch.float32, torch.bfloat16):
+    if dtype is not torch.float32 and dtype is not torch.bfloat16:
         raise ValueError(f"dequantize_blockwise gives float32 or bfloat16, "
                          f"not {dtype}")
-    if q.ndim < 1 or block < 1:
+    qs, ss = q.shape, scales.shape
+    nd = len(qs)
+    if nd == 0 or block < 1:
         raise ValueError("dequantize_blockwise needs a last dimension and "
                          "block >= 1")
-    want = (*q.shape[:-1], -(-q.shape[-1] // block))
-    if tuple(scales.shape) != want:
-        raise ValueError(f"scales {tuple(scales.shape)} do not fit q "
-                         f"{tuple(q.shape)} at block {block}: want {want}")
-    if scales.device != q.device:
+    fits = len(ss) == nd and ss[-1] == -(-qs[-1] // block)
+    for i in range(nd - 1):
+        fits = fits and qs[i] == ss[i]
+    if not fits:
+        want = (*qs[:-1], -(-qs[-1] // block))
+        raise ValueError(f"scales {tuple(ss)} do not fit q {tuple(qs)} at "
+                         f"block {block}: want {want}")
+    if scales.get_device() != q.get_device():
         raise ValueError(f"q on {q.device}, scales on {scales.device}")
 
 
@@ -154,31 +181,119 @@ def dequantize_blockwise_plain(q: torch.Tensor, scales: torch.Tensor,
 def dequantize_blockwise(q: torch.Tensor, scales: torch.Tensor,
                          block: int = DEFAULT_BLOCK,
                          dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Any-rank blockwise dequantization of the last dimension."""
-    if q.device.type == "cpu":
-        return dequantize_blockwise_plain(q, scales, block, dtype)
-    _check_dequantize(q, scales, block, dtype)
-    if q.device.type != "cuda":
+    """Any-rank blockwise dequantization of the last dimension: the
+    grouped kernel on a one-item list, on a CUDA tensor."""
+    if not q.is_cuda:
+        if q.device.type == "cpu":
+            return dequantize_blockwise_plain(q, scales, block, dtype)
         raise ValueError(f"unsupported device {q.device}")
+    _check_dequantize(q, scales, block, dtype)
+    if not q.is_contiguous():
+        q = q.contiguous()
+    if not scales.is_contiguous():
+        scales = scales.contiguous()
+    out = torch.empty_like(q, dtype=dtype)      # contiguous, like q
     n = q.shape[-1]
-    out = torch.empty(q.shape, dtype=dtype, device=q.device)
-    total = q.numel()
+    total = out.numel()
     if total == 0:
         return out
-    if n >= 2 ** 31:
-        raise ValueError(f"shape {tuple(q.shape)} outside the kernel's "
-                         "sizes")
-    q, scales = q.contiguous(), scales.contiguous()
-    # the 4-wide path: 4 consecutive elements share a row and a block, q's
-    # char4 load is aligned (a fresh output always is)
-    vec = n % 4 == 0 and block % 4 == 0 and q.data_ptr() % 4 == 0
+    if total >= _MAX_ITEM:          # split by rows: a grouped launch
+        _launch_group(_table_rows(q, scales, out, block), block,
+                      q.get_device())
+        return out
     err = _load().dequantize_blockwise_launch(
-        q.data_ptr(), scales.data_ptr(), out.data_ptr(), total, n, block,
-        int(dtype == torch.bfloat16), int(vec),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        msg = _load().quantize_error_string(err).decode()
-        raise RuntimeError(f"dequantize_blockwise launch failed: {msg} "
-                           f"(CUDA error {err})")
+        q.data_ptr(), scales.data_ptr(), out.data_ptr(), total // n, n,
+        block, dtype is torch.bfloat16, _stream(q.get_device()))
+    _launch_check(err, "dequantize_blockwise")
     LAUNCHES["dequantize_blockwise"] += 1
     return out
+
+
+def _table_rows(q: torch.Tensor, scales: torch.Tensor, out: torch.Tensor,
+                block: int):
+    """The kernel's table rows (q, scales, out addresses, rows, n,
+    out_bf16) for contiguous q, scales and out: one row, or one per run of
+    rows of fewer than 2^31 elements."""
+    n = q.shape[-1]
+    if n >= _MAX_ITEM:
+        raise ValueError(f"shape {tuple(q.shape)} outside the kernel's "
+                         "sizes")
+    rows, nb = q.numel() // n, -(-n // block)
+    step = (_MAX_ITEM - 1) // n
+    es = out.element_size()
+    return [(q.data_ptr() + r * n, scales.data_ptr() + r * nb * 4,
+             out.data_ptr() + r * n * es, min(step, rows - r), n,
+             int(out.dtype == torch.bfloat16))
+            for r in range(0, rows, step)]
+
+
+def _launch_group(table, block: int, device_index: int) -> None:
+    """One grouped launch per `group_capacity()` rows of `table`."""
+    lib = _load()
+    cap = lib.dequantize_group_capacity()
+    stream = _stream(device_index)
+    for i in range(0, len(table), cap):
+        chunk = table[i:i + cap]
+        flat = (ctypes.c_longlong * (6 * len(chunk)))(
+            *(v for row in chunk for v in row))
+        err = lib.dequantize_group_launch(flat, len(chunk), block, stream)
+        _launch_check(err, "dequantize_blockwise_group")
+        LAUNCHES["dequantize_blockwise"] += 1
+
+
+Group = Sequence[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+
+
+def _check_group(items: Group, block: int) -> None:
+    for q, scales, out in items:
+        _check_dequantize(q, scales, block, out.dtype)
+        if out.shape != q.shape or out.device != q.device:
+            raise ValueError(f"out {tuple(out.shape)} on {out.device} does "
+                             f"not match q {tuple(q.shape)} on {q.device}")
+        if not out.is_contiguous():
+            raise ValueError("dequantize_blockwise_group writes into "
+                             "contiguous outputs only")
+        if q.device != items[0][0].device:
+            raise ValueError("a dequantize group spans devices "
+                             f"{items[0][0].device} and {q.device}")
+
+
+def dequantize_blockwise_group_plain(items: Group,
+                                     block: int = DEFAULT_BLOCK) -> None:
+    """`dequantize_blockwise_plain` of each (q, scales, out), written into
+    out in out's dtype."""
+    _check_group(items, block)
+    for q, scales, out in items:
+        out.copy_(dequantize_blockwise_plain(q, scales, block, out.dtype))
+
+
+def group_capacity() -> int:
+    """The most items one grouped dequantize launch takes (the kernel's
+    parameter struct; a tensor of 2^31 elements or more takes more than
+    one)."""
+    return _load().dequantize_group_capacity()
+
+
+def dequantize_blockwise_group(items: Group,
+                               block: int = DEFAULT_BLOCK) -> None:
+    """Blockwise dequantization of every (q, scales, out) of `items` into
+    its out (float32 or bfloat16), any ranks and last dimensions.  On CUDA
+    tensors: one kernel launch per `group_capacity()` items; on CPU
+    tensors: the plain version."""
+    items = list(items)
+    if not items:
+        return
+    if items[0][0].device.type == "cpu":
+        dequantize_blockwise_group_plain(items, block)
+        return
+    _check_group(items, block)
+    if items[0][0].device.type != "cuda":
+        raise ValueError(f"unsupported device {items[0][0].device}")
+    table, held = [], []
+    for q, scales, out in items:
+        if q.numel() == 0:
+            continue
+        q, scales = q.contiguous(), scales.contiguous()
+        held.append((q, scales))       # alive until the launches are queued
+        table += _table_rows(q, scales, out, block)
+    _launch_group(table, block, items[0][0].get_device())

@@ -10,21 +10,32 @@ gradients stay inside `make_train_step`; here they are a builder of their
 own so that a caller can read the gradients a step computes.  The JAX
 `act_specs` (activation shardings) wait for the distribution slice
 (ROADMAP.md Queue A item 13).
+
+The q8 gradient wire maps quantize-then-dequantize over every gradient, as
+the JAX step maps it over the gradient tree inside one jitted step; here
+it works in buckets of at most `WIRE_BUCKET_BYTES` q8 bytes: each gradient
+of a bucket is quantized, then one grouped dequantize launch writes the
+whole bucket back into the gradients' own storage (in place: the q8 copy
+of one bucket is the only extra memory).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 from torch import nn
 
-from ..kernels.quantize_blockwise import (dequantize_blockwise,
+from ..kernels.quantize_blockwise import (dequantize_blockwise_group,
                                           quantize_blockwise)
 from ..models import model as MD
 from ..models.config import ModelConfig
 from ..optim import AdamWConfig, adamw_update
 
 Batch = Dict[str, torch.Tensor]
+
+# q8 bytes (one per element) of the gradients one grouped dequantize of the
+# q8 wire takes at most: the bound on the wire's extra memory
+WIRE_BUCKET_BYTES = 256 << 20
 
 
 class _LossAndGrads(nn.Module):
@@ -45,12 +56,44 @@ class _LossAndGrads(nn.Module):
         return loss, torch.autograd.grad(loss, wrt)
 
 
-def _qdq(g: torch.Tensor) -> torch.Tensor:
-    """The q8 gradient wire: quantize, then dequantize into g's type."""
-    if g.ndim == 0 or g.shape[-1] < 8:
-        return g
-    q, s = quantize_blockwise(g)
-    return dequantize_blockwise(q, s, dtype=g.dtype)
+def on_wire(g: torch.Tensor) -> bool:
+    """Whether the q8 wire carries `g` (the reference leaves scalars and
+    last dimensions under 8 as they are)."""
+    return g.ndim > 0 and g.shape[-1] >= 8
+
+
+def wire_buckets(tensors: Sequence[torch.Tensor]) -> List[List[int]]:
+    """The indices of the tensors the q8 wire carries, in order, cut into
+    buckets of at most `WIRE_BUCKET_BYTES` q8 bytes (a larger tensor is a
+    bucket of its own): one grouped dequantize launch each."""
+    buckets: List[List[int]] = []
+    size = 0
+    for i, t in enumerate(tensors):
+        if not on_wire(t):
+            continue
+        if not buckets or size + t.numel() > WIRE_BUCKET_BYTES:
+            buckets.append([])
+            size = 0
+        buckets[-1].append(i)
+        size += t.numel()
+    return buckets
+
+
+def q8_wire(grads: Dict[str, torch.Tensor]) -> None:
+    """The q8 gradient wire, in place: every gradient the wire carries is
+    quantized blockwise to int8, then dequantized back into its own
+    storage (a contiguous copy first, where it is not contiguous), one
+    grouped launch per bucket."""
+    for name, g in grads.items():
+        if on_wire(g) and not g.is_contiguous():
+            grads[name] = g.contiguous()
+    gs = list(grads.values())
+    for bucket in wire_buckets(gs):
+        items = []
+        for i in bucket:
+            q, s = quantize_blockwise(gs[i])
+            items.append((q, s, gs[i]))
+        dequantize_blockwise_group(items)
 
 
 def make_loss_and_grads(cfg: ModelConfig, remat: bool = True,
@@ -95,10 +138,10 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig, remat: bool = True,
 
     grad_compression="q8" quantizes every gradient blockwise to int8 and
     back before AdamW sees it (the wire format of a gradient all-reduce:
-    q8 values + f32 block scales), through the quantize and dequantize
-    kernels on the card: the paper's update-path compression trade-off
-    (alpha cost vs I/O saving).  `params` and `opt_state` are updated in
-    place (see `adamw_update`).
+    q8 values + f32 block scales), through the quantize and grouped
+    dequantize kernels on the card (`q8_wire`, in place, in buckets): the
+    paper's update-path compression trade-off (alpha cost vs I/O saving).
+    `params` and `opt_state` are updated in place (see `adamw_update`).
     """
     if grad_compression not in (None, "q8"):
         raise ValueError(f"grad_compression {grad_compression!r} is not "
@@ -110,8 +153,7 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig, remat: bool = True,
         # the cast copy is gone once loss_and_grads returns, before AdamW
         loss, grads = loss_and_grads(params, batch)
         if grad_compression == "q8":
-            for n, g in grads.items():   # in place: one extra at a time
-                grads[n] = _qdq(g)
+            q8_wire(grads)
         params, opt_state = adamw_update(params, grads, opt_state, opt)
         return params, opt_state, loss
 

@@ -14,7 +14,10 @@ winners equal; prob consistency bitwise.  Blockwise quantization bit-equal
 dequant-matmul within rtol and atol 1e-4 of the plain version's IEEE
 float32 product (another summation order).
 Blockwise dequantization bit-equal in float32 and bfloat16 (one rounded
-multiply, a round-to-nearest-even cast).
+multiply, a round-to-nearest-even cast), single and grouped.  LDICT's
+shared-memory hash set bit-equal on its edge cases (page sizes on both
+sides of the warp / block split, INT64_MIN and INT64_MAX, more than
+65,535 pages).
 """
 import numpy as np
 import pytest
@@ -138,6 +141,57 @@ def test_cuda_fused_score_close_to_plain(cuda, nc, k, nf):
     assert torch.equal(got[2][mask], again[mask])
 
 
+I64_MIN, I64_MAX = -(1 << 63), (1 << 63) - 1
+
+
+def ldict_stack(n, seed):
+    """Rows that stress a distinct count: all equal, all distinct, the
+    int64 extremes (INT64_MIN is the kernel's empty-slot marker), values
+    that differ only in their high bits, a small domain, the full range."""
+    rng = np.random.default_rng(seed)
+    rows = [np.full(n, 5), np.arange(n) * 7 - n]
+    ext = rng.choice([I64_MIN, I64_MAX, 0, -1, 1], size=n)
+    ext[0], ext[-1] = I64_MIN, I64_MAX
+    rows += [ext, np.full(n, I64_MIN), np.full(n, I64_MAX),
+             rng.integers(0, 256, size=n) << 55,
+             rng.integers(0, 5, size=n),
+             rng.integers(I64_MIN, I64_MAX, size=n, endpoint=True)]
+    return np.stack(rows).astype(np.int64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rpp", [1, 31, 32, 33, 273, 512, 513, 1638])
+@pytest.mark.parametrize("pages", ["ragged", "n < rpp"])
+@pytest.mark.parametrize("copies", [1, 256], ids=["few pages", "many pages"])
+def test_cuda_ldict_edge_cases_equal_plain(cuda, rpp, pages, copies):
+    """Few pages take the kernel's block-per-page path, >= 1,024 pages of
+    <= 512 rows its warp-per-page path: the edge rows go through both."""
+    n = 3 * rpp + rpp // 2 + 1 if pages == "ragged" else max(1, rpp - 3)
+    cols = torch.as_tensor(np.tile(ldict_stack(n, rpp), (copies, 1)),
+                           device=cuda)
+    widths = torch.as_tensor([1, 2, 8, 8, 8, 8, 1, 8] * copies, device=cuda)
+    before = launch_counts()["ldict_bytes"]
+    got = cb.ldict_bytes(cols, widths, rpp)
+    want = cb.ldict_bytes_plain(cols, widths, rpp)
+    torch.cuda.synchronize()
+    assert launch_counts()["ldict_bytes"] == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,rpp", [((1, 65535), 1), ((65535, 3), 3),
+                                       ((240, 75000), 273),
+                                       ((1639, 1638 * 40), 1638)])
+def test_cuda_ldict_over_65535_pages_equal_plain(cuda, shape, rpp):
+    rng = np.random.default_rng(shape[1])
+    cols = torch.as_tensor(rng.integers(0, 1 << rng.integers(1, 40),
+                                        size=shape), device=cuda)
+    widths = torch.as_tensor(rng.integers(1, 9, size=shape[0]), device=cuda)
+    assert shape[0] * -(-shape[1] // rpp) >= 65535
+    assert torch.equal(cb.ldict_bytes(cols, widths, rpp),
+                       cb.ldict_bytes_plain(cols, widths, rpp))
+
+
 def quantize_cases():
     rng = np.random.default_rng(7)
     half = np.zeros((2, 128), np.float32)
@@ -226,3 +280,98 @@ def test_cuda_dequant_matmul_rejects_k_off_the_block(cuda):
     qw = torch.zeros((200, 64), dtype=torch.int8, device=cuda)
     with pytest.raises(ValueError, match="multiple of block"):
         dm.dequant_matmul(a, qw, torch.ones((1, 64), device=cuda))
+
+
+def group_items(device, n_items=None, seed=0):
+    """A mixed dequantize group: ranks 1-4, ragged last blocks, last
+    dimensions under one block, float32 and bfloat16 outputs, one q at an
+    odd address; or `n_items` small tensors."""
+    rng = np.random.default_rng(seed)
+    shapes = ([(2048,), (300,), (7,), (32, 64), (9, 130), (128, 256),
+               (3, 5, 200), (2, 3, 4, 384), (2, 2, 2, 129), (1000,)]
+              if n_items is None else
+              [(int(rng.integers(1, 4)), int(rng.integers(1, 300)))
+               for _ in range(n_items)])
+    items = []
+    for i, shape in enumerate(shapes):
+        x = torch.as_tensor((rng.standard_normal(shape) * 3).astype(
+            np.float32), device=device)
+        q, s = qb.quantize_blockwise_plain(x)
+        if i == 4:        # a contiguous q at an odd address
+            buf = torch.empty(q.numel() + 1, dtype=torch.int8, device=device)
+            q = buf[1:].view(q.shape).copy_(q)
+        dt = torch.bfloat16 if i % 3 == 1 else torch.float32
+        items.append((q, s, torch.full(shape, float("nan"), dtype=dt,
+                                       device=device)))
+    return items
+
+
+def assert_group_bit_equal(items):
+    for q, s, out in items:
+        want = qb.dequantize_blockwise_plain(q, s, dtype=out.dtype)
+        as_int = torch.int16 if out.dtype == torch.bfloat16 else torch.int32
+        assert torch.equal(out.view(as_int), want.view(as_int))
+
+
+@pytest.mark.cuda
+def test_cuda_dequantize_group_bit_equal_plain_one_launch(cuda):
+    items = group_items(cuda)
+    before = launch_counts()["dequantize_blockwise"]
+    qb.dequantize_blockwise_group(items)
+    torch.cuda.synchronize()
+    assert launch_counts()["dequantize_blockwise"] == before + 1
+    assert_group_bit_equal(items)
+
+
+@pytest.mark.cuda
+def test_cuda_dequantize_group_longer_than_one_struct(cuda):
+    cap = qb.group_capacity()
+    items = group_items(cuda, n_items=cap + 5, seed=1)
+    before = launch_counts()["dequantize_blockwise"]
+    qb.dequantize_blockwise_group(items)
+    torch.cuda.synchronize()
+    assert launch_counts()["dequantize_blockwise"] == before + 2
+    assert_group_bit_equal(items)
+
+
+@pytest.mark.cuda
+def test_cuda_dequantize_splits_large_tensors_by_rows(cuda, monkeypatch):
+    """A tensor of 2^31 elements or more goes as several kernel items of
+    whole rows (`_MAX_ITEM` made small here): one launch, the same bits."""
+    monkeypatch.setattr(qb, "_MAX_ITEM", 5000)
+    items = group_items(cuda, seed=2)
+    before = launch_counts()["dequantize_blockwise"]
+    qb.dequantize_blockwise_group(items)
+    single = [qb.dequantize_blockwise(q, s, dtype=out.dtype)
+              for q, s, out in items]
+    torch.cuda.synchronize()
+    assert max(q.numel() for q, _, _ in items) > 5000
+    # one launch for the group, one for each single call
+    assert launch_counts()["dequantize_blockwise"] == before + 1 + len(items)
+    assert_group_bit_equal(items)
+    for (q, s, out), got in zip(items, single):
+        as_int = torch.int16 if out.dtype == torch.bfloat16 else torch.int32
+        assert torch.equal(got.view(as_int), out.view(as_int))
+
+
+@pytest.mark.cuda
+def test_cuda_q8_wire_one_launch_per_bucket(cuda, monkeypatch):
+    from repro_torch.train import step
+    rng = np.random.default_rng(3)
+    grads = {f"g{i}": torch.as_tensor(rng.standard_normal(shape).astype(
+        np.float32), device=cuda) for i, shape in enumerate(
+            [(64, 256), (4,), (2048,), (16, 2, 64), (300, 130), (5, 7)])}
+    want = {k: qb.dequantize_blockwise_plain(*qb.quantize_blockwise_plain(g))
+            if step.on_wire(g) else g.clone() for k, g in grads.items()}
+    monkeypatch.setattr(step, "WIRE_BUCKET_BYTES", 20_000)
+    n_buckets = len(step.wire_buckets(list(grads.values())))
+    assert n_buckets == 3
+    before = launch_counts()
+    step.q8_wire(grads)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert after["dequantize_blockwise"] == \
+        before["dequantize_blockwise"] + n_buckets
+    assert after["quantize_blockwise"] == before["quantize_blockwise"] + 4
+    for k, g in grads.items():
+        assert torch.equal(g.view(torch.int32), want[k].view(torch.int32))
