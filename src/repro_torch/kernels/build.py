@@ -8,9 +8,9 @@ kernel wrapper builds its library, and `build_all` starts every nvcc at
 once (one process per source) for callers that want the build up front.
 
 Libraries land in `_build/` beside this file, named by a digest of the
-source files and the flags, so an edited source rebuilds and concurrent
-builders never read a half-written file (write to a temporary name, then
-`os.replace`).
+source files and the library's flags, so an edited source rebuilds and
+concurrent builders never read a half-written file (write to a temporary
+name, then `os.replace`).
 """
 from __future__ import annotations
 
@@ -26,19 +26,23 @@ from typing import Dict, Iterable, List
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
-# -fmad=false: the planner kernels must evaluate one float expression with
-# the same roundings in two kernels; no contraction into FMA anywhere.  It
-# applies to every library, so dequant_matmul's multiply-adds are two
-# instructions each (see its source note)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-# library name -> (main source, headers it includes)
+# -fmad=false: no contraction of a multiply and an add into one FMA.  The
+# planner kernels need it (they must evaluate one float expression with the
+# same roundings in two kernels), and the libraries whose kernels are held
+# bit-equal to a plain PyTorch version keep it.  dequant_matmul is held to a
+# tolerance, not to bits, and builds without it: there every multiply-add
+# is one FMA (see its source note).
+EXACT = ("-fmad=false",)
+
+# library name -> (main source, headers it includes, its own nvcc flags)
 SOURCES: Dict[str, tuple] = {
-    "codec_bytes": ("codec_bytes.cu", ()),
-    "planner_score": ("planner_score.cu", ("prob_expr.cuh",)),
-    "quantize_blockwise": ("quantize_blockwise.cu", ()),
-    "dequant_matmul": ("dequant_matmul.cu", ()),
+    "codec_bytes": ("codec_bytes.cu", (), EXACT),
+    "planner_score": ("planner_score.cu", ("prob_expr.cuh",), EXACT),
+    "quantize_blockwise": ("quantize_blockwise.cu", (), EXACT),
+    "dequant_matmul": ("dequant_matmul.cu", (), ()),
 }
 
 _lock = threading.Lock()
@@ -59,8 +63,8 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    main, headers = SOURCES[name]
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    main, headers, flags = SOURCES[name]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + flags).encode())
     for f in (main,) + tuple(headers):
         h.update((CSRC / f).read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
@@ -74,7 +78,8 @@ def _start(name: str):
         return out, None, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name][0])]
+    main, _, flags = SOURCES[name]
+    cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp), str(CSRC / main)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return out, tmp, proc

@@ -8,23 +8,30 @@ dequantized inside the product: the paper's A.2 rule, "decompress only
 what the query reads", fused into the consumer.
 
 * `dequant_matmul(a, qw, scale, block)` -- on a CUDA tensor, the
-  hand-written kernel in `csrc/dequant_matmul.cu` (built on first use; any
-  M and N, K a multiple of `block`, float32 accumulation on CUDA cores, no
-  TF32); on a CPU tensor, the plain version.  There is no other route.
+  hand-written kernels in `csrc/dequant_matmul.cu` (built on first use):
+  a split-K decode kernel on the CUDA cores for M up to the source's
+  `kDecodeMaxM`, a bf16 tensor-core kernel (a split into hi + lo terms)
+  above it; any M and N, K a multiple of `block`, float32 accumulation, no
+  TF32.  On a CPU tensor, the plain version.  There is no other route.
 * `dequant_matmul_plain` -- the plain PyTorch version: dequantize the
   whole weight, then one float32 product (`kernels/ref.py`
   `dequant_matmul` of the JAX package).  Its product is IEEE float32 only
   where `torch.backends.cuda.matmul.allow_tf32` is False.
 
-`LAUNCHES` counts kernel launches.  The CUDA kernel replaces the Pallas
-kernel `_dequant_matmul_kernel` of the JAX package
+`LAUNCHES` counts calls that launch the kernels (one per call: the decode
+route's split-K sum is its second launch).  The CUDA kernels replace the
+Pallas kernel `_dequant_matmul_kernel` of the JAX package
 (`kernels/dequant_matmul.py`); unlike its wrapper (`kernels/ops.py`), no
-dimension has to divide a tile.
+dimension has to divide a tile.  Both kernels multiply each K block's
+product by its scale row once, sum(a * q) * s, which rounds differently
+from the plain a @ (q * s); the result is held within rtol and atol 1e-4
+of the plain version, and two calls give the same bits (the split-K
+reduction runs in a fixed order, without atomics).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -34,18 +41,25 @@ from .quantize_blockwise import DEFAULT_BLOCK
 LAUNCHES: Dict[str, int] = {"dequant_matmul": 0}
 
 _lib = None
+_decode_max_m = 0   # the source's kDecodeMaxM, read when the library loads
+# the decode route's split-K workspace, one per (device, stream), grown on
+# demand: calls on one stream run in order, so each may reuse it
+_workspaces: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def _load():
-    global _lib
+    global _lib, _decode_max_m
     if _lib is None:
         lib = build.load("dequant_matmul")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.dequant_matmul_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci,
-                                              vp]
+        lib.dequant_matmul_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci,
+                                              ci, ci, vp]
         lib.dequant_matmul_launch.restype = ci
+        lib.dequant_matmul_decode_max_m.argtypes = []
+        lib.dequant_matmul_decode_max_m.restype = ci
         lib.dequant_matmul_error_string.argtypes = [ci]
         lib.dequant_matmul_error_string.restype = ctypes.c_char_p
+        _decode_max_m = lib.dequant_matmul_decode_max_m()
         _lib = lib
     return _lib
 
@@ -61,7 +75,7 @@ def _check(a: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
                          "disagree on K")
     if block < 1 or k % block:
         raise ValueError(f"K = {k} must be a multiple of block = {block}")
-    if tuple(scale.shape) != (k // block, n):
+    if scale.shape != (k // block, n):
         raise ValueError(f"scale {tuple(scale.shape)} is not "
                          f"{(k // block, n)}")
     if qw.dtype != torch.int8 or scale.dtype != torch.float32:
@@ -84,28 +98,44 @@ def dequant_matmul(a: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
     """a (M, K) @ dequant(qw (K, N)) with per-(K block, N) scales -> (M, N)
     float32."""
     _check(a, qw, scale, block)
-    if a.device.type == "cpu":
-        return dequant_matmul_plain(a, qw, scale, block)
-    if a.device.type != "cuda":
+    if not a.is_cuda:
+        if a.device.type == "cpu":
+            return dequant_matmul_plain(a, qw, scale, block)
         raise ValueError(f"unsupported device {a.device}")
     if block % 32:
         raise ValueError(f"the kernel takes a block that is a multiple of "
                          f"32, got {block}")
     m, k = a.shape
     n = qw.shape[1]
-    if max(m * k, k * n, m * n) >= 2 ** 31 or m >= 64 * 65535:
+    if max(m * k, k * n, m * n) >= 2 ** 31 or m >= 64 * 65535 \
+            or k // block > 65535:
         raise ValueError(f"shapes {tuple(a.shape)} @ {tuple(qw.shape)} "
                          "outside the kernel's sizes")
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     if m == 0 or n == 0:
         return out
-    a = a.to(torch.float32).contiguous()
+    lib = _load()
+    if a.dtype != torch.float32 or not a.is_contiguous():
+        a = a.to(torch.float32).contiguous()
+    if a.data_ptr() % 16:       # the tensor-core kernel copies 16-byte rows
+        a = a.clone()
     qw, scale = qw.contiguous(), scale.contiguous()
-    err = _load().dequant_matmul_launch(
-        a.data_ptr(), qw.data_ptr(), scale.data_ptr(), out.data_ptr(), m, n,
-        k, block, torch.cuda.current_stream(a.device).cuda_stream)
+    dev = a.get_device()
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    ws = 0
+    if m <= _decode_max_m and k > block:
+        need = (k // block) * m * n
+        buf = _workspaces.get((dev, stream))
+        if buf is None or buf.numel() < need:
+            buf = _workspaces[(dev, stream)] = torch.empty(
+                need, dtype=torch.float32, device=a.device)
+        ws = buf.data_ptr()
+    vec = n % 16 == 0 and qw.data_ptr() % 16 == 0
+    err = lib.dequant_matmul_launch(
+        a.data_ptr(), qw.data_ptr(), scale.data_ptr(), out.data_ptr(), ws, m,
+        n, k, block, int(vec), stream)
     if err != 0:
-        msg = _load().dequant_matmul_error_string(err).decode()
+        msg = lib.dequant_matmul_error_string(err).decode()
         raise RuntimeError(f"dequant_matmul launch failed: {msg} "
                            f"(CUDA error {err})")
     LAUNCHES["dequant_matmul"] += 1

@@ -12,7 +12,8 @@ IEEE float ops; only CUDA's erff and PyTorch's erf may differ by an ulp);
 winners equal; prob consistency bitwise.  Blockwise quantization bit-equal
 (q and scales: the same IEEE divisions and round-half-even);
 dequant-matmul within rtol and atol 1e-4 of the plain version's IEEE
-float32 product (another summation order).
+float32 product (another summation order; the tensor-core route's a in
+two bf16 terms), on both of its kernels, bit-equal from call to call.
 Blockwise dequantization bit-equal in float32 and bfloat16 (one rounded
 multiply, a round-to-nearest-even cast), single and grouped.  LDICT's
 shared-memory hash set bit-equal on its edge cases (page sizes on both
@@ -272,6 +273,30 @@ def test_cuda_dequant_matmul_close_to_plain(cuda, m, k, n):
     torch.cuda.synchronize()
     assert launch_counts()["dequant_matmul"] == before + 1
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 4, 15, 16, 17, 64, 512])
+@pytest.mark.parametrize("k", [128, 384, 2048])
+@pytest.mark.parametrize("n", [70, 200, 5632])
+def test_cuda_dequant_matmul_both_routes_deterministic(cuda, m, k, n):
+    """The split-K decode kernel (M up to its threshold) and the
+    tensor-core prefill kernel (above it), around the threshold and with
+    masked M and N, within rtol and atol 1e-4 of the plain version; two
+    calls give the same bits (a fixed-order split-K sum, no atomics)."""
+    rng = np.random.default_rng(m * 7 + k + n)
+    a = torch.as_tensor(rng.standard_normal((m, k)).astype(np.float32),
+                        device=cuda)
+    w = torch.as_tensor((rng.standard_normal((k, n)) * 0.02).astype(
+        np.float32), device=cuda)
+    qw, s = qb.quantize_blockwise_plain(w.t().contiguous())
+    qw, s = qw.t().contiguous(), s.t().contiguous()
+    got = dm.dequant_matmul(a, qw, s)
+    again = dm.dequant_matmul(a, qw, s)
+    want = dm.dequant_matmul_plain(a, qw, s)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
 
 
 @pytest.mark.cuda
