@@ -21,17 +21,22 @@ shared deduction graph**:
   table stats, so the lines 8-9 "enable by sampling unknown children"
   comparison is an argmin over `extra = Σ cost(unknown child)` arrays.
 
-Scoring backends.  With no device (the numpy backend) a record's Goodman
-fold and probabilities are float64 NumPy — `errors.goodman_fold` and the
-exact-erf `errors.prob_within_batch` — plan-identical to the JAX package's
-numpy backend.  With a torch device, a record's whole (candidate, child,
-f) stack is scored by the `fused_score` kernel and the memoized
-probability path (feasibility) by `prob_within`
-(`repro_torch.kernels.planner_score`).  Both kernels share one probability
-expression, so a probability recomputed from a stored (mean, std) pair —
-buffer values are float32-exact once written — equals the fused kernel's
-in-line value bitwise.  Winner selection stays on the host, over the
-kernel's float32-exact p, exactly as the JAX package's jax backend does.
+Scoring backends.  With no device (the numpy backend) the greedy runs on
+the host, a record at a time: its Goodman fold and probabilities are
+float64 NumPy — `errors.goodman_fold` and the exact-erf
+`errors.prob_within_batch` — plan-identical to the JAX package's numpy
+backend.  With a torch device the engine packs the graph once
+(`_pack`) and the whole greedy runs in one `planner_walk` call
+(`repro_torch.kernels.planner_score`): one launch per plan on the card,
+its plain version on the CPU.  Records read states that earlier records
+wrote, but every read and write is per (node, f), so the walk runs the
+fractions side by side.  It scores each record as the JAX package's jax
+backend does (the `fused_score` fold and float32 probability) and picks
+winners and accumulates costs in float64 as the host does.  The memoized
+probability path (feasibility) goes through `prob_within`; every kernel
+shares one probability expression, so a probability recomputed from a
+stored (mean, std) pair — float32-exact once deduced — equals the walk's
+in-line value bitwise.
 
 Not ported yet: the cross-run replay of recorded decisions, node-universe
 epoch eviction and fault injection, which serve the online session.
@@ -224,47 +229,6 @@ class PlannerEngine:
         m, s = to_device([means, stds], np.float32, self.device)
         return _ps.prob_within(m, s, e).cpu().numpy().astype(np.float64)
 
-    def _torch_score(self, rec: _TargetRec, m_s, s_s, m_x, s_x,
-                     mask67: np.ndarray, pre9, extra, e: float,
-                     q: float) -> tuple:
-        """Score one record's whole (candidate, child, f) stack with the
-        fused kernel.  ColSet candidates sit at k=0 with EXACT pads after
-        them — folding exact (1, 0) factors is the float32 multiplicative
-        identity, so the packed stack scores bit-identically to per-block
-        calls.  Returns (cm, cs, p): float32 values in float64 arrays, p
-        masked to mask67|pre9 exactly like the numpy path."""
-        nc, nf = mask67.shape
-        ncs = rec.ncs
-        kmax = m_x.shape[1] if m_x is not None else 1
-        m = np.ones((nc, kmax, nf))
-        s = np.zeros((nc, kmax, nf))
-        dm = np.empty(nc)
-        vt = np.empty(nc)
-        mq = np.empty(nc)
-        cs_dm, cs_msq, cs_vt = self._cs_fac
-        if m_s is not None:
-            m[:ncs, 0, :] = m_s
-            s[:ncs, 0, :] = s_s
-        dm[:ncs] = cs_dm
-        vt[:ncs] = cs_vt
-        mq[:ncs] = cs_msq
-        if m_x is not None:
-            m[ncs:] = m_x
-            s[ncs:] = s_x
-            dm[ncs:] = rec.cx_dm[:, 0]
-            vt[ncs:] = rec.cx_vterm[:, 0]
-            mq[ncs:] = rec.cx_msq[:, 0]
-        if pre9 is None:
-            pre9 = np.zeros((nc, nf), dtype=bool)
-        if extra is None:
-            extra = np.zeros((nc, nf))
-        m_d, s_d, dm_d, vt_d, mq_d, ex_d = to_device(
-            [m, s, dm, vt, mq, extra], np.float32, self.device)
-        m67_d, p9_d = to_device([mask67, pre9], np.bool_, self.device)
-        cm, cs, p, _, _ = _ps.fused_score(m_d, s_d, dm_d, vt_d, mq_d, m67_d,
-                                          p9_d, ex_d, e, q)
-        return tuple(t.cpu().numpy().astype(np.float64) for t in (cm, cs, p))
-
     def _prob_cached(self, means: np.ndarray, stds: np.ndarray,
                      e: float) -> np.ndarray:
         """`_prob` behind a (e, mean, std) memo: composed RVs recur heavily
@@ -389,6 +353,9 @@ class PlannerEngine:
                 samp[kc, 1, fi] = rv.std
         samp_mean = samp[:, 0, :]
         samp_std = samp[:, 1, :]
+        if self.device is not None:
+            return self._walk(g, targets, f_grid, scost, samp_mean,
+                              samp_std, e, q)
 
         total = [0.0] * nf
         used = np.zeros((n + 1, nf), dtype=bool)
@@ -433,27 +400,25 @@ class PlannerEngine:
                     if any_unknown:
                         m_x = np.where(known_x, m_x, samp_mean[kc])
                         s_x = np.where(known_x, s_x, samp_std[kc])
-                if self.device is None:
-                    cmA = vA = e2A = None
-                    if chs is not None:
-                        msq_s = m_s * m_s
-                        cmA = m_s * cs_dm
-                        vA = (s_s * s_s + msq_s) * cs_vt
-                        e2A = msq_s * cs_msq
-                    cmB = vB = e2B = None
-                    if chx is not None:
-                        # Goodman fold over the children axis, continued
-                        # with the deduction-error factor — bit-identical
-                        # to the scalar compose (children in order,
-                        # deduction last)
-                        cmB, vB, e2B = err.goodman_fold(m_x, s_x, axis=1)
-                        cmB = cmB * rec.cx_dm
-                        vB = vB * rec.cx_vterm
-                        e2B = e2B * rec.cx_msq
-                    cm = self._concat(cmA, cmB)
-                    v = self._concat(vA, vB)
-                    e2 = self._concat(e2A, e2B)
-                    cs = np.sqrt(np.maximum(v - e2, 0.0))
+                cmA = vA = e2A = None
+                if chs is not None:
+                    msq_s = m_s * m_s
+                    cmA = m_s * cs_dm
+                    vA = (s_s * s_s + msq_s) * cs_vt
+                    e2A = msq_s * cs_msq
+                cmB = vB = e2B = None
+                if chx is not None:
+                    # Goodman fold over the children axis, continued with
+                    # the deduction-error factor — bit-identical to the
+                    # scalar compose (children in order, deduction last)
+                    cmB, vB, e2B = err.goodman_fold(m_x, s_x, axis=1)
+                    cmB = cmB * rec.cx_dm
+                    vB = vB * rec.cx_vterm
+                    e2B = e2B * rec.cx_msq
+                cm = self._concat(cmA, cmB)
+                v = self._concat(vA, vB)
+                e2 = self._concat(e2A, e2B)
+                cs = np.sqrt(np.maximum(v - e2, 0.0))
 
                 mask67 = allk & act
                 if any_unknown:
@@ -475,20 +440,11 @@ class PlannerEngine:
                     pre9 = None
                     mask_p = mask67
 
-                if self.device is not None:
-                    # fused kernel: compose + masked probability in one
-                    # pass (winner selection stays on the host; p is
-                    # float32-exact so argmax over it agrees)
-                    cm, cs, p = self._torch_score(
-                        rec, m_s, s_s, m_x, s_x, mask67, pre9,
-                        extra if any_unknown else None, e, q)
-                else:
-                    # one probability pass over both phases' eligible
-                    # entries
-                    p = np.zeros((nc, nf))
-                    ii = mask_p.nonzero()
-                    if ii[0].size:
-                        p[ii] = self._prob_cached(cm[ii], cs[ii], e)
+                # one probability pass over both phases' eligible entries
+                p = np.zeros((nc, nf))
+                ii = mask_p.nonzero()
+                if ii[0].size:
+                    p[ii] = self._prob_cached(cm[ii], cs[ii], e)
                 sat = p >= q
 
                 # ---- lines 6-7: an enabled deduction satisfying (e, q) --
@@ -535,6 +491,70 @@ class PlannerEngine:
         return _RunState(g=g, targets=tuple(targets), f_grid=f_grid,
                          state=state, mean=buf[:, 1, :], std=buf[:, 2, :],
                          used=used, chosen=chosen, total=total)
+
+    # ------------------------------------------------------------------
+    # The torch backend: the whole greedy in one planner_walk call
+    # ------------------------------------------------------------------
+    def _pack(self, g: _Graph, scost: np.ndarray, samp_mean: np.ndarray,
+              samp_std: np.ndarray) -> tuple:
+        """`g` as the walk's packed arrays (see `planner_score.WalkGraph`),
+        on the engine's device; also returns the host copies of the
+        candidate offsets and child rows, which rebuild `chosen` and
+        `used` from the walk's winners."""
+        recs = g.recs
+        n = len(g.node_keys)
+        ncand = np.array([len(r.cands) for r in recs], dtype=np.int64)
+        off = np.zeros(len(recs) + 1, dtype=np.int64)
+        np.cumsum(ncand, out=off[1:])
+        k = max([1] + [r.cx_ids.shape[1] for r in recs if r.cx_ids.size])
+        child = np.full((int(off[-1]), k), n, dtype=np.int64)
+        nchild = np.empty(int(off[-1]), dtype=np.int64)
+        fac = np.empty((3, int(off[-1])))          # dm, vt, mq
+        cs_dm, cs_msq, cs_vt = self._cs_fac
+        for i, r in enumerate(recs):
+            o, ncs = int(off[i]), r.ncs
+            child[o:o + ncs, 0] = r.cs_ids
+            fac[:, o:o + ncs] = np.array([[cs_dm], [cs_vt], [cs_msq]])
+            ncx = len(r.cands) - ncs
+            if ncx:
+                ids = r.cx_ids
+                child[o + ncs:o + ncs + ncx, :ids.shape[1]] = \
+                    np.where(ids < 0, n, ids)
+                fac[0, o + ncs:o + ncs + ncx] = r.cx_dm[:, 0]
+                fac[1, o + ncs:o + ncs + ncx] = r.cx_vterm[:, 0]
+                fac[2, o + ncs:o + ncs + ncx] = r.cx_msq[:, 0]
+            nchild[o:o + len(r.cands)] = r.nchild
+        tid = np.array([r.tid for r in recs], dtype=np.int64)
+        kind = np.array([r.kind for r in recs], dtype=np.int64)
+        ints = to_device([tid, kind, off, child, nchild], np.int32,
+                         self.device)
+        dm, vt, mq = to_device(list(fac), np.float32, self.device)
+        doubles = to_device([scost, samp_mean, samp_std], np.float64,
+                            self.device)
+        wg = _ps.WalkGraph(*ints, dm, vt, mq, *doubles,
+                           max_cands=int(ncand.max(initial=0)))
+        return wg, off, child
+
+    def _walk(self, g: _Graph, targets: Sequence[NodeKey],
+              f_grid: Tuple[float, ...], scost: np.ndarray,
+              samp_mean: np.ndarray, samp_std: np.ndarray, e: float,
+              q: float) -> "_RunState":
+        """`_run` on a torch device: one `planner_walk` over the packed
+        graph; `chosen` and `used` rebuilt from its winners."""
+        wg, off, child = self._pack(g, scost, samp_mean, samp_std)
+        res = _ps.planner_walk(wg, e, q)
+        state, mean, std, win, total = (t.cpu().numpy() for t in res)
+        used = np.zeros(state.shape, dtype=bool)
+        chosen: Dict[Tuple[int, int], Deduction] = {}
+        rr, ff = np.nonzero(win >= 0)
+        w = win[rr, ff] % _ps.WALK_LINE9            # candidate index
+        used[child[off[rr] + w], ff[:, None]] = True
+        for r, fi, wi in zip(rr.tolist(), ff.tolist(), w.tolist()):
+            rec = g.recs[r]
+            chosen[(rec.tid, fi)] = rec.cands[wi]
+        return _RunState(g=g, targets=tuple(targets), f_grid=f_grid,
+                         state=state, mean=mean, std=std, used=used,
+                         chosen=chosen, total=total.tolist())
 
     # ------------------------------------------------------------------
     def _feasible_vec(self, st: "_RunState", e: float,

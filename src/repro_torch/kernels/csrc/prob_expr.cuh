@@ -1,7 +1,9 @@
-// The float32 accuracy probability P(lo <= X <= hi), X ~ N(cm, cs^2),
-// shared by the prob_within and fused_score kernels.
+// The planner kernels' shared float32 expressions: the accuracy
+// probability P(lo <= X <= hi), X ~ N(cm, cs^2), of the prob_within,
+// fused_score and planner_walk kernels, and the Goodman fold of the last
+// two.
 //
-// Both kernels must produce the same bits for the same (cm, cs): the
+// The kernels must produce the same bits for the same (cm, cs): the
 // planner recomputes a probability from a stored (mean, std) pair and
 // relies on it equalling the fused kernel's in-line value.  So the
 // expression is written once, with explicitly rounded operations
@@ -33,6 +35,36 @@ __device__ __forceinline__ float prob_expr(float cm, float cs, float lo,
   const float p = __fsub_rn(phi(hi, cm, s), phi(lo, cm, s));
   const float ind = (cm >= lo && cm <= hi) ? 1.0f : 0.0f;
   return small ? ind : p;
+}
+
+// The sequential Goodman fold of a candidate's children (mean m, std s)
+// into the composed error RV, continued with the deduction-error factors
+// (dm = mean, vt = std^2 + mean^2, mq = mean^2).  Children in order, every
+// operation rounded on its own, so a (mean 1, std 0) child is the exact
+// identity and two kernels that fold the same children agree bitwise.
+struct Fold {
+  float e_prod, v_term, e2_term;
+};
+
+__device__ __forceinline__ Fold fold_first(float m, float s) {
+  return {m, __fadd_rn(__fmul_rn(s, s), __fmul_rn(m, m)), __fmul_rn(m, m)};
+}
+
+__device__ __forceinline__ void fold_next(Fold& f, float m, float s) {
+  const float msq = __fmul_rn(m, m);
+  f.e_prod = __fmul_rn(f.e_prod, m);
+  f.v_term = __fmul_rn(f.v_term, __fadd_rn(__fmul_rn(s, s), msq));
+  f.e2_term = __fmul_rn(f.e2_term, msq);
+}
+
+// composed (mean, std) = (e_prod dm, sqrt(max(v_term vt - e2_term mq, 0)))
+__device__ __forceinline__ void fold_finish(const Fold& f, float dm,
+                                            float vt, float mq, float* cm,
+                                            float* cs) {
+  *cm = __fmul_rn(f.e_prod, dm);
+  const float v = __fmul_rn(f.v_term, vt);
+  const float e2 = __fmul_rn(f.e2_term, mq);
+  *cs = __fsqrt_rn(fmaxf(__fsub_rn(v, e2), 0.0f));
 }
 
 }  // namespace planner

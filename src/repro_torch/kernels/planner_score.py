@@ -10,6 +10,18 @@
   fraction (first argmax of p over `mask67 & (p >= q)`; where there is
   none, first argmin of `extra` over `pre9 & (p >= q)`; 2^31 - 1 when
   empty).
+* `planner_walk(g, e, q)` -- the whole greedy of one plan (lines 6-11 of
+  the Section 5.2 pseudocode over every target record in order, for every
+  sampling fraction) on one packed graph `WalkGraph`: the final node
+  states, float64 error-RV means and stds, the winner of each (record,
+  fraction) and the float64 sampling cost per fraction (`WalkResult`).
+  Its plain version walks the records one by one and scores each with
+  `fused_score` (on CUDA tensors, the per-record kernel), so on the card
+  it is the walk kernel's bitwise reference.  Where the greedy works in
+  float64 the walk does too: p >= q compares float64(p) with q, the
+  unknown children's cost is a float64 sum in child order, the lines 8-9
+  winner is the first argmin of that sum, `total` adds float64 costs in
+  record order, and SAMPLED nodes hold the float64 SampleCF RV.
 
 Each wrapper takes its route from the device of the tensors it is given:
 on CUDA tensors it launches the hand-written kernels in
@@ -25,13 +37,16 @@ multiplicative identity of the fold.  Against the float64 NumPy scorer the
 values are only float32-close (a different erf, float32 arithmetic).
 
 The CUDA kernels replace the Pallas kernels `_prob_kernel` and
-`_fused_kernel` of the JAX package.
+`_fused_kernel` of the JAX package; the walk replaces `_fused_kernel`
+together with the per-record host loop around it (`core/planner_engine.py`
+`_run`).
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,10 +54,18 @@ import torch
 from . import build
 
 NO_WINNER = 2 ** 31 - 1
+# node state codes of the walk (the planner engine's)
+NONE, DEDUCED, SAMPLED, EXACT = 0, 1, 2, 3
+# walk winner codes per (record, fraction): a candidate index (lines 6-7),
+# WALK_LINE9 + index (lines 8-9), or one of these two
+WALK_SKIP = -1          # the target was resolved by an earlier record
+WALK_FALLBACK = -2      # lines 10-11: SampleCF on the target
+WALK_LINE9 = 1 << 20
 _SQRT2_F32 = float(np.float32(math.sqrt(2.0)))
 _SMALL_F32 = float(np.float32(1e-12))
 
-LAUNCHES: Dict[str, int] = {"prob_within": 0, "fused_score": 0}
+LAUNCHES: Dict[str, int] = {"prob_within": 0, "fused_score": 0,
+                             "planner_walk": 0}
 
 _lib = None
 
@@ -57,6 +80,9 @@ def _load():
         lib.fused_score_launch.argtypes = [vp] * 10 + [ci, ci, ci,
                                                        cf, cf, cf, vp]
         lib.fused_score_launch.restype = ci
+        lib.planner_walk_launch.argtypes = [vp] * 16 + [ci] * 5 + [
+            cf, cf, ctypes.c_double, vp]
+        lib.planner_walk_launch.restype = ci
         lib.planner_error_string.argtypes = [ci]
         lib.planner_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -84,6 +110,46 @@ def _route(*ts: torch.Tensor) -> str:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     return dev.type
+
+
+@dataclasses.dataclass
+class WalkGraph:
+    """One plan's deduction graph, packed for `planner_walk`.
+
+    R records in processing order (a target that occurs twice has two
+    records), C candidates in all, n nodes plus the EXACT pad node n:
+    tid, kind (R,) int32 -- target node, order class (row of samp_*);
+    cand_off (R + 1,) int32 -- record r's candidates are
+    cand_off[r] .. cand_off[r + 1] - 1;
+    child (C, K) int32 -- child node ids in child order, padded with n;
+    nchild (C,) int32 -- real children (>= 1);
+    dm, vt, mq (C,) float32 -- deduction-error factors (mean, std^2 +
+    mean^2, mean^2);
+    scost (n + 1, nf) float64 -- sampling costs, 0 on the pad row;
+    samp_mean, samp_std (2, nf) float64 -- SampleCF error RV per order
+    class and fraction;
+    max_cands -- the most candidates of a record.
+    """
+    tid: torch.Tensor
+    kind: torch.Tensor
+    cand_off: torch.Tensor
+    child: torch.Tensor
+    nchild: torch.Tensor
+    dm: torch.Tensor
+    vt: torch.Tensor
+    mq: torch.Tensor
+    scost: torch.Tensor
+    samp_mean: torch.Tensor
+    samp_std: torch.Tensor
+    max_cands: int
+
+
+class WalkResult(NamedTuple):
+    state: torch.Tensor   # (n + 1, nf) uint8 state codes
+    mean: torch.Tensor    # (n + 1, nf) float64 error-RV means
+    std: torch.Tensor     # (n + 1, nf) float64 error-RV stds
+    win: torch.Tensor     # (R, nf) int32 winner codes
+    total: torch.Tensor   # (nf,) float64 sampling cost
 
 
 # ---------------------------------------------------------------------------
@@ -150,6 +216,90 @@ def fused_score_plain(m, s, dm, vt, mq, mask67, pre9, extra, e: float,
     bx = xe.amin(dim=0, keepdim=True)
     w9 = torch.where(ok9 & (xe == bx), iota, big).amin(dim=0)
     return cm, cs, p, w6, w9
+
+
+def _first_index(hit: torch.Tensor) -> torch.Tensor:
+    """(nc, nf) bool -> (nf,) first row that is True (nc where none)."""
+    nc = hit.shape[0]
+    iota = torch.arange(nc, device=hit.device)[:, None]
+    return torch.where(hit, iota, nc).amin(dim=0)
+
+
+def planner_walk_plain(g: WalkGraph, e: float, q: float) -> WalkResult:
+    """The greedy record by record, vectorised over the fractions; each
+    record scored by `fused_score` (its winners are taken here, in
+    float64, as the walk takes them)."""
+    dev = g.scost.device
+    n1, nf = g.scost.shape
+    k = g.child.shape[1]
+    state = torch.zeros((n1, nf), dtype=torch.uint8, device=dev)
+    state[n1 - 1] = EXACT
+    mean = torch.ones((n1, nf), dtype=torch.float64, device=dev)
+    std = torch.zeros((n1, nf), dtype=torch.float64, device=dev)
+    total = torch.zeros(nf, dtype=torch.float64, device=dev)
+    nrec = g.tid.numel()
+    win = torch.empty((nrec, nf), dtype=torch.int32, device=dev)
+    fi = torch.arange(nf, device=dev)
+    none_f = torch.zeros(nf, dtype=torch.bool, device=dev)
+    child = g.child.long()
+    tids, kinds, offs = g.tid.tolist(), g.kind.tolist(), g.cand_off.tolist()
+    for r in range(nrec):
+        t, o, o2 = tids[r], offs[r], offs[r + 1]
+        smean, sstd = g.samp_mean[kinds[r]], g.samp_std[kinds[r]]
+        act = state[t] == NONE
+        has6 = has9 = none_f
+        code = fi
+        if o2 > o:
+            ch = child[o:o2]                               # (nc, K)
+            known = state[ch] != NONE                      # (nc, K, nf)
+            allk = known.all(dim=1)
+            # unknown children hypothetically sampled
+            m = torch.where(known, mean[ch], smean).to(torch.float32)
+            s = torch.where(known, std[ch], sstd).to(torch.float32)
+            cost = torch.where(known, 0.0, g.scost[ch])
+            extra = cost[:, 0]
+            for j in range(1, k):                          # child order
+                extra = extra + cost[:, j]
+            mask67 = allk & act
+            pre9 = ~allk & (extra < g.scost[t]) & act
+            cm, cs, p, _, _ = fused_score(m, s, g.dm[o:o2], g.vt[o:o2],
+                                          g.mq[o:o2], mask67, pre9,
+                                          extra.to(torch.float32), e, q)
+            sat = p.to(torch.float64) >= q
+            elig = mask67 & sat
+            has6 = elig.any(dim=0)
+            pe = torch.where(elig, p, -1.0)
+            w6 = _first_index(elig & (pe == pe.amax(dim=0)))
+            ok9 = pre9 & sat & ~has6
+            has9 = ok9.any(dim=0)
+            xe = torch.where(ok9, extra, math.inf)
+            w9 = _first_index(ok9 & (xe == xe.amin(dim=0)))
+            w = torch.where(has6, w6, torch.where(has9, w9, 0))
+            # lines 8-9: the winner's unresolved children are sampled
+            ids = ch[w]                                    # (nf, K)
+            nch = g.nchild[o + w]
+            for j in range(k):
+                idj = ids[:, j]
+                cur = state[idj, fi]
+                new = has9 & (j < nch) & (cur == NONE)
+                state[idj, fi] = torch.where(new, SAMPLED, cur)
+                mean[idj, fi] = torch.where(new, smean, mean[idj, fi])
+                std[idj, fi] = torch.where(new, sstd, std[idj, fi])
+                total = total + torch.where(new, g.scost[idj, fi], 0.0)
+            ded = has6 | has9
+            state[t] = torch.where(ded, DEDUCED, state[t])
+            mean[t] = torch.where(ded, cm[w, fi].to(torch.float64), mean[t])
+            std[t] = torch.where(ded, cs[w, fi].to(torch.float64), std[t])
+            code = torch.where(has6, w6, w9 + WALK_LINE9)
+        # lines 10-11
+        rest = act & ~has6 & ~has9
+        state[t] = torch.where(rest, SAMPLED, state[t])
+        mean[t] = torch.where(rest, smean, mean[t])
+        std[t] = torch.where(rest, sstd, std[t])
+        total = total + torch.where(rest, g.scost[t], 0.0)
+        win[r] = torch.where(~act, WALK_SKIP,
+                             torch.where(has6 | has9, code, WALK_FALLBACK))
+    return WalkResult(state, mean, std, win, total)
 
 
 # ---------------------------------------------------------------------------
@@ -228,3 +378,54 @@ def fused_score(m: torch.Tensor, s: torch.Tensor, dm: torch.Tensor,
     _launch_check(err, "fused_score")
     LAUNCHES["fused_score"] += 1
     return out[0], out[1], out[2], win[0], win[1]
+
+
+def planner_walk(g: WalkGraph, e: float, q: float) -> WalkResult:
+    """The greedy of one plan over the packed graph `g` (see `WalkGraph`,
+    `WalkResult`); one launch for every fraction on a CUDA graph."""
+    n1, nf = g.scost.shape
+    nrec = g.tid.numel()
+    nc = g.dm.numel()
+    k = g.child.shape[1]
+    ints = (g.tid, g.kind, g.cand_off, g.child, g.nchild)
+    floats = (g.dm, g.vt, g.mq)
+    doubles = (g.scost, g.samp_mean, g.samp_std)
+    if any(t.dtype != torch.int32 for t in ints) or \
+            any(t.dtype != torch.float32 for t in floats) or \
+            any(t.dtype != torch.float64 for t in doubles):
+        raise ValueError("planner_walk: index arrays must be int32, factors "
+                         "float32, costs and SampleCF RVs float64")
+    if g.kind.shape != (nrec,) or g.cand_off.shape != (nrec + 1,) or \
+            g.child.shape[0] != nc or g.nchild.shape != (nc,) or \
+            g.vt.shape != (nc,) or g.mq.shape != (nc,) or k < 1 or \
+            g.samp_mean.shape != (2, nf) or g.samp_std.shape != (2, nf):
+        raise ValueError("planner_walk: inconsistent packed graph")
+    dev = g.scost.device
+    if any(t.device != dev for t in ints + floats + doubles):
+        raise ValueError("all inputs must be on one device")
+    if dev.type == "cpu":
+        return planner_walk_plain(g, e, q)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if g.max_cands >= WALK_LINE9 or nc * k >= 2 ** 31 or n1 * nf >= 2 ** 31:
+        raise ValueError("planner_walk: graph outside the kernel's sizes")
+    ins = [t.contiguous() for t in ints + floats]
+    scost_t = g.scost.t().contiguous()
+    samp = [t.contiguous() for t in doubles[1:]]
+    state = torch.empty((nf, n1), dtype=torch.uint8, device=dev)
+    mean = torch.empty((nf, n1), dtype=torch.float64, device=dev)
+    std = torch.empty((nf, n1), dtype=torch.float64, device=dev)
+    win = torch.empty((nrec, nf), dtype=torch.int32, device=dev)
+    total = torch.empty(nf, dtype=torch.float64, device=dev)
+    if nf == 0:
+        return WalkResult(state.t(), mean.t(), std.t(), win, total)
+    lo, hi = bounds(e)
+    err = _load().planner_walk_launch(
+        *(t.data_ptr() for t in ins), scost_t.data_ptr(),
+        *(t.data_ptr() for t in samp),
+        *(t.data_ptr() for t in (state, mean, std, win, total)),
+        nrec, k, n1, nf, max(g.max_cands, 1), lo, hi, float(q),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _launch_check(err, "planner_walk")
+    LAUNCHES["planner_walk"] += 1
+    return WalkResult(state.t(), mean.t(), std.t(), win, total)

@@ -9,7 +9,9 @@ this file imports only `repro_torch` (no JAX), so it also runs on the card:
 Tolerances: the five codec kernels bit-equal (integers); `prob_within` and
 `fused_score` p within atol 1e-6 and cm / cs within rtol 1e-6 (the same
 IEEE float ops; only CUDA's erff and PyTorch's erf may differ by an ulp);
-winners equal; prob consistency bitwise.  Blockwise quantization bit-equal
+winners equal; prob consistency bitwise; the planner walk bit-equal to
+its plain version (which scores each record with the fused_score kernel)
+on hand-built graphs and the TPC-H scale=1 graph, launched once per plan.  Blockwise quantization bit-equal
 (q and scales: the same IEEE divisions and round-half-even);
 dequant-matmul within rtol and atol 1e-4 of the plain version's IEEE
 float32 product (another summation order; the tensor-core route's a in
@@ -29,6 +31,9 @@ from repro_torch.kernels import codec_bytes as cb, launch_counts
 from repro_torch.kernels import dequant_matmul as dm
 from repro_torch.kernels import planner_score as ps
 from repro_torch.kernels import quantize_blockwise as qb
+from torch_port_util import (TRAP_A_E, WALK_SUMS, WALK_SUMS_WIN, WALK_TIES,
+                             WALK_TIES_WIN, WALK_TRAP_A, trap_a_score,
+                             walk_graph)
 
 E = 0.1
 
@@ -140,6 +145,90 @@ def test_cuda_fused_score_close_to_plain(cuda, nc, k, nf):
     again = ps.prob_within(got[0], got[1], E)
     mask = mask67 | pre9
     assert torch.equal(got[2][mask], again[mask])
+
+
+def walk_bit_equal(got, want):
+    for name, a, b in zip(ps.WalkResult._fields, got, want):
+        if a.dtype == torch.float64:
+            a, b = a.contiguous().view(torch.int64), b.contiguous().view(
+                torch.int64)
+        assert torch.equal(a, b), name
+
+
+@pytest.fixture(scope="module")
+def tpch_targets():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch import core as pt
+    schema = pt.make_tpch_like(scale=1.0, z=0.0, seed=0)
+    adv = pt.DesignAdvisor(pt.make_tpch_workload(schema, insert_weight=0.1),
+                           pt.AdvisorOptions(backend="numpy"))
+    return schema, list(adv.estimation_targets(adv._candidate_universe()[2]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["sums", "ties", "trap-a", "trap-a-above"])
+def test_cuda_planner_walk_equals_plain_on_hand_graphs(cuda, name):
+    spec, e, q = {"sums": (WALK_SUMS, 0.5, 0.9),
+                  "ties": (WALK_TIES, 0.5, 0.9)}.get(name, (WALK_TRAP_A,
+                                                            TRAP_A_E, None))
+    if q is None:            # p of the trap's candidate, scored on the card
+        p = trap_a_score(cuda)
+        q = float(np.nextafter(np.float64(p), 2.0)) if name.endswith(
+            "above") else p
+    g = walk_graph(spec, cuda)
+    before = launch_counts()
+    got = ps.planner_walk(g, e, q)
+    assert launch_counts()["planner_walk"] == before["planner_walk"] + 1
+    want = ps.planner_walk_plain(g, e, q)
+    walk_bit_equal(got, want)
+    if spec is WALK_SUMS:
+        assert got.win.tolist() == WALK_SUMS_WIN
+    elif spec is WALK_TIES:
+        assert got.win.tolist() == WALK_TIES_WIN
+    else:
+        assert int(got.win[1, 0]) == (ps.WALK_FALLBACK if name.endswith(
+            "above") else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [0.9, 1.1])
+def test_cuda_planner_walk_equals_plain_on_the_tpch_graph(cuda, tpch_targets,
+                                                         q):
+    """The walk kernel bit-equal to its plain version (the per-record
+    fused_score kernel and float64 decisions) on the scale=1 graph."""
+    from repro_torch.core import planner_engine as pe
+    schema, targets = tpch_targets
+    eng = pe.PlannerEngine(schema.tables, device=cuda)
+    wgs = []
+    walk = ps.planner_walk
+    try:
+        ps.planner_walk = lambda g, e_, q_: wgs.append(g) or walk(g, e_, q_)
+        eng.plan_batch(targets, 0.5, q)
+    finally:
+        ps.planner_walk = walk
+    assert len(wgs) == 1
+    walk_bit_equal(ps.planner_walk(wgs[0], 0.5, q),
+                   ps.planner_walk_plain(wgs[0], 0.5, q))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("all_sampled", [False, True])
+def test_cuda_planner_one_walk_launch_per_plan(cuda, tpch_targets,
+                                              all_sampled):
+    """The torch backend's planner launches planner_walk once per plan and
+    the per-record fused_score not at all."""
+    from repro_torch.core.estimation_graph import EstimationPlanner
+    schema, targets = tpch_targets
+    planner = EstimationPlanner(schema.tables, device=cuda)
+    before = launch_counts()
+    if all_sampled:
+        planner.plan_all_sampled(targets, 0.5, 0.9)
+    else:
+        planner.plan(targets, 0.5, 0.9)
+    after = launch_counts()
+    assert after["planner_walk"] == before["planner_walk"] + 1
+    assert after["fused_score"] == before["fused_score"]
 
 
 I64_MIN, I64_MAX = -(1 << 63), (1 << 63) - 1

@@ -75,3 +75,124 @@ def assert_same_steps_up_to_ping_pong(got_steps, want_steps) -> None:
     for step in (got_steps[k:] or want_steps[k:]):
         before, after = step.rsplit("cost ", 1)[1].split("->")
         assert before == after, step
+
+
+# ---------------------------------------------------------------------------
+# hand-built planner graphs for `planner_walk` (shared with the card tests)
+# ---------------------------------------------------------------------------
+
+def walk_graph(spec: dict, device="cpu"):
+    """A `planner_score.WalkGraph` from a plain spec: n nodes (the EXACT pad
+    is node n), nf fractions, records [(target, kind, [(children, (dm, vt,
+    mq)), ...]), ...] in order, scost (n, nf), samp_mean / samp_std (2, nf)."""
+    import torch
+    from repro_torch.kernels import planner_score as ps
+    n, nf, recs = spec["n"], spec["nf"], spec["recs"]
+    k = max([1] + [len(ch) for _, _, cands in recs for ch, _ in cands])
+    off = np.zeros(len(recs) + 1, dtype=np.int32)
+    off[1:] = np.cumsum([len(cands) for _, _, cands in recs])
+    child = np.full((int(off[-1]), k), n, dtype=np.int32)
+    nchild = np.zeros(int(off[-1]), dtype=np.int32)
+    fac = np.zeros((int(off[-1]), 3), dtype=np.float32)
+    c = 0
+    for _, _, cands in recs:
+        for ch, f in cands:
+            child[c, :len(ch)] = ch
+            nchild[c] = len(ch)
+            fac[c] = f
+            c += 1
+    scost = np.zeros((n + 1, nf))
+    scost[:n] = spec["scost"]
+
+    def t(a, dt):
+        return torch.as_tensor(np.asarray(a, dtype=dt), device=device)
+    return ps.WalkGraph(
+        t([r[0] for r in recs], np.int32), t([r[1] for r in recs], np.int32),
+        t(off, np.int32), t(child, np.int32), t(nchild, np.int32),
+        t(fac[:, 0], np.float32), t(fac[:, 1], np.float32),
+        t(fac[:, 2], np.float32), t(scost, np.float64),
+        t(spec["samp_mean"], np.float64), t(spec["samp_std"], np.float64),
+        max_cands=max([0] + [len(cands) for _, _, cands in recs]))
+
+
+# factors of a deduction whose error RV has mean 1 and std 0.01
+DED = (1.0, 1.0 + 0.01 ** 2, 1.0)
+BIG = 2.0 ** 53
+MID = 2.0 ** 24
+
+# float64 costs and sums (traps b-e), a float64 SampleCF mean (f),
+# a duplicate target (g)
+WALK_SUMS = {
+    "n": 12, "nf": 1,
+    "recs": [
+        # lines 8-9: extras 2^53 + 2 and, in child order, 2^53 + 1 + 1 =
+        # 2^53 (any other order or float32 ties them); the first argmin is
+        # candidate 1
+        (4, 0, [([3], DED), ([0, 1, 2], DED)]),
+        # extra 2^24 + 3 < cost 2^24 + 3.5 in float64 (equal in float32)
+        (9, 0, [([8], DED)]),
+        # extras 2^24 + 1 and 2^24 + 0.5: float32 ties them
+        (10, 0, [([5], DED), ([6], DED)]),
+        # lines 6-7 on children sampled by earlier records
+        (11, 1, [([0, 8], DED)]),
+        (4, 0, [([3], DED)]),                       # a duplicate target
+        (7, 1, []),                                 # no candidates
+    ],
+    "scost": [[BIG], [1.0], [1.0], [BIG + 2], [BIG + 4], [MID + 1],
+              [MID + 0.5], [1.0], [MID + 3], [MID + 3.5], [MID + 2], [3.0]],
+    "samp_mean": [[1.0 + 1e-9], [1.0 - 1e-9]],
+    "samp_std": [[0.01], [0.02]],
+}
+WALK_SUMS_WIN = [[(1 << 20) + 1], [1 << 20], [(1 << 20) + 1], [0], [-1],
+                 [-2]]
+
+# ties and shared children over three fractions: tied p and tied extra
+# (the first candidate wins), a child shared by two candidates, children
+# sampled by an earlier record, a fraction whose SampleCF error is too
+# wide for any deduction
+WALK_TIES = {
+    "n": 10, "nf": 3,
+    "recs": [
+        (4, 0, [([0, 1], DED), ([0, 1], DED), ([2], DED)]),
+        (5, 0, [([0, 3], DED), ([1, 3], DED)]),
+        (6, 1, [([4, 5], DED)]),
+        (4, 0, [([2], DED)]),
+        (7, 1, [([2], DED), ([2], DED)]),
+        (8, 1, [([0], DED), ([0], DED)]),
+        (9, 1, []),
+    ],
+    "scost": [[1.0, 1.0, 1.0], [1.0, 1.0, 1.0], [5.0, 5.0, 0.5],
+              [2.0, 2.0, 2.0], [10.0, 1.5, 10.0], [4.0, 4.0, 4.0],
+              [9.0, 9.0, 9.0], [6.0, 6.0, 6.0], [3.0, 3.0, 3.0],
+              [1.0, 2.0, 3.0]],
+    "samp_mean": [[1.0 + 1e-9, 0.98, 1.05], [1.01, 1.0, 0.97]],
+    "samp_std": [[0.01, 0.05, 0.5], [0.02, 0.03, 0.3]],
+}
+L9 = 1 << 20
+WALK_TIES_WIN = [[L9, -2, -2], [L9, L9, -2], [0, 0, -2], [-1, -1, -1],
+                 [L9, L9, -2], [0, 0, -2], [-2, -2, -2]]
+
+# node 1's only candidate has the known child 0 (sampled by record 0):
+# with q the next float64 above float64(p) of its score (float32(q) == p)
+# it must fail lines 6-7 (trap a); TRAP_A_E is the accuracy bound e
+WALK_TRAP_A = {
+    "n": 2, "nf": 1,
+    "recs": [(0, 0, []), (1, 0, [([0], DED)])],
+    "scost": [[1.0], [2.0]],
+    "samp_mean": [[1.0], [1.0]], "samp_std": [[0.2], [0.2]],
+}
+TRAP_A_E = 0.3
+
+
+def trap_a_score(device="cpu") -> float:
+    """p of WALK_TRAP_A's candidate, scored by `fused_score` on `device`."""
+    import torch
+    from repro_torch.kernels import planner_score as ps
+    f32 = float(np.float32(0.2))
+    m = torch.ones((1, 1, 1), device=device)
+    s = torch.full((1, 1, 1), f32, device=device)
+    fac = [torch.tensor([v], dtype=torch.float32, device=device)
+           for v in DED]
+    mask = torch.ones((1, 1), dtype=torch.bool, device=device)
+    return float(ps.fused_score(m, s, *fac, mask, None, None, TRAP_A_E,
+                                0.5)[2][0, 0])
