@@ -36,10 +36,10 @@
 //   so the product's error is about 2^-17 of sum |a w| (random in sign),
 //   well inside 1e-4 at the main path's widths; a third term is not
 //   needed.  Each hi * q and lo * q product is exact in the MMA's float32
-//   accumulator (8-bit by 8-bit significands).  A block owns a 64 x BN
-//   output tile (BN = 128, or 64 where 128 would leave fewer than two
-//   blocks an SM), 4 warps of 32 x BN/2.  a (float32) and qw (int8) tiles
-//   32 deep stream into shared memory through a 4-stage cp.async ring;
+//   accumulator (8-bit by 8-bit significands).  A block owns a 64 x 128
+//   output tile, 8 warps of 32 x 32 (PrefillTile below).  a (float32) and
+//   qw (int8) tiles 32 deep stream into shared memory through a 4-stage
+//   cp.async ring;
 //   each stage is converted once per block into double-buffered bf16
 //   tiles (a: hi and lo; q: exact), one barrier a step, read by ldmatrix
 //   (.trans for the row-major q tile) into
@@ -274,8 +274,6 @@ __global__ void dmm_splitk_sum_kernel(const float* __restrict__ ws,
 // prefill: bf16 tensor cores, a split hi + lo
 // ---------------------------------------------------------------------------
 
-constexpr int kPreThreads = 128;   // 4 warps: 2 along M x 2 along N
-constexpr int kBM = 64;
 constexpr int kBK = 32;
 constexpr int kPadA = 8;           // bf16 row pads: ldmatrix rows hit
 constexpr int kPadQ = 8;           // distinct banks
@@ -316,10 +314,11 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
       : "r"(smem_addr(p)));
 }
 
-// d (16 x 8 float32) += a (16 x 16 bf16, row) @ b (16 x 8 bf16, col)
+// d (16 x 8 float32) += a (16 x 16 bf16, row) @ b (16 x 8 bf16, col); not
+// volatile, so the compiler may interleave independent products
 __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
+  asm(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
       "{%0, %1, %2, %3};\n"
@@ -331,59 +330,80 @@ __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// The prefill kernel's shared memory, in bytes: kStages cp.async stages of
-// the a (float32) and qw (int8) tiles, then two buffers of the bf16 tiles
-// (a hi, a lo, q) that the MMAs read
-constexpr int kStages = 4;
-
-template <int BN>
-struct PrefillSmem {
+// A prefill tile: WM x WNW warps, each 32 rows x WN 8-column MMA tiles, so
+// a block owns BM = 32 WM rows and BN = 8 WN WNW columns; STAGES cp.async
+// stages of the a (float32) and qw (int8) tiles, then two buffers of the
+// bf16 tiles (a hi, a lo, q) that the MMAs read, in shared memory
+template <int WM, int WNW, int WN, int STAGES>
+struct Tile {
+  static constexpr int kWarpsN = WNW;
+  static constexpr int kWN = WN;
+  static constexpr int kStages = STAGES;
+  static constexpr int kThreads = 32 * WM * WNW;
+  static constexpr int kBM = 32 * WM;
+  static constexpr int kBN = 8 * WN * WNW;
   static constexpr int kAStage = kBM * kBK * 4;
-  static constexpr int kQStage = kBK * BN;
+  static constexpr int kQStage = kBK * kBN;
   static constexpr int kATile = kBM * (kBK + kPadA) * 2;
-  static constexpr int kQTile = kBK * (BN + kPadQ) * 2;
+  static constexpr int kQTile = kBK * (kBN + kPadQ) * 2;
   static constexpr int kA = 0;
-  static constexpr int kQ = kA + kStages * kAStage;
-  static constexpr int kHi = kQ + kStages * kQStage;
+  static constexpr int kQ = kA + STAGES * kAStage;
+  static constexpr int kHi = kQ + STAGES * kQStage;
   static constexpr int kLo = kHi + 2 * kATile;
   static constexpr int kQb = kLo + 2 * kATile;
   static constexpr int kBytes = kQb + 2 * kQTile;
 };
 
-// WN: 8-column MMA tiles per warp along N (BN = 2 warps x WN x 8)
-template <int WN, bool VEC>
-__global__ void __launch_bounds__(kPreThreads)
+// the tile the prefill kernel runs: 64 x 128, eight warps of 32 x 32, a
+// 4-stage ring (85 KB of shared memory, 127 registers: two blocks, 16 warps
+// an SM).  Timed at 512 x 2048 x 5632 and 512 x 5632 x 2048 against the
+// same tile in four warps of 32 x 64 (224 registers, 8 warps an SM) and
+// against 64 x 64, 64 x 256, 128 x 64 and 128 x 128 tiles, it was the
+// fastest at both (0.128 / 0.134 ms against 0.156-0.224): twice the
+// threads share each stage's conversion to bf16, and 16 warps an SM hide
+// its latency behind the MMAs.
+using PrefillTile = Tile<2, 4, 4, 4>;
+
+template <class T, bool VEC>
+__global__ void __launch_bounds__(T::kThreads)
 dmm_prefill_kernel(const float* __restrict__ a, const int8_t* __restrict__ qw,
                    const float* __restrict__ scale, float* __restrict__ out,
                    int m, int n, int k, int block) {
-  constexpr int BN = 2 * WN * 8;
-  using L = PrefillSmem<BN>;
+  constexpr int BM = T::kBM;
+  constexpr int BN = T::kBN;
+  constexpr int WN = T::kWN;
+  constexpr int NT = T::kThreads;
+  constexpr int kStages = T::kStages;
   extern __shared__ __align__(16) unsigned char smem[];
-  auto a_st = reinterpret_cast<float (*)[kBM][kBK]>(smem + L::kA);
-  auto q_st = reinterpret_cast<int8_t (*)[kBK][BN]>(smem + L::kQ);
-  auto a_hi = reinterpret_cast<__nv_bfloat16 (*)[kBM][kBK + kPadA]>(
-      smem + L::kHi);
-  auto a_lo = reinterpret_cast<__nv_bfloat16 (*)[kBM][kBK + kPadA]>(
-      smem + L::kLo);
+  auto a_st = reinterpret_cast<float (*)[BM][kBK]>(smem + T::kA);
+  auto q_st = reinterpret_cast<int8_t (*)[kBK][BN]>(smem + T::kQ);
+  auto a_hi = reinterpret_cast<__nv_bfloat16 (*)[BM][kBK + kPadA]>(
+      smem + T::kHi);
+  auto a_lo = reinterpret_cast<__nv_bfloat16 (*)[BM][kBK + kPadA]>(
+      smem + T::kLo);
   auto q_bf = reinterpret_cast<__nv_bfloat16 (*)[kBK][BN + kPadQ]>(
-      smem + L::kQb);
+      smem + T::kQb);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int wm = warp >> 1;            // 32-row half of the tile
-  const int wn = warp & 1;             // BN/2-column half of the tile
+  const int wm = warp / T::kWarpsN;    // this warp's 32 rows of the tile
+  const int wn = warp % T::kWarpsN;    // and its 8 WN columns
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int m0 = blockIdx.y * kBM;
+  const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
   const int ncol = n0 + wn * WN * 8;   // this warp's first column
+  constexpr int kAChunks = BM * kBK / 4;       // 16-byte chunks of a tile
+  constexpr int kQChunksRow = BN / 16;
+  constexpr int kQChunks = kBK * kQChunksRow;
 
   auto load_stage = [&](int st, int k0) {
-    // a: 64 rows x 32 floats, 16-byte chunks; rows beyond M zero-filled
+    // a: BM rows x 32 floats, 16-byte chunks; rows beyond M zero-filled
 #pragma unroll
-    for (int i = 0; i < (kBM * kBK / 4) / kPreThreads; ++i) {
-      const int c = tid + i * kPreThreads;
+    for (int i = 0; i < (kAChunks + NT - 1) / NT; ++i) {
+      const int c = tid + i * NT;
+      if (kAChunks % NT != 0 && c >= kAChunks) break;
       const int row = c >> 3;
       const int kc = (c & 7) * 4;
       const int gr = m0 + row;
@@ -392,12 +412,12 @@ dmm_prefill_kernel(const float* __restrict__ a, const int8_t* __restrict__ qw,
                  gr < m ? 16 : 0);
     }
     if (VEC) {   // qw: 32 rows x BN int8, 16-byte chunks
-      constexpr int kChunksRow = BN / 16;
 #pragma unroll
-      for (int i = 0; i < (kBK * kChunksRow) / kPreThreads; ++i) {
-        const int c = tid + i * kPreThreads;
-        const int kr = c / kChunksRow;
-        const int cc = (c % kChunksRow) * 16;
+      for (int i = 0; i < (kQChunks + NT - 1) / NT; ++i) {
+        const int c = tid + i * NT;
+        if (kQChunks % NT != 0 && c >= kQChunks) break;
+        const int kr = c / kQChunksRow;
+        const int cc = (c % kQChunksRow) * 16;
         const int gc = n0 + cc;
         cp_async16(&q_st[st][kr][cc],
                    qw + static_cast<long long>(k0 + kr) * n +
@@ -405,7 +425,7 @@ dmm_prefill_kernel(const float* __restrict__ a, const int8_t* __restrict__ qw,
                    gc < n ? 16 : 0);
       }
     } else {
-      for (int c = tid; c < kBK * BN; c += kPreThreads) {
+      for (int c = tid; c < kBK * BN; c += NT) {
         const int kr = c / BN;
         const int cc = c % BN;
         const int gc = n0 + cc;
@@ -419,8 +439,9 @@ dmm_prefill_kernel(const float* __restrict__ a, const int8_t* __restrict__ qw,
   auto convert_stage = [&](int st, int b) {
     // a: each float4 -> 4 hi + 4 lo bf16
 #pragma unroll
-    for (int i = 0; i < (kBM * kBK / 4) / kPreThreads; ++i) {
-      const int c = tid + i * kPreThreads;
+    for (int i = 0; i < (kAChunks + NT - 1) / NT; ++i) {
+      const int c = tid + i * NT;
+      if (kAChunks % NT != 0 && c >= kAChunks) break;
       const int row = c >> 3;
       const int kc = (c & 7) * 4;
       const float4 v = *reinterpret_cast<const float4*>(&a_st[st][row][kc]);
@@ -438,12 +459,12 @@ dmm_prefill_kernel(const float* __restrict__ a, const int8_t* __restrict__ qw,
           make_uint2(bf16x2_bits(l01), bf16x2_bits(l23));
     }
     // q: each 16 int8 -> 16 exact bf16
-    constexpr int kChunksRow = BN / 16;
 #pragma unroll
-    for (int i = 0; i < (kBK * kChunksRow) / kPreThreads; ++i) {
-      const int c = tid + i * kPreThreads;
-      const int kr = c / kChunksRow;
-      const int cc = (c % kChunksRow) * 16;
+    for (int i = 0; i < (kQChunks + NT - 1) / NT; ++i) {
+      const int c = tid + i * NT;
+      if (kQChunks % NT != 0 && c >= kQChunks) break;
+      const int kr = c / kQChunksRow;
+      const int cc = (c % kQChunksRow) * 16;
       const uint4 w = *reinterpret_cast<const uint4*>(&q_st[st][kr][cc]);
       const uint2 b0 = i8x4_to_bf16x4(w.x);
       const uint2 b1 = i8x4_to_bf16x4(w.y);
@@ -469,9 +490,10 @@ dmm_prefill_kernel(const float* __restrict__ a, const int8_t* __restrict__ qw,
   float sc[WN][2];   // the current K block's scales of this thread's columns
 
   // Pipeline: stages ks + 1 .. ks + kStages - 1 are in flight while step ks
-  // multiplies; step ks converts stage ks + 1 into the other bf16 buffer
-  // before its MMAs, so one barrier a step separates the writers of each
-  // buffer from its readers.
+  // multiplies; step ks issues its MMAs, then converts stage ks + 1 into
+  // the other bf16 buffer while the tensor cores work through them (the
+  // conversion needs no MMA result), so one barrier a step separates the
+  // writers of each buffer from its readers.
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) {
     if (st < nks) load_stage(st, st * kBK);
@@ -498,7 +520,6 @@ dmm_prefill_kernel(const float* __restrict__ a, const int8_t* __restrict__ qw,
     // longer read (last step's MMAs), and the stage loaded above is no
     // longer converted (the step before)
     __syncthreads();
-    if (ks + 1 < nks) convert_stage((ks + 1) % kStages, (ks + 1) & 1);
     const int b = ks & 1;
 #pragma unroll
     for (int kk = 0; kk < kBK; kk += 16) {
@@ -510,21 +531,26 @@ dmm_prefill_kernel(const float* __restrict__ a, const int8_t* __restrict__ qw,
         ldmatrix_x4(ah[i], &a_hi[b][row][col]);
         ldmatrix_x4(al[i], &a_lo[b][row][col]);
       }
+      uint32_t bq[WN / 2][4];
 #pragma unroll
-      for (int jp = 0; jp < WN / 2; ++jp) {
-        uint32_t bq[4];
+      for (int jp = 0; jp < WN / 2; ++jp)
         ldmatrix_x4_trans(
-            bq, &q_bf[b][kk + (lane & 7) + ((lane >> 3) & 1) * 8]
-                     [wn * WN * 8 + jp * 16 + (lane >> 4) * 8]);
+            bq[jp], &q_bf[b][kk + (lane & 7) + ((lane >> 3) & 1) * 8]
+                         [wn * WN * 8 + jp * 16 + (lane >> 4) * 8]);
+      // the hi pass over every accumulator, then the lo pass: 2 WN
+      // independent products between the two into one accumulator
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          mma_bf16(blk[i][2 * jp], ah[i], bq[0], bq[1]);
-          mma_bf16(blk[i][2 * jp], al[i], bq[0], bq[1]);
-          mma_bf16(blk[i][2 * jp + 1], ah[i], bq[2], bq[3]);
-          mma_bf16(blk[i][2 * jp + 1], al[i], bq[2], bq[3]);
-        }
-      }
+      for (int pass = 0; pass < 2; ++pass)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int jp = 0; jp < WN / 2; ++jp) {
+            const uint32_t* av = pass ? al[i] : ah[i];
+            mma_bf16(blk[i][2 * jp], av, bq[jp][0], bq[jp][1]);
+            mma_bf16(blk[i][2 * jp + 1], av, bq[jp][2], bq[jp][3]);
+          }
     }
+    if (ks + 1 < nks) convert_stage((ks + 1) % kStages, (ks + 1) & 1);
     if ((ks + 1) % ks_per_block == 0) {   // fold the K block, times scale
 #pragma unroll
       for (int i = 0; i < 2; ++i)
@@ -564,18 +590,6 @@ dmm_prefill_kernel(const float* __restrict__ a, const int8_t* __restrict__ qw,
     }
 }
 
-int num_sms() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess)
-      sms = 132;
-  }
-  return sms;
-}
-
 template <int MT, bool VEC>
 void launch_decode(const float* a, const int8_t* qw, const float* scale,
                    float* ws, int m, int n, int k, int block,
@@ -599,24 +613,32 @@ void launch_decode_m(const float* a, const int8_t* qw, const float* scale,
     launch_decode<8, VEC>(a, qw, scale, ws, m, n, k, block, stream);
 }
 
-template <int WN, bool VEC>
+template <class T, bool VEC>
 cudaError_t launch_prefill(const float* a, const int8_t* qw,
                            const float* scale, float* out, int m, int n,
                            int k, int block, cudaStream_t stream) {
-  constexpr int BN = 2 * WN * 8;
-  constexpr int bytes = PrefillSmem<BN>::kBytes;
   static bool attr_set = false;   // above 48 KB only once allowed
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        dmm_prefill_kernel<WN, VEC>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        dmm_prefill_kernel<T, VEC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, T::kBytes);
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
-  const dim3 grid((n + BN - 1) / BN, (m + kBM - 1) / kBM);
-  dmm_prefill_kernel<WN, VEC><<<grid, kPreThreads, bytes, stream>>>(
+  const dim3 grid((n + T::kBN - 1) / T::kBN, (m + T::kBM - 1) / T::kBM);
+  dmm_prefill_kernel<T, VEC><<<grid, T::kThreads, T::kBytes, stream>>>(
       a, qw, scale, out, m, n, k, block);
   return cudaSuccess;
+}
+
+template <class T>
+cudaError_t launch_prefill_vec(bool vec, const float* a, const int8_t* qw,
+                               const float* scale, float* out, int m, int n,
+                               int k, int block, cudaStream_t stream) {
+  return vec ? launch_prefill<T, true>(a, qw, scale, out, m, n, k, block,
+                                       stream)
+             : launch_prefill<T, false>(a, qw, scale, out, m, n, k, block,
+                                        stream);
 }
 
 }  // namespace
@@ -657,17 +679,8 @@ int dequant_matmul_launch(const void* a, const void* qw, const void* scale,
     }
     return static_cast<int>(cudaGetLastError());
   }
-  // 128-column tiles unless that leaves fewer than two blocks an SM
-  const long long tiles128 =
-      static_cast<long long>((m + kBM - 1) / kBM) * ((n + 127) / 128);
-  const bool wide = tiles128 >= 2LL * num_sms();
-  cudaError_t e;
-  if (wide)
-    e = vec ? launch_prefill<8, true>(a_, q_, s_, o_, m, n, k, block, st)
-            : launch_prefill<8, false>(a_, q_, s_, o_, m, n, k, block, st);
-  else
-    e = vec ? launch_prefill<4, true>(a_, q_, s_, o_, m, n, k, block, st)
-            : launch_prefill<4, false>(a_, q_, s_, o_, m, n, k, block, st);
+  const cudaError_t e = launch_prefill_vec<PrefillTile>(
+      vec != 0, a_, q_, s_, o_, m, n, k, block, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
