@@ -1,17 +1,24 @@
 #!/usr/bin/env python3
-"""Time the LDICT and dequantize kernels of this checkout on one GPU.
+"""Time the LDICT, dequantize and dequant-matmul kernels and the planner
+of this checkout on one GPU.
 
     python3 chip_kernel_times.py
 
 LDICT (`kernels.codec_bytes.ldict_bytes`) is timed on every distinct input
 that the advisor runs of `chip_smoke.py` phases 3 and 3b give it (DTAc
 `recommend` at TPC-H SF1 size on the TPC-H workload, then on 10,000
-statements with all five codecs and compression_budget 128); the single
-dequantize call (`kernels.quantize_blockwise.dequantize_blockwise`,
-float32 output) at the q8 gradient wire's (32000, 2048) and (2048,)
-shapes, on as many tensors as one training step sends (2 and 45), beside
-the one-call broadcast multiply.  Each result is held against its plain
-version.  Every time is taken two ways:
+statements with all five codecs and compression_budget 128), and the
+3b run's plan-phase seconds (`Recommendation.phase_seconds["plan"]`) are
+kept, with those of a second 3b run; the single dequantize call
+(`kernels.quantize_blockwise.dequantize_blockwise`, float32 output) at
+the q8 gradient wire's (32000, 2048) and (2048,) shapes, on as many
+tensors as one training step sends (2 and 45), beside the one-call
+broadcast multiply; dequant-matmul (`kernels.dequant_matmul`) at the
+four shapes of `chip_smoke.py` phase 5c (TinyLlama-1.1B's MLP at M = 4
+and 512), cycling through 22 layers' random q8 weights from seed 0,
+beside float32 `torch.matmul` on the dequantized weight (TF32 off).
+Each result is held against its plain version.  Every time is taken two
+ways:
 
 * per call: CUDA events around back-to-back calls, the host's first
   launch included; the median of 5 runs (as `chip_smoke.py` times);
@@ -35,6 +42,10 @@ sys.path.insert(0, str(ROOT / "src"))
 
 FIVE = ("NS", "GDICT", "LDICT", "PREFIX", "RLE")
 WIRE = (((32000, 2048), 2), ((2048,), 45))     # (shape, tensors a step)
+# phase 5c's dequant-matmul shapes (M, K, N) and TinyLlama-1.1B's layers
+DMM = ((4, 2048, 5632), (4, 5632, 2048), (512, 2048, 5632),
+       (512, 5632, 2048))
+LAYERS = 22
 
 
 def main() -> int:
@@ -45,6 +56,8 @@ def main() -> int:
         return 2
     from repro_torch import core as pt
     from repro_torch.kernels import codec_bytes as cb, quantize_blockwise as qb
+    from repro_torch.kernels import dequant_matmul as dqm
+    torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -99,11 +112,14 @@ def main() -> int:
             backend="torch", device="cuda")).recommend(budget)
         wl_big = pt.make_scaled_workload(schema, n_statements=10_000,
                                          insert_fraction=0.1, seed=0)
-        pt.DesignAdvisor(wl_big, pt.AdvisorOptions(
-            backend="torch", device="cuda", methods=FIVE,
-            compression_budget=128)).recommend(budget)
+        opts5 = pt.AdvisorOptions(backend="torch", device="cuda",
+                                  methods=FIVE, compression_budget=128)
+        plan_s = [pt.DesignAdvisor(wl_big, opts5).recommend(
+            budget).phase_seconds["plan"]]
     finally:
         cb.ldict_bytes = ldict
+    plan_s.append(pt.DesignAdvisor(wl_big, opts5).recommend(
+        budget).phase_seconds["plan"])
     ld = []
     for (shape, rpp), (cols, widths) in sorted(seen.items()):
         if not torch.equal(ldict(cols, widths, rpp),
@@ -142,9 +158,39 @@ def main() -> int:
                    "device_ms": device_ms(calls, count),
                    "multiply_ms": per_call_ms(multiplies, count),
                    "multiply_device_ms": device_ms(multiplies, count)})
+    # dequant-matmul at phase 5c's shapes, 22 layers' weights cycling
+    dm = []
+    for m, k, n in DMM:
+        args = []
+        for _ in range(LAYERS):
+            w = torch.randn((n, k), device="cuda", generator=gen) * 0.02
+            q, s = qb.quantize_blockwise_plain(w)        # along K
+            args.append((torch.randn((m, k), device="cuda", generator=gen),
+                         q.t().contiguous(), s.t().contiguous()))
+        dense = [(a, (q.float().reshape(-1, qb.DEFAULT_BLOCK, n)
+                      * s[:, None, :]).reshape(k, n)) for a, q, s in args]
+        got = dqm.dequant_matmul(*args[0])
+        if not torch.allclose(got, dqm.dequant_matmul_plain(*args[0]),
+                              rtol=1e-4, atol=1e-4):
+            raise SystemExit(f"dequant_matmul != plain at {(m, k, n)}")
+
+        def calls():
+            for x in args:
+                dqm.dequant_matmul(*x)
+
+        def matmuls():
+            for a, w in dense:
+                torch.matmul(a, w)
+        dm.append({"shape": [m, k, n], "layers": LAYERS,
+                   "ms": per_call_ms(calls, LAYERS),
+                   "device_ms": device_ms(calls, LAYERS),
+                   "matmul_ms": per_call_ms(matmuls, LAYERS),
+                   "matmul_device_ms": device_ms(matmuls, LAYERS)})
+        del args, dense
     print(json.dumps({"card": card, "ldict": ld,
                       "ldict_device_ms_sum": sum(r["device_ms"] for r in ld),
-                      "dequantize": dq}))
+                      "dequantize": dq, "dequant_matmul": dm,
+                      "plan_seconds_3b": plan_s}))
     return 0
 
 

@@ -6,7 +6,7 @@ serving and LM training.
 
 Phases (any failure exits non-zero; nothing is caught), run in the order
 1, 2, 3, 3b, 3c, 4, 5, 4b, 6, 4c:
-  1. print the card (nvidia-smi name, power limit) and build the ten
+  1. print the card (nvidia-smi name, power limit) and build the eleven
      hand-written kernels from the sources under src/repro_torch/kernels/
      (four libraries, one nvcc per source, all started together);
   2. hold each kernel against its plain PyTorch version on the card on
@@ -17,15 +17,19 @@ Phases (any failure exits non-zero; nothing is caught), run in the order
      output; single calls and groups, one of them longer than one launch
      takes) bit-equal; prob_within and fused_score
      within the stated tolerances, plus their two bitwise properties (prob
-     consistency, K-pad invariance); dequant-matmul within rtol and atol
-     1e-4 of the plain IEEE float32 product;
+     consistency, K-pad invariance); the planner walk bit-equal to its plain
+     version on a synthetic graph; dequant-matmul within rtol and atol 1e-4
+     of the plain IEEE float32 product on both of its kernels (M on both
+     sides of the decode threshold, N masked), bit-equal call to call;
   3. run DTAc `DesignAdvisor.recommend` on make_tpch_like(scale=100) --
      6,000,000 lineitem rows, TPC-H SF1's count -- with
      make_tpch_workload(insert_weight=0.1) at a budget of 25 % of the base
      size, on backend="torch", device="cuda", with the launch counters
      zeroed just before and read just after; run it once more, keeping
-     each kernel's largest inputs, and require the same result; then run
-     the port's numpy backend and compare the two;
+     each kernel's largest inputs, and require the same result; the
+     plan's one planner_walk launch bit-equal to planner_walk_plain on the
+     card (the per-record fused_score kernel and float64 decisions); then
+     run the port's numpy backend and compare the two;
   3b. the same for the large-workload path: make_scaled_workload(10,000
      statements) on the same data, all five codecs, compression_budget=128
      (workload compression, paper Section 7), budget 25 %;
@@ -33,8 +37,10 @@ Phases (any failure exits non-zero; nothing is caught), run in the order
      workload, torch/cuda against numpy;
   4. hold each advisor kernel against its plain version again on the
      largest inputs phases 3 and 3b gave it (GDICT, on no advisor path:
-     every column of the SF1 lineitem sample at f = 0.01), and time both
-     there; LDICT's device time over the second runs of 3 and 3b
+     every column of the SF1 lineitem sample at f = 0.01; fused_score, on
+     no advisor path since the walk: the largest record of 3b's plain
+     walk), and time both there; the walk on 3b's graph, per call and in
+     device time; LDICT's device time over the second runs of 3 and 3b
      (torch.profiler) beside their SampleCF seconds, and LDICT at each
      phase's largest input;
   5. LM serving at TinyLlama-1.1B's published size (22 layers, d_model
@@ -51,7 +57,10 @@ Phases (any failure exits non-zero; nothing is caught), run in the order
      before 5b and read after 5c;
   4b. time the quantize and dequant-matmul kernels at the shapes phase 5
      gave them, cycling through the 22 layers' weights (the main path
-     finds them cold in the L2 cache);
+     finds them cold in the L2 cache), per call and in device time, beside
+     float32 torch.matmul on the dequantized weight; dequant-matmul's two
+     bounds (float32: bytes or operations at 67 TFLOP/s; tensor cores: 2
+     M K N per bf16 pass at 989 TFLOP/s);
   6. LM training at TinyLlama-1.1B's published size and context (batch
      4, seq 2048), phase 5's model freed first: 6a the layout advisor's
      plan for the train job at an 80 GB and a 10 GB budget (the q8
@@ -113,7 +122,7 @@ N_SCALED = 10_000                # phase 3b: statements before compression
 COMPRESSION_BUDGET = 128         # phase 3b: representatives advised on
 # GDICT is priced on the host by the Adaptive Estimator in SampleCF (as in
 # the JAX package); only batched_bytes("GDICT", ...) reaches its kernel
-ADVISOR_KERNELS = CODECS + ("prob_within", "fused_score")
+ADVISOR_KERNELS = CODECS + ("prob_within", "planner_walk")
 LM_ARCH = "tinyllama-1.1b"       # phase 5: the dense model served
 LM_SLOTS, LM_MAX_LEN, LM_NEW = 4, 256, 16
 LM_REQUESTS = 8
@@ -153,6 +162,14 @@ KERNEL_FAMILIES = (
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_PARAM_ATOL = 1e-5
 TRAIN_FAR_SHARE = 1e-3
+FUSED_EXEMPT = ("fused_score is on no advisor path: the planner walks each "
+                "plan in one planner_walk launch; the per-record kernel "
+                "scores each record of planner_walk_plain, and is held "
+                "against its plain version in phases 2 and 4")
+# phase 2's synthetic walk graph: nodes, records, fractions
+WALK_SYNTH = (600, 450, 5)
+TC_PEAK = 989e12                 # H100 SXM dense bf16 tensor-core rate
+PREFILL_PASSES = 2               # dequant-matmul's prefill: a in hi + lo bf16
 GDICT_EXEMPT = ("gdict_bytes is on no advisor path: SampleCF prices GDICT "
                 "on the host with the Adaptive Estimator (App. B), in this "
                 "port as in the JAX package; its kernel is held against its "
@@ -180,12 +197,14 @@ def short_name(kernel: str) -> str:
 
 
 def bit_equal(a, b) -> bool:
-    """Same type, shape and bits (float32 / bfloat16 / integer tensors)."""
+    """Same type, shape and bits (float64 / float32 / bfloat16 / integer
+    tensors)."""
     import torch
     if a.dtype != b.dtype or a.shape != b.shape:
         return False
-    if a.dtype in (torch.float32, torch.bfloat16):
-        as_int = torch.int32 if a.dtype == torch.float32 else torch.int16
+    as_int = {torch.float64: torch.int64, torch.float32: torch.int32,
+              torch.bfloat16: torch.int16}.get(a.dtype)
+    if as_int is not None:
         a, b = a.contiguous().view(as_int), b.contiguous().view(as_int)
     return bool(torch.equal(a, b))
 
@@ -377,6 +396,57 @@ def main() -> int:
           f"{P_ATOL}, winners equal; prob consistency and K-pad invariance "
           f"bitwise")
 
+    # the planner walk on a synthetic graph: random targets (some twice),
+    # candidates of 1-6 children (shared, repeated, the target itself),
+    # bit-equal to its plain version, which scores each record with the
+    # fused_score kernel
+    def synth_walk(seed):
+        r = np.random.default_rng(seed)
+        n, nrec, nf = WALK_SYNTH
+        ncand = r.integers(0, 30, nrec)
+        nc_all = int(ncand.sum())
+        k = 6
+        nchild = r.integers(1, k + 1, nc_all)
+        child = np.full((nc_all, k), n)
+        for i in range(nc_all):
+            child[i, :nchild[i]] = r.integers(0, n, nchild[i])
+        off = np.concatenate([[0], np.cumsum(ncand)])
+        dmv = r.uniform(0.95, 1.05, nc_all)
+        sdv = r.uniform(0.0, 0.05, nc_all)
+        scost = np.zeros((n + 1, nf))
+        scost[:n] = r.uniform(1.0, 100.0, (n, nf))
+
+        def t(a, dt):
+            return torch.as_tensor(np.asarray(a, dtype=dt), device=dev)
+        return ps.WalkGraph(
+            t(r.integers(0, n, nrec), np.int32), t(r.integers(0, 2, nrec),
+                                                   np.int32),
+            t(off, np.int32), t(child, np.int32), t(nchild, np.int32),
+            t(dmv, np.float32), t(sdv * sdv + dmv * dmv, np.float32),
+            t(dmv * dmv, np.float32), t(scost, np.float64),
+            t(r.uniform(0.9, 1.1, (2, nf)), np.float64),
+            t(r.uniform(0.01, 0.3, (2, nf)), np.float64),
+            max_cands=int(ncand.max()))
+
+    def walk_equal(got, want):
+        return all(bit_equal(a, b) for a, b in zip(got, want))
+
+    wg = synth_walk(3)
+    got = ps.planner_walk(wg, e, q)
+    if not walk_equal(got, ps.planner_walk_plain(wg, e, q)):
+        fail("planner_walk differs from its plain version on the synthetic "
+             "graph")
+    kinds = {c: int(v) for c, v in (
+        ("skipped", (got.win == ps.WALK_SKIP).sum()),
+        ("fallback", (got.win == ps.WALK_FALLBACK).sum()),
+        ("lines 6-7", ((got.win >= 0) & (got.win < ps.WALK_LINE9)).sum()),
+        ("lines 8-9", (got.win >= ps.WALK_LINE9).sum()))}
+    if min(kinds.values()) == 0:
+        fail(f"the synthetic walk graph misses a decision kind: {kinds}")
+    print(f"planner kernels: planner_walk bit-equal to its plain version on "
+          f"a synthetic graph {WALK_SYNTH} (nodes, records, fractions): "
+          f"decisions {kinds}")
+
     # blockwise quantization, bit-equal to plain
     half = np.zeros((2, 128), np.float32)
     half[0, 0] = 127.0                   # scale 1: x / scale lands on .5
@@ -470,26 +540,34 @@ def main() -> int:
         qw, sw = qb.quantize_blockwise_plain(w.t().contiguous())
         return a, qw.t().contiguous(), sw.t().contiguous()
 
+    # M on both sides of the decode kernel's threshold (8), masked N
     n_dmm = 0
     worst = 0.0
-    for dm_m in (1, 3, 4, 512):
+    for dm_m in (1, 3, 4, 8, 9, 16, 17, 512):
         for dm_k in (128, 384, 2048, 5632):
-            for dm_n in ((200, 5632) if dm_m == 4 else (70,)):
+            for dm_n in ((200, 5632) if dm_m == 4 else (70,) if dm_m in (
+                    1, 3, 512) else (70, 200)):
                 a, qw, sw = dmm_inputs(dm_m, dm_k, dm_n,
                                        dm_m * dm_k + dm_n)
                 got = dqm.dequant_matmul(a, qw, sw)
+                again = dqm.dequant_matmul(a, qw, sw)
                 want = dqm.dequant_matmul_plain(a, qw, sw)
                 torch.cuda.synchronize()
                 if not torch.allclose(got, want, rtol=DMM_TOL, atol=DMM_TOL):
                     fail(f"dequant_matmul differs from plain at M={dm_m} "
                          f"K={dm_k} N={dm_n}")
+                if not bit_equal(got, again):
+                    fail(f"two dequant_matmul calls differ at M={dm_m} "
+                         f"K={dm_k} N={dm_n}")
                 worst = max(worst, float((got - want).abs().max()))
                 n_dmm += 1
-    del a, qw, sw, got, want, xt, qt, st, qt_p, st_p, dq_q, dq_s, buf, r
+    del a, qw, sw, got, again, want, xt, qt, st, qt_p, st_p, dq_q, dq_s, \
+        buf, r, wg
     print(f"LM kernels: quantize_blockwise bit-equal to plain on "
           f"{len(q_cases)} cases (round half to even); dequant_matmul within "
           f"rtol/atol {DMM_TOL} of plain on {n_dmm} cases (max abs err "
-          f"{worst:.3g})")
+          f"{worst:.3g}; decode kernel for M <= {dqm._decode_max_m}, "
+          f"tensor cores above), bit-equal from call to call")
     print(f"LM kernels: dequantize_blockwise bit-equal to plain on {n_dq} "
           "cases (float32 and bfloat16 output)")
 
@@ -536,8 +614,6 @@ def main() -> int:
                      for n in CODECS}
         originals[(ps, "prob_within")] = capture(
             ps, "prob_within", lambda mm, ss, ee: mm.numel())
-        originals[(ps, "fused_score")] = capture(
-            ps, "fused_score", lambda mm, *rest: mm.numel())
         try:
             return make()
         finally:
@@ -613,12 +689,51 @@ def main() -> int:
         for name in names:
             if counts[name] <= 0:
                 fail(f"kernel {name} was not launched in {label}")
+        # the planner: one walk for the run's one plan, no per-record launch
+        if counts["planner_walk"] != 1 or counts["fused_score"] != 0:
+            fail(f"{label}: {counts['planner_walk']} planner_walk and "
+                 f"{counts['fused_score']} fused_score launches, not 1 and 0")
+
+    # each measured run's walk: its packed graph, e, q and result
+    walks = {}
+    walk = ps.planner_walk
+
+    def walked(label, make):
+        def recording(g, e_, q_):
+            walks[label] = (g, e_, q_, walk(g, e_, q_))
+            return walks[label][3]
+        ps.planner_walk = recording
+        try:
+            return measured(label, make)
+        finally:
+            ps.planner_walk = walk
+
+    def check_walk(label):
+        """The run's walk bit-equal to planner_walk_plain on the card (each
+        record scored by the fused_score kernel); returns the plain walk's
+        seconds."""
+        g, e_, q_, got = walks[label]
+        t0 = time.perf_counter()
+        want = ps.planner_walk_plain(g, e_, q_)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        for name, a, b in zip(ps.WalkResult._fields, got, want):
+            if not bit_equal(a, b):
+                fail(f"{label}: the walk's {name} differs from "
+                     "planner_walk_plain on the card")
+        print(f"{label}: planner_walk (one launch, {g.tid.numel()} records, "
+              f"{g.dm.numel()} candidates, {g.scost.shape[0]} nodes with the "
+              f"pad, {g.scost.shape[1]} fractions) bit-equal to "
+              f"planner_walk_plain on the card ({secs:.3f} s)")
+        return secs
 
     opts = pt.AdvisorOptions(backend="torch", device="cuda")
-    rec_t, wall_t, launches3 = measured(
+    rec_t, wall_t, launches3 = walked(
         "phase 3", lambda: pt.DesignAdvisor(wl, opts).recommend(budget))
     need_launches("phase 3", launches3, ("ns_bytes", "ldict_bytes",
-                                         "prob_within", "fused_score"))
+                                         "prob_within", "planner_walk"))
+    check_walk("phase 3")
+    print(f"phase 3: {FUSED_EXEMPT}")
     t0 = time.perf_counter()
     adv_n = pt.DesignAdvisor(wl, pt.AdvisorOptions(backend="numpy"))
     rec_n = adv_n.recommend(budget)
@@ -639,10 +754,17 @@ def main() -> int:
           f"{time.perf_counter() - t0:.3f} s")
     opts5 = pt.AdvisorOptions(backend="torch", device="cuda", methods=FIVE,
                               compression_budget=COMPRESSION_BUDGET)
-    rec_t5, wall_t5, launches3b = measured(
+    rec_t5, wall_t5, launches3b = walked(
         "phase 3b", lambda: pt.DesignAdvisor(wl_big, opts5).recommend(budget))
     need_launches("phase 3b", launches3b,
                   [n for n in ADVISOR_KERNELS if n != "gdict_bytes"])
+    # the plain walk scores each record with the fused_score kernel:
+    # phase 4 times that kernel at the largest of them
+    orig_fused = capture(ps, "fused_score", lambda mm, *rest: mm.numel())
+    try:
+        walk_plain_s = check_walk("phase 3b")
+    finally:
+        ps.fused_score = orig_fused
     print(f"phase 3b: {GDICT_EXEMPT}")
     t0 = time.perf_counter()
     adv_n5 = pt.DesignAdvisor(wl_big, pt.AdvisorOptions(
@@ -885,10 +1007,50 @@ def main() -> int:
         print(f"kernel ldict_bytes: largest input of {label}: shape {shape} "
               f"rpp {rpp}: {ms:.4f} ms per call (bound {bytes_ms:.6g} ms by "
               "bytes)")
+    # the walk at 3b's graph: per call, device time, the plain walk's
+    # seconds from phase 3b; bound by the bytes it must move or the fold and
+    # probability work of the (record, fraction) pairs this run walked
+    g, e_w, q_w, res = walks["phase 3b"]
+    walk_ms = time_ms(lambda: ps.planner_walk(g, e_w, q_w), 5)
+    walk_dev = device_ms(lambda: ps.planner_walk(g, e_w, q_w), 5)
+    again = ps.planner_walk(g, e_w, q_w)
+    torch.cuda.synchronize()
+    if not all(bit_equal(a, b) for a, b in zip(again, res)):
+        fail("a second planner_walk on 3b's graph differs from the first")
+    per_cand = 6 * g.nchild.cpu().numpy().astype(np.int64) + 42
+    csum = np.concatenate([[0], np.cumsum(per_cand)])
+    off = g.cand_off.cpu().numpy()
+    active = (res.win != ps.WALK_SKIP).sum(dim=1).cpu().numpy()
+    w_ops = float(((csum[off[1:]] - csum[off[:-1]]) * active).sum())
+    w_bytes = nbytes(g.tid, g.kind, g.cand_off, g.child, g.nchild, g.dm, g.vt,
+                     g.mq, g.scost, g.samp_mean, g.samp_std, *res)
+    bytes_ms = w_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = w_ops / OPS_PER_S * 1e3
+    print(f"kernel planner_walk: 3b's graph ({g.tid.numel()} records, "
+          f"{g.dm.numel()} candidates, {g.scost.shape[0]} nodes, "
+          f"{g.scost.shape[1]} fractions; {int(active.sum())} (record, "
+          f"fraction) walks): {walk_ms:.4f} ms per call, device time "
+          f"{walk_dev:.4f} ms (plain {walk_plain_s * 1e3:.4f} ms, one run; "
+          f"bound {max(bytes_ms, ops_ms):.6g} ms by "
+          f"{'bytes' if bytes_ms >= ops_ms else 'operations'}; bytes "
+          f"{bytes_ms:.6g} ms, operations {ops_ms:.6g} ms), launches "
+          f"{launches['planner_walk']}, max_abs_err 0.0")
+    records.append({"name": "planner_walk", "route": "cuda",
+                    "source": planner_src,
+                    "replaces": "src/repro/kernels/planner_score.py:138",
+                    "launches": launches["planner_walk"], "max_abs_err": 0.0,
+                    "ms": walk_ms, "device_ms": walk_dev,
+                    "plain_ms": walk_plain_s * 1e3,
+                    "bound_ms": max(bytes_ms, ops_ms),
+                    "bound_by": "bytes" if bytes_ms >= ops_ms
+                    else "operations", "library_ms": None,
+                    "shape": [g.tid.numel(), g.dm.numel(),
+                              g.scost.shape[0], g.scost.shape[1]]})
     # phase 4's inputs must not count in phase 5's peak device memory
     captured.clear()
     ldict_inputs.clear()
-    del li_cols, srt, args, got, want, inputs
+    walks.clear()
+    del li_cols, srt, args, got, want, inputs, g, res, again
 
     # ---- phase 5: LM serving at TinyLlama-1.1B -------------------------
     from repro_torch.configs import get_config
@@ -1151,15 +1313,27 @@ def main() -> int:
             b_ms = (m_ * k_ * 4 + k_ * n_ + (k_ // 128) * n_ * 4
                     + m_ * n_ * 4) / HBM_BYTES_PER_S * 1e3
             o_ms = (2 * m_ * k_ * n_ + k_ * n_) / OPS_PER_S * 1e3
+            # the tensor-core figure: 2 M K N per bf16 pass at 989 TFLOP/s,
+            # times the prefill kernel's passes (a in hi + lo); the decode
+            # kernel runs on the CUDA cores, where the float32 bound holds
+            tc_ms = max(b_ms, 2 * m_ * k_ * n_ * PREFILL_PASSES / TC_PEAK
+                        * 1e3)
             dq = [(a, (q.float().reshape(-1, 128, q.shape[1])
                        * s[:, None, :]).reshape(q.shape)) for a, q, s in args]
             d_cases.append({
                 "shape": [m_, k_, n_], "path": label,
+                "kernel": ("decode" if m_ <= dqm._decode_max_m
+                           else "prefill"),
                 "ms": cycle_ms(dqm.dequant_matmul, args),
+                "device_ms": device_ms(lambda: [dqm.dequant_matmul(*x)
+                                                for x in args], 3) / len(args),
                 "plain_ms": cycle_ms(dqm.dequant_matmul_plain, args),
                 "float_matmul_ms": cycle_ms(torch.matmul, dq),
+                "float_matmul_device_ms": device_ms(
+                    lambda: [torch.matmul(*x) for x in dq], 3) / len(dq),
                 "bound_ms": max(b_ms, o_ms), "bytes_ms": b_ms, "ops_ms": o_ms,
                 "bound_by": "bytes" if b_ms >= o_ms else "operations",
+                "tc_bound_ms": tc_ms,
                 "max_abs_err": float((got - want).abs().max())})
             del dq
     for name, cases, head, src, tpu in (
@@ -1171,7 +1345,11 @@ def main() -> int:
              "src/repro/kernels/dequant_matmul.py:29")):
         for c in cases:
             yard = (f", float32 torch.matmul on the dequantized weight (the "
-                    f"float path q8 replaces) {c['float_matmul_ms']:.4f} ms"
+                    f"float path q8 replaces) {c['float_matmul_ms']:.4f} ms "
+                    f"(device {c['float_matmul_device_ms']:.4f}); "
+                    f"{c['kernel']} kernel, device time "
+                    f"{c['device_ms']:.4f} ms; tensor-core bound "
+                    f"{c['tc_bound_ms']:.6g} ms ({PREFILL_PASSES} bf16 passes)"
                     if "float_matmul_ms" in c else "")
             print(f"kernel {name}: shape {tuple(c['shape'])}"
                   f"{' ' + c['path'] if 'path' in c else ''}: "
@@ -1187,8 +1365,8 @@ def main() -> int:
                         "max_abs_err": max(c["max_abs_err"] for c in cases),
                         "ms": h["ms"], "plain_ms": h["plain_ms"],
                         "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
-                        "library_ms": None, "shape": h["shape"],
-                        "cases": cases})
+                        "library_ms": h.get("float_matmul_ms"),
+                        "shape": h["shape"], "cases": cases})
 
     # ---- phase 6: LM training at TinyLlama-1.1B -------------------------
     from repro_torch.data.pipeline import DataConfig, batch_at

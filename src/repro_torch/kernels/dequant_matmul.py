@@ -31,7 +31,7 @@ reduction runs in a fixed order, without atomics).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict
 
 import torch
 
@@ -42,9 +42,6 @@ LAUNCHES: Dict[str, int] = {"dequant_matmul": 0}
 
 _lib = None
 _decode_max_m = 0   # the source's kDecodeMaxM, read when the library loads
-# the decode route's split-K workspace, one per (device, stream), grown on
-# demand: calls on one stream run in order, so each may reuse it
-_workspaces: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def _load():
@@ -120,20 +117,15 @@ def dequant_matmul(a: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
     if a.data_ptr() % 16:       # the tensor-core kernel copies 16-byte rows
         a = a.clone()
     qw, scale = qw.contiguous(), scale.contiguous()
-    dev = a.get_device()
-    stream = torch._C._cuda_getCurrentRawStream(dev)
-    ws = 0
+    ws = None                   # the decode kernel's split-K partials
     if m <= _decode_max_m and k > block:
-        need = (k // block) * m * n
-        buf = _workspaces.get((dev, stream))
-        if buf is None or buf.numel() < need:
-            buf = _workspaces[(dev, stream)] = torch.empty(
-                need, dtype=torch.float32, device=a.device)
-        ws = buf.data_ptr()
+        ws = torch.empty((k // block, m, n), dtype=torch.float32,
+                         device=a.device)
     vec = n % 16 == 0 and qw.data_ptr() % 16 == 0
     err = lib.dequant_matmul_launch(
-        a.data_ptr(), qw.data_ptr(), scale.data_ptr(), out.data_ptr(), ws, m,
-        n, k, block, int(vec), stream)
+        a.data_ptr(), qw.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), m, n, k, block, int(vec),
+        torch._C._cuda_getCurrentRawStream(a.get_device()))
     if err != 0:
         msg = lib.dequant_matmul_error_string(err).decode()
         raise RuntimeError(f"dequant_matmul launch failed: {msg} "

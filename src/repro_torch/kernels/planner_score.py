@@ -247,6 +247,9 @@ def planner_walk_plain(g: WalkGraph, e: float, q: float) -> WalkResult:
         t, o, o2 = tids[r], offs[r], offs[r + 1]
         smean, sstd = g.samp_mean[kinds[r]], g.samp_std[kinds[r]]
         act = state[t] == NONE
+        if not bool(act.any()):               # resolved by an earlier record
+            win[r] = WALK_SKIP
+            continue
         has6 = has9 = none_f
         code = fi
         if o2 > o:
