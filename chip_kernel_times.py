@@ -9,7 +9,9 @@ that the advisor runs of `chip_smoke.py` phases 3 and 3b give it (DTAc
 `recommend` at TPC-H SF1 size on the TPC-H workload, then on 10,000
 statements with all five codecs and compression_budget 128), and the
 3b run's plan-phase seconds (`Recommendation.phase_seconds["plan"]`) are
-kept, with those of a second 3b run; the single dequantize call
+kept, with those of a second 3b run and the split of a third one's
+(`cProfile` around `DesignAdvisor.estimate_sizes`, cumulative seconds of
+the planner's parts in either checkout); the single dequantize call
 (`kernels.quantize_blockwise.dequantize_blockwise`, float32 output) at
 the q8 gradient wire's (32000, 2048) and (2048,) shapes, on as many
 tensors as one training step sends (2 and 45), beside the one-call
@@ -32,7 +34,9 @@ then one JSON object.
 """
 from __future__ import annotations
 
+import cProfile
 import json
+import pstats
 import subprocess
 import sys
 from pathlib import Path
@@ -42,6 +46,21 @@ sys.path.insert(0, str(ROOT / "src"))
 
 FIVE = ("NS", "GDICT", "LDICT", "PREFIX", "RLE")
 WIRE = (((32000, 2048), 2), ((2048,), 45))     # (shape, tensors a step)
+# the plan phase's parts, (file, function): target collection, graph build,
+# sampling costs, the greedy (the record loop and the per-record scoring
+# before the walk; packing, the walk and its read-back after), feasibility
+# and assembly
+PLAN_PARTS = (("advisor.py", "estimation_targets"),
+              ("planner_engine.py", "_build_graph"),
+              ("planner_engine.py", "_scost_matrix"),
+              ("planner_engine.py", "_run"),
+              ("planner_engine.py", "_torch_score"),
+              ("planner_score.py", "fused_score"),
+              ("planner_engine.py", "_walk"),
+              ("planner_engine.py", "_pack"),
+              ("planner_score.py", "planner_walk"),
+              ("planner_engine.py", "_feasible_vec"),
+              ("planner_engine.py", "_assemble_one"))
 # phase 5c's dequant-matmul shapes (M, K, N) and TinyLlama-1.1B's layers
 DMM = ((4, 2048, 5632), (4, 5632, 2048), (512, 2048, 5632),
        (512, 5632, 2048))
@@ -120,6 +139,27 @@ def main() -> int:
         cb.ldict_bytes = ldict
     plan_s.append(pt.DesignAdvisor(wl_big, opts5).recommend(
         budget).phase_seconds["plan"])
+    # a third run's plan phase, profiled
+    from repro_torch.core import advisor as adv_mod
+    prof = cProfile.Profile()
+    estimate = adv_mod.DesignAdvisor.estimate_sizes
+
+    def profiled(self, *a, **kw):
+        prof.enable()
+        try:
+            return estimate(self, *a, **kw)
+        finally:
+            prof.disable()
+    adv_mod.DesignAdvisor.estimate_sizes = profiled
+    try:
+        plan_split = {"plan_s_profiled": pt.DesignAdvisor(
+            wl_big, opts5).recommend(budget).phase_seconds["plan"]}
+    finally:
+        adv_mod.DesignAdvisor.estimate_sizes = estimate
+    for (path, _, name), (_, calls, _, cum, _) in \
+            pstats.Stats(prof).stats.items():
+        if (Path(path).name, name) in PLAN_PARTS:
+            plan_split[name] = {"calls": calls, "cumulative_s": cum}
     ld = []
     for (shape, rpp), (cols, widths) in sorted(seen.items()):
         if not torch.equal(ldict(cols, widths, rpp),
@@ -190,7 +230,8 @@ def main() -> int:
     print(json.dumps({"card": card, "ldict": ld,
                       "ldict_device_ms_sum": sum(r["device_ms"] for r in ld),
                       "dequantize": dq, "dequant_matmul": dm,
-                      "plan_seconds_3b": plan_s}))
+                      "plan_seconds_3b": plan_s,
+                      "plan_split_3b": plan_split}))
     return 0
 
 

@@ -356,12 +356,11 @@ struct Tile {
 
 // the tile the prefill kernel runs: 64 x 128, eight warps of 32 x 32, a
 // 4-stage ring (85 KB of shared memory, 127 registers: two blocks, 16 warps
-// an SM).  Timed at 512 x 2048 x 5632 and 512 x 5632 x 2048 against the
-// same tile in four warps of 32 x 64 (224 registers, 8 warps an SM) and
-// against 64 x 64, 64 x 256, 128 x 64 and 128 x 128 tiles, it was the
-// fastest at both (0.128 / 0.134 ms against 0.156-0.224): twice the
-// threads share each stage's conversion to bf16, and 16 warps an SM hide
-// its latency behind the MMAs.
+// an SM).  At 512 x 2048 x 5632 and 512 x 5632 x 2048 it was faster than
+// the same tile in four warps of 32 x 64 (224 registers, 8 warps an SM)
+// and than 64 x 64, 64 x 256, 128 x 64 and 128 x 128 tiles: the bf16
+// conversion of each stage, not the MMAs, bounds this kernel, and here
+// twice the threads share it and 16 warps an SM hide its latency.
 using PrefillTile = Tile<2, 4, 4, 4>;
 
 template <class T, bool VEC>
