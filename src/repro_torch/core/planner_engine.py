@@ -57,8 +57,9 @@ from .estimation_graph import (Deduction, F_GRID, Node, NodeKey, Plan, State,
                                FORCE_ALL_Q, _colext_deductions, _colset_ded,
                                memoized_sampling_cost)
 
-# state codes (match estimation_graph.State member order)
-_NONE, _DEDUCED, _SAMPLED, _EXACT = 0, 1, 2, 3
+# state codes (match estimation_graph.State member order and the walk's)
+_NONE, _DEDUCED, _SAMPLED, _EXACT = _ps.NONE, _ps.DEDUCED, _ps.SAMPLED, \
+    _ps.EXACT
 _STATE_OF = {_DEDUCED: State.DEDUCED, _SAMPLED: State.SAMPLED}
 
 

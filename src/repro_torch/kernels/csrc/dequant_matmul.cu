@@ -21,8 +21,9 @@
 //   and one float add (2^23 + (q + 128) - (2^23 + 128) is exact), not by
 //   the quarter-rate I2F conversion.  The row groups' partial sums meet in
 //   a fixed tree in shared memory, are scaled once, and land in a
-//   workspace (K / block, M, N) that the wrapper allocates; a second
-//   kernel sums it over the K blocks in order.  So K is split over the
+//   workspace (K / block, M, N) that the wrapper allocates (one per
+//   stream, reused by calls of its size); a second kernel sums it over
+//   the K blocks in order.  So K is split over the
 //   grid (352 blocks at both phase-5 decode shapes, two or more per SM on
 //   132 SMs) with a deterministic reduction and no floating-point
 //   atomics: two calls give the same bits.

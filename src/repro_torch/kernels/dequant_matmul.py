@@ -31,7 +31,7 @@ reduction runs in a fixed order, without atomics).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -42,6 +42,12 @@ LAUNCHES: Dict[str, int] = {"dequant_matmul": 0}
 
 _lib = None
 _decode_max_m = 0   # the source's kDecodeMaxM, read when the library loads
+# the decode route's split-K workspace per (device, stream), kept for the
+# next call of the same size: calls on one stream run in order, so each
+# may reuse it.  A call needs K / block * M * N floats (1.4 MB for
+# TinyLlama-1.1B's MLP at M = 4); allocating it each call costs ~5 us of
+# host time, of a call that is host-bound
+_workspaces: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def _load():
@@ -117,15 +123,20 @@ def dequant_matmul(a: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
     if a.data_ptr() % 16:       # the tensor-core kernel copies 16-byte rows
         a = a.clone()
     qw, scale = qw.contiguous(), scale.contiguous()
+    dev = a.get_device()
+    stream = torch._C._cuda_getCurrentRawStream(dev)
     ws = None                   # the decode kernel's split-K partials
     if m <= _decode_max_m and k > block:
-        ws = torch.empty((k // block, m, n), dtype=torch.float32,
-                         device=a.device)
+        need = (k // block) * m * n
+        ws = _workspaces.get((dev, stream))
+        if ws is None or ws.numel() != need:
+            ws = _workspaces[(dev, stream)] = torch.empty(
+                need, dtype=torch.float32, device=a.device)
     vec = n % 16 == 0 and qw.data_ptr() % 16 == 0
     err = lib.dequant_matmul_launch(
         a.data_ptr(), qw.data_ptr(), scale.data_ptr(), out.data_ptr(),
         None if ws is None else ws.data_ptr(), m, n, k, block, int(vec),
-        torch._C._cuda_getCurrentRawStream(a.get_device()))
+        stream)
     if err != 0:
         msg = lib.dequant_matmul_error_string(err).decode()
         raise RuntimeError(f"dequant_matmul launch failed: {msg} "
