@@ -166,8 +166,10 @@ FUSED_EXEMPT = ("fused_score is on no advisor path: the planner walks each "
                 "plan in one planner_walk launch; the per-record kernel "
                 "scores each record of planner_walk_plain, and is held "
                 "against its plain version in phases 2 and 4")
-# phase 2's synthetic walk graph: nodes, records, fractions
-WALK_SYNTH = (600, 450, 5)
+# phase 2's synthetic walk graphs: nodes, records, fractions, nodes used;
+# the second has more nodes than a block's shared memory holds, so the
+# walk keeps its node state in global memory
+WALK_SYNTH = ((600, 450, 5, 600), (12_000, 450, 5, 600))
 TC_PEAK = 989e12                 # H100 SXM dense bf16 tensor-core rate
 PREFILL_PASSES = 2               # dequant-matmul's prefill: a in hi + lo bf16
 GDICT_EXEMPT = ("gdict_bytes is on no advisor path: SampleCF prices GDICT "
@@ -396,20 +398,20 @@ def main() -> int:
           f"{P_ATOL}, winners equal; prob consistency and K-pad invariance "
           f"bitwise")
 
-    # the planner walk on a synthetic graph: random targets (some twice),
-    # candidates of 1-6 children (shared, repeated, the target itself),
-    # bit-equal to its plain version, which scores each record with the
-    # fused_score kernel
-    def synth_walk(seed):
+    # the planner walk on synthetic graphs: random targets (some twice),
+    # candidates of 1-6 children (shared, repeated, the target itself)
+    # over `used` of the n nodes, bit-equal to its plain version, which
+    # scores each record with the fused_score kernel; its node state in
+    # shared memory, then (12,000 nodes) in global memory
+    def synth_walk(seed, n, nrec, nf, used):
         r = np.random.default_rng(seed)
-        n, nrec, nf = WALK_SYNTH
         ncand = r.integers(0, 30, nrec)
         nc_all = int(ncand.sum())
         k = 6
         nchild = r.integers(1, k + 1, nc_all)
         child = np.full((nc_all, k), n)
         for i in range(nc_all):
-            child[i, :nchild[i]] = r.integers(0, n, nchild[i])
+            child[i, :nchild[i]] = r.integers(0, used, nchild[i])
         off = np.concatenate([[0], np.cumsum(ncand)])
         dmv = r.uniform(0.95, 1.05, nc_all)
         sdv = r.uniform(0.0, 0.05, nc_all)
@@ -418,9 +420,12 @@ def main() -> int:
 
         def t(a, dt):
             return torch.as_tensor(np.asarray(a, dtype=dt), device=dev)
+        tids = r.integers(0, used, nrec)
+        if used < n:     # the used nodes spread over all n
+            ids = np.append(np.sort(r.choice(n, used, replace=False)), n)
+            tids, child = ids[tids], ids[np.where(child == n, used, child)]
         return ps.WalkGraph(
-            t(r.integers(0, n, nrec), np.int32), t(r.integers(0, 2, nrec),
-                                                   np.int32),
+            t(tids, np.int32), t(r.integers(0, 2, nrec), np.int32),
             t(off, np.int32), t(child, np.int32), t(nchild, np.int32),
             t(dmv, np.float32), t(sdv * sdv + dmv * dmv, np.float32),
             t(dmv * dmv, np.float32), t(scost, np.float64),
@@ -431,21 +436,28 @@ def main() -> int:
     def walk_equal(got, want):
         return all(bit_equal(a, b) for a, b in zip(got, want))
 
-    wg = synth_walk(3)
-    got = ps.planner_walk(wg, e, q)
-    if not walk_equal(got, ps.planner_walk_plain(wg, e, q)):
-        fail("planner_walk differs from its plain version on the synthetic "
-             "graph")
-    kinds = {c: int(v) for c, v in (
-        ("skipped", (got.win == ps.WALK_SKIP).sum()),
-        ("fallback", (got.win == ps.WALK_FALLBACK).sum()),
-        ("lines 6-7", ((got.win >= 0) & (got.win < ps.WALK_LINE9)).sum()),
-        ("lines 8-9", (got.win >= ps.WALK_LINE9).sum()))}
-    if min(kinds.values()) == 0:
-        fail(f"the synthetic walk graph misses a decision kind: {kinds}")
-    print(f"planner kernels: planner_walk bit-equal to its plain version on "
-          f"a synthetic graph {WALK_SYNTH} (nodes, records, fractions): "
-          f"decisions {kinds}")
+    for shape, in_smem in zip(WALK_SYNTH, (True, False)):
+        wg = synth_walk(3, *shape)
+        layout = "shared" if ps.walk_in_shared_memory(wg) else "global"
+        if layout != ("shared" if in_smem else "global"):
+            fail(f"planner_walk keeps a graph of {shape[0]} nodes in "
+                 f"{layout} memory")
+        got = ps.planner_walk(wg, e, q)
+        if not walk_equal(got, ps.planner_walk_plain(wg, e, q)):
+            fail(f"planner_walk differs from its plain version on the "
+                 f"synthetic graph {shape}")
+        kinds = {c: int(v) for c, v in (
+            ("skipped", (got.win == ps.WALK_SKIP).sum()),
+            ("fallback", (got.win == ps.WALK_FALLBACK).sum()),
+            ("lines 6-7", ((got.win >= 0) & (got.win < ps.WALK_LINE9)).sum()),
+            ("lines 8-9", (got.win >= ps.WALK_LINE9).sum()))}
+        if min(kinds.values()) == 0:
+            fail(f"the synthetic walk graph {shape} misses a decision kind: "
+                 f"{kinds}")
+        print(f"planner kernels: planner_walk bit-equal to its plain version "
+              f"on a synthetic graph {shape} (nodes, records, fractions, "
+              f"nodes used), node state in {layout} memory: decisions "
+              f"{kinds}")
 
     # blockwise quantization, bit-equal to plain
     half = np.zeros((2, 128), np.float32)
@@ -1314,16 +1326,17 @@ def main() -> int:
                     + m_ * n_ * 4) / HBM_BYTES_PER_S * 1e3
             o_ms = (2 * m_ * k_ * n_ + k_ * n_) / OPS_PER_S * 1e3
             # the tensor-core figure: 2 M K N per bf16 pass at 989 TFLOP/s,
-            # times the prefill kernel's passes (a in hi + lo); the decode
-            # kernel runs on the CUDA cores, where the float32 bound holds
-            tc_ms = max(b_ms, 2 * m_ * k_ * n_ * PREFILL_PASSES / TC_PEAK
-                        * 1e3)
+            # times the prefill kernel's passes (a in hi + lo).  Each
+            # kernel's bound takes the rate of the arithmetic it runs: the
+            # decode kernel's float32 FMAs on the CUDA cores, the prefill
+            # kernel's bf16 products on the tensor cores
+            tc_o_ms = 2 * m_ * k_ * n_ * PREFILL_PASSES / TC_PEAK * 1e3
+            kern = "decode" if m_ <= dqm._decode_max_m else "prefill"
+            own_o_ms = o_ms if kern == "decode" else tc_o_ms
             dq = [(a, (q.float().reshape(-1, 128, q.shape[1])
                        * s[:, None, :]).reshape(q.shape)) for a, q, s in args]
             d_cases.append({
-                "shape": [m_, k_, n_], "path": label,
-                "kernel": ("decode" if m_ <= dqm._decode_max_m
-                           else "prefill"),
+                "shape": [m_, k_, n_], "path": label, "kernel": kern,
                 "ms": cycle_ms(dqm.dequant_matmul, args),
                 "device_ms": device_ms(lambda: [dqm.dequant_matmul(*x)
                                                 for x in args], 3) / len(args),
@@ -1331,9 +1344,11 @@ def main() -> int:
                 "float_matmul_ms": cycle_ms(torch.matmul, dq),
                 "float_matmul_device_ms": device_ms(
                     lambda: [torch.matmul(*x) for x in dq], 3) / len(dq),
-                "bound_ms": max(b_ms, o_ms), "bytes_ms": b_ms, "ops_ms": o_ms,
-                "bound_by": "bytes" if b_ms >= o_ms else "operations",
-                "tc_bound_ms": tc_ms,
+                "bound_ms": max(b_ms, own_o_ms), "bytes_ms": b_ms,
+                "ops_ms": own_o_ms,
+                "bound_by": "bytes" if b_ms >= own_o_ms else "operations",
+                "f32_bound_ms": max(b_ms, o_ms),
+                "tc_bound_ms": max(b_ms, tc_o_ms),
                 "max_abs_err": float((got - want).abs().max())})
             del dq
     for name, cases, head, src, tpu in (
@@ -1348,8 +1363,12 @@ def main() -> int:
                     f"float path q8 replaces) {c['float_matmul_ms']:.4f} ms "
                     f"(device {c['float_matmul_device_ms']:.4f}); "
                     f"{c['kernel']} kernel, device time "
-                    f"{c['device_ms']:.4f} ms; tensor-core bound "
-                    f"{c['tc_bound_ms']:.6g} ms ({PREFILL_PASSES} bf16 passes)"
+                    f"{c['device_ms']:.4f} ms; float32 bound "
+                    f"{c['f32_bound_ms']:.6g} ms, tensor-core bound "
+                    f"{c['tc_bound_ms']:.6g} ms ({PREFILL_PASSES} bf16 "
+                    f"passes); the bound above is the "
+                    f"{'float32' if c['kernel'] == 'decode' else 'tensor-core'}"
+                    f" one, the arithmetic this kernel runs"
                     if "float_matmul_ms" in c else "")
             print(f"kernel {name}: shape {tuple(c['shape'])}"
                   f"{' ' + c['path'] if 'path' in c else ''}: "

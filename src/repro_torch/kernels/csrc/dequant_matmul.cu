@@ -21,12 +21,11 @@
 //   and one float add (2^23 + (q + 128) - (2^23 + 128) is exact), not by
 //   the quarter-rate I2F conversion.  The row groups' partial sums meet in
 //   a fixed tree in shared memory, are scaled once, and land in a
-//   workspace (K / block, M, N) that the wrapper allocates (one per
-//   stream, reused by calls of its size); a second kernel sums it over
-//   the K blocks in order.  So K is split over the
-//   grid (352 blocks at both phase-5 decode shapes, two or more per SM on
-//   132 SMs) with a deterministic reduction and no floating-point
-//   atomics: two calls give the same bits.
+//   workspace (K / block, M, N) that the wrapper allocates with the output
+//   in one call; a second kernel sums it over the K blocks in order.  So K
+//   is split over the grid (352 blocks at both phase-5 decode shapes, two
+//   or more per SM on 132 SMs) with a deterministic reduction and no
+//   floating-point atomics: two calls give the same bits.
 //
 // * Prefill (larger M), on the tensor cores.  2 M N K operations (11.8
 //   GFLOP at 512 x 2048 x 5632: 0.176 ms at the 67 TFLOP/s float32 rate,
@@ -38,17 +37,16 @@
 //   well inside 1e-4 at the main path's widths; a third term is not
 //   needed.  Each hi * q and lo * q product is exact in the MMA's float32
 //   accumulator (8-bit by 8-bit significands).  A block owns a 64 x 128
-//   output tile, 8 warps of 32 x 32 (PrefillTile below).  a (float32) and
-//   qw (int8) tiles 32 deep stream into shared memory through a 4-stage
-//   cp.async ring;
-//   each stage is converted once per block into double-buffered bf16
-//   tiles (a: hi and lo; q: exact), one barrier a step, read by ldmatrix
-//   (.trans for the row-major q tile) into
-//   mma.sync.m16n8k16 bf16 products, two passes (hi, lo) into one float32
-//   accumulator per 128-deep K block, which is folded into the output
-//   accumulator times that block's scale row.  Rows of a beyond M and
-//   columns beyond N are masked (zero-filled tiles, masked stores), so any
-//   M and N work.
+//   output tile, 8 warps of 32 x 32 (the tile constants below).  a
+//   (float32) and qw (int8) tiles 32 deep stream into shared memory
+//   through a 4-stage cp.async ring; each stage is converted once per
+//   block into double-buffered bf16 tiles (a: hi and lo; q: exact), one
+//   barrier a step, read by ldmatrix (.trans for the row-major q tile)
+//   into mma.sync.m16n8k16 bf16 products, two passes (hi, lo) into one
+//   float32 accumulator per 128-deep K block, which is folded into the
+//   output accumulator times that block's scale row.  Rows of a beyond M
+//   and columns beyond N are masked (zero-filled tiles, masked stores), so
+//   any M and N work.
 //
 // K must be a multiple of `block`, and `block` a multiple of 32 (the
 // wrapper checks both).  Where N is not a multiple of 16, or qw's address
@@ -331,79 +329,70 @@ __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// A prefill tile: WM x WNW warps, each 32 rows x WN 8-column MMA tiles, so
-// a block owns BM = 32 WM rows and BN = 8 WN WNW columns; STAGES cp.async
-// stages of the a (float32) and qw (int8) tiles, then two buffers of the
-// bf16 tiles (a hi, a lo, q) that the MMAs read, in shared memory
-template <int WM, int WNW, int WN, int STAGES>
-struct Tile {
-  static constexpr int kWarpsN = WNW;
-  static constexpr int kWN = WN;
-  static constexpr int kStages = STAGES;
-  static constexpr int kThreads = 32 * WM * WNW;
-  static constexpr int kBM = 32 * WM;
-  static constexpr int kBN = 8 * WN * WNW;
-  static constexpr int kAStage = kBM * kBK * 4;
-  static constexpr int kQStage = kBK * kBN;
-  static constexpr int kATile = kBM * (kBK + kPadA) * 2;
-  static constexpr int kQTile = kBK * (kBN + kPadQ) * 2;
-  static constexpr int kA = 0;
-  static constexpr int kQ = kA + STAGES * kAStage;
-  static constexpr int kHi = kQ + STAGES * kQStage;
-  static constexpr int kLo = kHi + 2 * kATile;
-  static constexpr int kQb = kLo + 2 * kATile;
-  static constexpr int kBytes = kQb + 2 * kQTile;
-};
+// The prefill tile: a block owns kBM x kBN = 64 x 128 outputs, eight warps
+// (2 x 4) of 32 x 32 (four 8-column MMA tiles a warp); a 4-stage cp.async
+// ring of the a (float32) and qw (int8) tiles, then two buffers of the
+// bf16 tiles (a hi, a lo, q) that the MMAs read: 85 KB of shared memory,
+// 127 registers, two blocks and 16 warps an SM.  At 512 x 2048 x 5632 and
+// 512 x 5632 x 2048 it was faster than the same tile in four warps of
+// 32 x 64 (224 registers, 8 warps an SM) and than 64 x 64, 64 x 256,
+// 128 x 64 and 128 x 128 tiles: the bf16 conversion of each stage, not
+// the MMAs, bounds this kernel, and here twice the threads share it and
+// 16 warps an SM hide its latency.
+constexpr int kWarpsM = 2;
+constexpr int kWarpsN = 4;
+constexpr int kWN = 4;                            // MMA tiles a warp
+constexpr int kStages = 4;
+constexpr int kPreThreads = 32 * kWarpsM * kWarpsN;
+constexpr int kBM = 32 * kWarpsM;
+constexpr int kBN = 8 * kWN * kWarpsN;
+constexpr int kAStage = kBM * kBK * 4;
+constexpr int kQStage = kBK * kBN;
+constexpr int kATile = kBM * (kBK + kPadA) * 2;
+constexpr int kQTile = kBK * (kBN + kPadQ) * 2;
+constexpr int kOffA = 0;                          // shared memory layout
+constexpr int kOffQ = kOffA + kStages * kAStage;
+constexpr int kOffHi = kOffQ + kStages * kQStage;
+constexpr int kOffLo = kOffHi + 2 * kATile;
+constexpr int kOffQb = kOffLo + 2 * kATile;
+constexpr int kPreBytes = kOffQb + 2 * kQTile;
 
-// the tile the prefill kernel runs: 64 x 128, eight warps of 32 x 32, a
-// 4-stage ring (85 KB of shared memory, 127 registers: two blocks, 16 warps
-// an SM).  At 512 x 2048 x 5632 and 512 x 5632 x 2048 it was faster than
-// the same tile in four warps of 32 x 64 (224 registers, 8 warps an SM)
-// and than 64 x 64, 64 x 256, 128 x 64 and 128 x 128 tiles: the bf16
-// conversion of each stage, not the MMAs, bounds this kernel, and here
-// twice the threads share it and 16 warps an SM hide its latency.
-using PrefillTile = Tile<2, 4, 4, 4>;
-
-template <class T, bool VEC>
-__global__ void __launch_bounds__(T::kThreads)
+template <bool VEC>
+__global__ void __launch_bounds__(kPreThreads)
 dmm_prefill_kernel(const float* __restrict__ a, const int8_t* __restrict__ qw,
                    const float* __restrict__ scale, float* __restrict__ out,
                    int m, int n, int k, int block) {
-  constexpr int BM = T::kBM;
-  constexpr int BN = T::kBN;
-  constexpr int WN = T::kWN;
-  constexpr int NT = T::kThreads;
-  constexpr int kStages = T::kStages;
   extern __shared__ __align__(16) unsigned char smem[];
-  auto a_st = reinterpret_cast<float (*)[BM][kBK]>(smem + T::kA);
-  auto q_st = reinterpret_cast<int8_t (*)[kBK][BN]>(smem + T::kQ);
-  auto a_hi = reinterpret_cast<__nv_bfloat16 (*)[BM][kBK + kPadA]>(
-      smem + T::kHi);
-  auto a_lo = reinterpret_cast<__nv_bfloat16 (*)[BM][kBK + kPadA]>(
-      smem + T::kLo);
-  auto q_bf = reinterpret_cast<__nv_bfloat16 (*)[kBK][BN + kPadQ]>(
-      smem + T::kQb);
+  auto a_st = reinterpret_cast<float (*)[kBM][kBK]>(smem + kOffA);
+  auto q_st = reinterpret_cast<int8_t (*)[kBK][kBN]>(smem + kOffQ);
+  auto a_hi = reinterpret_cast<__nv_bfloat16 (*)[kBM][kBK + kPadA]>(
+      smem + kOffHi);
+  auto a_lo = reinterpret_cast<__nv_bfloat16 (*)[kBM][kBK + kPadA]>(
+      smem + kOffLo);
+  auto q_bf = reinterpret_cast<__nv_bfloat16 (*)[kBK][kBN + kPadQ]>(
+      smem + kOffQb);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int wm = warp / T::kWarpsN;    // this warp's 32 rows of the tile
-  const int wn = warp % T::kWarpsN;    // and its 8 WN columns
+  const int wm = warp / kWarpsN;    // this warp's 32 rows of the tile
+  const int wn = warp % kWarpsN;    // and its 32 columns
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int ncol = n0 + wn * WN * 8;   // this warp's first column
-  constexpr int kAChunks = BM * kBK / 4;       // 16-byte chunks of a tile
-  constexpr int kQChunksRow = BN / 16;
+  const int m0 = blockIdx.y * kBM;
+  const int n0 = blockIdx.x * kBN;
+  const int ncol = n0 + wn * kWN * 8;   // this warp's first column
+  constexpr int kAChunks = kBM * kBK / 4;       // 16-byte chunks of a tile
+  constexpr int kQChunksRow = kBN / 16;
   constexpr int kQChunks = kBK * kQChunksRow;
+  static_assert(kAChunks % kPreThreads == 0 && kQChunks % kPreThreads == 0,
+                "every thread copies and converts whole chunks");
 
   auto load_stage = [&](int st, int k0) {
-    // a: BM rows x 32 floats, 16-byte chunks; rows beyond M zero-filled
+    // a: kBM rows x 32 floats, 16-byte chunks; rows beyond M zero-filled
 #pragma unroll
-    for (int i = 0; i < (kAChunks + NT - 1) / NT; ++i) {
-      const int c = tid + i * NT;
-      if (kAChunks % NT != 0 && c >= kAChunks) break;
+    for (int i = 0; i < kAChunks / kPreThreads; ++i) {
+      const int c = tid + i * kPreThreads;
       const int row = c >> 3;
       const int kc = (c & 7) * 4;
       const int gr = m0 + row;
@@ -411,11 +400,10 @@ dmm_prefill_kernel(const float* __restrict__ a, const int8_t* __restrict__ qw,
                  a + static_cast<long long>(min(gr, m - 1)) * k + k0 + kc,
                  gr < m ? 16 : 0);
     }
-    if (VEC) {   // qw: 32 rows x BN int8, 16-byte chunks
+    if (VEC) {   // qw: 32 rows x kBN int8, 16-byte chunks
 #pragma unroll
-      for (int i = 0; i < (kQChunks + NT - 1) / NT; ++i) {
-        const int c = tid + i * NT;
-        if (kQChunks % NT != 0 && c >= kQChunks) break;
+      for (int i = 0; i < kQChunks / kPreThreads; ++i) {
+        const int c = tid + i * kPreThreads;
         const int kr = c / kQChunksRow;
         const int cc = (c % kQChunksRow) * 16;
         const int gc = n0 + cc;
@@ -425,9 +413,9 @@ dmm_prefill_kernel(const float* __restrict__ a, const int8_t* __restrict__ qw,
                    gc < n ? 16 : 0);
       }
     } else {
-      for (int c = tid; c < kBK * BN; c += NT) {
-        const int kr = c / BN;
-        const int cc = c % BN;
+      for (int c = tid; c < kBK * kBN; c += kPreThreads) {
+        const int kr = c / kBN;
+        const int cc = c % kBN;
         const int gc = n0 + cc;
         q_st[st][kr][cc] =
             gc < n ? qw[static_cast<long long>(k0 + kr) * n + gc] : 0;
@@ -439,9 +427,8 @@ dmm_prefill_kernel(const float* __restrict__ a, const int8_t* __restrict__ qw,
   auto convert_stage = [&](int st, int b) {
     // a: each float4 -> 4 hi + 4 lo bf16
 #pragma unroll
-    for (int i = 0; i < (kAChunks + NT - 1) / NT; ++i) {
-      const int c = tid + i * NT;
-      if (kAChunks % NT != 0 && c >= kAChunks) break;
+    for (int i = 0; i < kAChunks / kPreThreads; ++i) {
+      const int c = tid + i * kPreThreads;
       const int row = c >> 3;
       const int kc = (c & 7) * 4;
       const float4 v = *reinterpret_cast<const float4*>(&a_st[st][row][kc]);
@@ -460,9 +447,8 @@ dmm_prefill_kernel(const float* __restrict__ a, const int8_t* __restrict__ qw,
     }
     // q: each 16 int8 -> 16 exact bf16
 #pragma unroll
-    for (int i = 0; i < (kQChunks + NT - 1) / NT; ++i) {
-      const int c = tid + i * NT;
-      if (kQChunks % NT != 0 && c >= kQChunks) break;
+    for (int i = 0; i < kQChunks / kPreThreads; ++i) {
+      const int c = tid + i * kPreThreads;
       const int kr = c / kQChunksRow;
       const int cc = (c % kQChunksRow) * 16;
       const uint4 w = *reinterpret_cast<const uint4*>(&q_st[st][kr][cc]);
@@ -476,18 +462,18 @@ dmm_prefill_kernel(const float* __restrict__ a, const int8_t* __restrict__ qw,
     }
   };
 
-  float acc[2][WN][4];   // output accumulator
-  float blk[2][WN][4];   // this K block's sum of a * q
+  float acc[2][kWN][4];   // output accumulator
+  float blk[2][kWN][4];   // this K block's sum of a * q
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < WN; ++j)
+    for (int j = 0; j < kWN; ++j)
 #pragma unroll
       for (int r = 0; r < 4; ++r) acc[i][j][r] = blk[i][j][r] = 0.0f;
 
   const int nks = k / kBK;
   const int ks_per_block = block / kBK;
-  float sc[WN][2];   // the current K block's scales of this thread's columns
+  float sc[kWN][2];   // the current K block's scales of this thread's columns
 
   // Pipeline: stages ks + 1 .. ks + kStages - 1 are in flight while step ks
   // multiplies; step ks issues its MMAs, then converts stage ks + 1 into
@@ -506,7 +492,7 @@ dmm_prefill_kernel(const float* __restrict__ a, const int8_t* __restrict__ qw,
     if (ks % ks_per_block == 0) {
       const float* srow = scale + static_cast<long long>(ks / ks_per_block) * n;
 #pragma unroll
-      for (int j = 0; j < WN; ++j) {
+      for (int j = 0; j < kWN; ++j) {
         const int c = ncol + j * 8 + 2 * t;
         sc[j][0] = c < n ? __ldg(srow + c) : 0.0f;
         sc[j][1] = c + 1 < n ? __ldg(srow + c + 1) : 0.0f;
@@ -531,20 +517,20 @@ dmm_prefill_kernel(const float* __restrict__ a, const int8_t* __restrict__ qw,
         ldmatrix_x4(ah[i], &a_hi[b][row][col]);
         ldmatrix_x4(al[i], &a_lo[b][row][col]);
       }
-      uint32_t bq[WN / 2][4];
+      uint32_t bq[kWN / 2][4];
 #pragma unroll
-      for (int jp = 0; jp < WN / 2; ++jp)
+      for (int jp = 0; jp < kWN / 2; ++jp)
         ldmatrix_x4_trans(
             bq[jp], &q_bf[b][kk + (lane & 7) + ((lane >> 3) & 1) * 8]
-                         [wn * WN * 8 + jp * 16 + (lane >> 4) * 8]);
-      // the hi pass over every accumulator, then the lo pass: 2 WN
+                         [wn * kWN * 8 + jp * 16 + (lane >> 4) * 8]);
+      // the hi pass over every accumulator, then the lo pass: 2 kWN
       // independent products between the two into one accumulator
 #pragma unroll
       for (int pass = 0; pass < 2; ++pass)
 #pragma unroll
         for (int i = 0; i < 2; ++i)
 #pragma unroll
-          for (int jp = 0; jp < WN / 2; ++jp) {
+          for (int jp = 0; jp < kWN / 2; ++jp) {
             const uint32_t* av = pass ? al[i] : ah[i];
             mma_bf16(blk[i][2 * jp], av, bq[jp][0], bq[jp][1]);
             mma_bf16(blk[i][2 * jp + 1], av, bq[jp][2], bq[jp][3]);
@@ -555,7 +541,7 @@ dmm_prefill_kernel(const float* __restrict__ a, const int8_t* __restrict__ qw,
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int j = 0; j < WN; ++j) {
+        for (int j = 0; j < kWN; ++j) {
           acc[i][j][0] += blk[i][j][0] * sc[j][0];
           acc[i][j][1] += blk[i][j][1] * sc[j][1];
           acc[i][j][2] += blk[i][j][2] * sc[j][0];
@@ -576,7 +562,7 @@ dmm_prefill_kernel(const float* __restrict__ a, const int8_t* __restrict__ qw,
       if (row >= m) continue;
       float* orow = out + static_cast<long long>(row) * n;
 #pragma unroll
-      for (int j = 0; j < WN; ++j) {
+      for (int j = 0; j < kWN; ++j) {
         const int c = ncol + j * 8 + 2 * t;
         const float v0 = acc[i][j][2 * h];
         const float v1 = acc[i][j][2 * h + 1];
@@ -613,32 +599,22 @@ void launch_decode_m(const float* a, const int8_t* qw, const float* scale,
     launch_decode<8, VEC>(a, qw, scale, ws, m, n, k, block, stream);
 }
 
-template <class T, bool VEC>
+template <bool VEC>
 cudaError_t launch_prefill(const float* a, const int8_t* qw,
                            const float* scale, float* out, int m, int n,
                            int k, int block, cudaStream_t stream) {
   static bool attr_set = false;   // above 48 KB only once allowed
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        dmm_prefill_kernel<T, VEC>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, T::kBytes);
+        dmm_prefill_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kPreBytes);
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
-  const dim3 grid((n + T::kBN - 1) / T::kBN, (m + T::kBM - 1) / T::kBM);
-  dmm_prefill_kernel<T, VEC><<<grid, T::kThreads, T::kBytes, stream>>>(
+  const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
+  dmm_prefill_kernel<VEC><<<grid, kPreThreads, kPreBytes, stream>>>(
       a, qw, scale, out, m, n, k, block);
   return cudaSuccess;
-}
-
-template <class T>
-cudaError_t launch_prefill_vec(bool vec, const float* a, const int8_t* qw,
-                               const float* scale, float* out, int m, int n,
-                               int k, int block, cudaStream_t stream) {
-  return vec ? launch_prefill<T, true>(a, qw, scale, out, m, n, k, block,
-                                       stream)
-             : launch_prefill<T, false>(a, qw, scale, out, m, n, k, block,
-                                        stream);
 }
 
 }  // namespace
@@ -679,8 +655,9 @@ int dequant_matmul_launch(const void* a, const void* qw, const void* scale,
     }
     return static_cast<int>(cudaGetLastError());
   }
-  const cudaError_t e = launch_prefill_vec<PrefillTile>(
-      vec != 0, a_, q_, s_, o_, m, n, k, block, st);
+  const cudaError_t e =
+      vec ? launch_prefill<true>(a_, q_, s_, o_, m, n, k, block, st)
+          : launch_prefill<false>(a_, q_, s_, o_, m, n, k, block, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

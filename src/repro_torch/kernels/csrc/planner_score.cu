@@ -335,6 +335,22 @@ size_t walk_smem_bytes(bool in_smem, int n1, int max_cands) {
   return b;
 }
 
+// the most shared memory a block may opt into: the walk keeps its node
+// state there where walk_smem_bytes(true, ..) fits in it
+cudaError_t walk_optin(size_t* bytes) {
+  static int optin = 0;
+  if (optin == 0) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e != cudaSuccess) return e;
+  }
+  *bytes = static_cast<size_t>(optin);
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -378,20 +394,12 @@ int planner_walk_launch(const void* tid, const void* kind,
                         void* total, int nrec, int k, int n1, int nf,
                         int max_cands, float lo, float hi, double q,
                         void* stream) {
-  static int optin = 0;   // the most shared memory a block may opt into
-  if (optin == 0) {
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&optin,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const bool in_smem =
-      walk_smem_bytes(true, n1, max_cands) <= static_cast<size_t>(optin);
+  size_t optin = 0;
+  const cudaError_t e0 = walk_optin(&optin);
+  if (e0 != cudaSuccess) return static_cast<int>(e0);
+  const bool in_smem = walk_smem_bytes(true, n1, max_cands) <= optin;
   const size_t bytes = walk_smem_bytes(in_smem, n1, max_cands);
-  if (bytes > static_cast<size_t>(optin))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (bytes > optin) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = in_smem ? planner_walk_kernel<true>
                         : planner_walk_kernel<false>;
   if (bytes > 48 * 1024) {
@@ -412,6 +420,15 @@ int planner_walk_launch(const void* tid, const void* kind,
       static_cast<int*>(win), static_cast<double*>(total), nrec, k, n1, nf,
       max_cands, lo, hi, q);
   return static_cast<int>(cudaGetLastError());
+}
+
+// 1 where planner_walk_launch keeps the node state of a graph of n1 nodes
+// in shared memory, 0 where in global memory; a CUDA error as -code
+int planner_walk_in_smem(int n1, int max_cands) {
+  size_t optin = 0;
+  const cudaError_t e = walk_optin(&optin);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  return walk_smem_bytes(true, n1, max_cands) <= optin ? 1 : 0;
 }
 
 }  // extern "C"

@@ -26,12 +26,14 @@ dimension has to divide a tile.  Both kernels multiply each K block's
 product by its scale row once, sum(a * q) * s, which rounds differently
 from the plain a @ (q * s); the result is held within rtol and atol 1e-4
 of the plain version, and two calls give the same bits (the split-K
-reduction runs in a fixed order, without atomics).
+reduction runs in a fixed order, without atomics).  On the decode route
+the result is a view of the head of a buffer that also holds the split-K
+partials, 1 + K / block times its size.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict
 
 import torch
 
@@ -42,12 +44,6 @@ LAUNCHES: Dict[str, int] = {"dequant_matmul": 0}
 
 _lib = None
 _decode_max_m = 0   # the source's kDecodeMaxM, read when the library loads
-# the decode route's split-K workspace per (device, stream), kept for the
-# next call of the same size: calls on one stream run in order, so each
-# may reuse it.  A call needs K / block * M * N floats (1.4 MB for
-# TinyLlama-1.1B's MLP at M = 4); allocating it each call costs ~5 us of
-# host time, of a call that is host-bound
-_workspaces: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def _load():
@@ -114,29 +110,24 @@ def dequant_matmul(a: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
             or k // block > 65535:
         raise ValueError(f"shapes {tuple(a.shape)} @ {tuple(qw.shape)} "
                          "outside the kernel's sizes")
-    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     if m == 0 or n == 0:
-        return out
+        return torch.empty((m, n), dtype=torch.float32, device=a.device)
     lib = _load()
     if a.dtype != torch.float32 or not a.is_contiguous():
         a = a.to(torch.float32).contiguous()
     if a.data_ptr() % 16:       # the tensor-core kernel copies 16-byte rows
         a = a.clone()
     qw, scale = qw.contiguous(), scale.contiguous()
-    dev = a.get_device()
-    stream = torch._C._cuda_getCurrentRawStream(dev)
-    ws = None                   # the decode kernel's split-K partials
-    if m <= _decode_max_m and k > block:
-        need = (k // block) * m * n
-        ws = _workspaces.get((dev, stream))
-        if ws is None or ws.numel() != need:
-            ws = _workspaces[(dev, stream)] = torch.empty(
-                need, dtype=torch.float32, device=a.device)
+    # the decode kernel's split-K partials, (K / block, M, N), follow the
+    # output in one allocation (`out` is a view of its head)
+    nws = (k // block) * m * n if m <= _decode_max_m and k > block else 0
+    buf = torch.empty(m * n + nws, dtype=torch.float32, device=a.device)
+    out = buf[:m * n].view(m, n)
     vec = n % 16 == 0 and qw.data_ptr() % 16 == 0
     err = lib.dequant_matmul_launch(
         a.data_ptr(), qw.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        None if ws is None else ws.data_ptr(), m, n, k, block, int(vec),
-        stream)
+        buf.data_ptr() + 4 * m * n if nws else None, m, n, k, block,
+        int(vec), torch._C._cuda_getCurrentRawStream(a.get_device()))
     if err != 0:
         msg = lib.dequant_matmul_error_string(err).decode()
         raise RuntimeError(f"dequant_matmul launch failed: {msg} "

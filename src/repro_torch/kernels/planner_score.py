@@ -22,6 +22,9 @@
   unknown children's cost is a float64 sum in child order, the lines 8-9
   winner is the first argmin of that sum, `total` adds float64 costs in
   record order, and SAMPLED nodes hold the float64 SampleCF RV.
+  `walk_in_shared_memory(g)` says which of the kernel's two layouts a
+  graph takes: the node state in shared memory, or (beyond ~9,000 nodes
+  on an H100) in global memory.
 
 Each wrapper takes its route from the device of the tensors it is given:
 on CUDA tensors it launches the hand-written kernels in
@@ -83,6 +86,8 @@ def _load():
         lib.planner_walk_launch.argtypes = [vp] * 16 + [ci] * 5 + [
             cf, cf, ctypes.c_double, vp]
         lib.planner_walk_launch.restype = ci
+        lib.planner_walk_in_smem.argtypes = [ci, ci]
+        lib.planner_walk_in_smem.restype = ci
         lib.planner_error_string.argtypes = [ci]
         lib.planner_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -381,6 +386,18 @@ def fused_score(m: torch.Tensor, s: torch.Tensor, dm: torch.Tensor,
     _launch_check(err, "fused_score")
     LAUNCHES["fused_score"] += 1
     return out[0], out[1], out[2], win[0], win[1]
+
+
+def walk_in_shared_memory(g: WalkGraph) -> bool:
+    """Whether `planner_walk` keeps the node state of the CUDA graph `g` in
+    shared memory (where it fits in what a block may opt into, ~9,000
+    nodes on an H100), else in global memory."""
+    if not g.scost.is_cuda:
+        raise ValueError("walk_in_shared_memory takes a graph on the card")
+    r = _load().planner_walk_in_smem(g.scost.shape[0], max(g.max_cands, 1))
+    if r < 0:
+        _launch_check(-r, "planner_walk_in_smem")
+    return r == 1
 
 
 def planner_walk(g: WalkGraph, e: float, q: float) -> WalkResult:

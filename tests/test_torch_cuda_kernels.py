@@ -11,7 +11,8 @@ Tolerances: the five codec kernels bit-equal (integers); `prob_within` and
 IEEE float ops; only CUDA's erff and PyTorch's erf may differ by an ulp);
 winners equal; prob consistency bitwise; the planner walk bit-equal to
 its plain version (which scores each record with the fused_score kernel)
-on hand-built graphs and the TPC-H scale=1 graph, launched once per plan.  Blockwise quantization bit-equal
+on hand-built graphs, random graphs in both of its state layouts and the
+TPC-H scale=1 graph, launched once per plan.  Blockwise quantization bit-equal
 (q and scales: the same IEEE divisions and round-half-even);
 dequant-matmul within rtol and atol 1e-4 of the plain version's IEEE
 float32 product (another summation order; the tensor-core route's a in
@@ -33,7 +34,7 @@ from repro_torch.kernels import planner_score as ps
 from repro_torch.kernels import quantize_blockwise as qb
 from torch_port_util import (TRAP_A_E, WALK_SUMS, WALK_SUMS_WIN, WALK_TIES,
                              WALK_TIES_WIN, WALK_TRAP_A, trap_a_score,
-                             walk_graph)
+                             walk_graph, walk_synthetic)
 
 E = 0.1
 
@@ -189,6 +190,22 @@ def test_cuda_planner_walk_equals_plain_on_hand_graphs(cuda, name):
     else:
         assert int(got.win[1, 0]) == (ps.WALK_FALLBACK if name.endswith(
             "above") else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, in_smem", [(600, True), (12_000, False)])
+def test_cuda_planner_walk_equals_plain_in_both_state_layouts(cuda, n,
+                                                              in_smem):
+    """The walk's node state in shared memory (600 nodes) and in global
+    memory (12,000 nodes, beyond what a block may opt into), each
+    bit-equal to the plain walk on the card; 600 of the nodes are used."""
+    g = walk_graph(walk_synthetic(n, 450, 5, 3, used=600), cuda)
+    assert ps.walk_in_shared_memory(g) is in_smem
+    before = launch_counts()
+    got = ps.planner_walk(g, 0.5, 0.9)
+    assert launch_counts()["planner_walk"] == before["planner_walk"] + 1
+    walk_bit_equal(got, ps.planner_walk_plain(g, 0.5, 0.9))
+    assert int((got.win >= ps.WALK_LINE9).sum()) > 0
 
 
 @pytest.mark.cuda

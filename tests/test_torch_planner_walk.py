@@ -21,7 +21,8 @@ with `fused_score` and takes the greedy's decisions in float64.  Here:
   child shared by two candidates, a child sampled by an earlier record.
   The reference takes each record's cm / cs / p from `fused_score` and
   everything else from scalar float64 NumPy; the walk must equal it
-  exactly.
+  exactly, on these graphs and on two random ones (600 and 12,000
+  nodes).
 
 test_torch_cuda_kernels.py holds the walk kernel bit-equal to this plain
 version on the card.
@@ -43,7 +44,8 @@ from repro_torch.core.planner_engine import PlannerEngine
 from repro_torch.kernels import launch_counts, planner_score as ps
 from torch_port_util import (BIG, MID, TRAP_A_E, WALK_SUMS, WALK_SUMS_WIN,
                              WALK_TIES, WALK_TIES_WIN, WALK_TRAP_A,
-                             port_schema, trap_a_score, walk_graph)
+                             port_schema, trap_a_score, walk_graph,
+                             walk_synthetic)
 
 E, Q = 0.5, 0.9
 CPU = torch.device("cpu")
@@ -308,11 +310,26 @@ def assert_walk_equals(got, want):
         np.testing.assert_array_equal(a.numpy(), b, err_msg=name)
 
 
-@pytest.mark.parametrize("spec", [WALK_SUMS, WALK_TIES],
-                         ids=["float64-sums", "ties"])
+# random graphs (walk_synthetic's arguments): 600 nodes, and 12,000 nodes
+# of which 300 are used (on the card the walk keeps this graph's node
+# state in global memory)
+WALK_SYNTH = {"synthetic": (600, 120, 5, 3),
+              "synthetic-wide": (12_000, 120, 5, 3, 300)}
+
+
+@pytest.mark.parametrize("spec", [WALK_SUMS, WALK_TIES, *WALK_SYNTH],
+                         ids=["float64-sums", "ties", *WALK_SYNTH])
 def test_walk_equals_float64_reference(spec):
+    if isinstance(spec, str):
+        spec = walk_synthetic(*WALK_SYNTH[spec])
     got = ps.planner_walk(walk_graph(spec), E, Q)
     assert_walk_equals(got, reference_walk(spec, E, Q))
+    if spec["n"] > 100:      # a random graph reaches every decision kind
+        w = got.win
+        assert min(int((w == ps.WALK_SKIP).sum()),
+                   int((w == ps.WALK_FALLBACK).sum()),
+                   int(((w >= 0) & (w < ps.WALK_LINE9)).sum()),
+                   int((w >= ps.WALK_LINE9).sum())) > 0
 
 
 def test_walk_float64_sums_and_order():

@@ -115,6 +115,32 @@ def walk_graph(spec: dict, device="cpu"):
         max_cands=max([0] + [len(cands) for _, _, cands in recs]))
 
 
+def walk_synthetic(n: int, nrec: int, nf: int, seed: int,
+                   used: int = None) -> dict:
+    """A random `walk_graph` spec: nrec records (targets drawn with
+    repeats) over `used` of the n nodes (all by default), 0-29 candidates
+    each of 1-6 children (shared, repeated, the target itself), random
+    deduction factors, costs and SampleCF RVs."""
+    r = np.random.default_rng(seed)
+    used = n if used is None else used
+    ids = np.arange(n) if used == n else np.sort(r.choice(n, used,
+                                                          replace=False))
+    recs = []
+    for _ in range(nrec):
+        cands = []
+        for _ in range(int(r.integers(0, 30))):
+            dmv, sdv = r.uniform(0.95, 1.05), r.uniform(0.0, 0.05)
+            ch = ids[r.integers(0, used, int(r.integers(1, 7)))]
+            cands.append(([int(x) for x in ch],
+                          (dmv, sdv * sdv + dmv * dmv, dmv * dmv)))
+        recs.append((int(ids[r.integers(0, used)]), int(r.integers(0, 2)),
+                     cands))
+    return {"n": n, "nf": nf, "recs": recs,
+            "scost": r.uniform(1.0, 100.0, (n, nf)),
+            "samp_mean": r.uniform(0.9, 1.1, (2, nf)),
+            "samp_std": r.uniform(0.01, 0.3, (2, nf))}
+
+
 # factors of a deduction whose error RV has mean 1 and std 0.01
 DED = (1.0, 1.0 + 0.01 ** 2, 1.0)
 BIG = 2.0 ** 53
