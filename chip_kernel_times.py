@@ -1,19 +1,32 @@
 #!/usr/bin/env python3
-"""Time the LDICT, dequantize and dequant-matmul kernels and the planner
-of this checkout on one GPU.
+"""Time the LDICT, PREFIX, quantize, dequantize and dequant-matmul
+kernels, the q8 gradient wire and the planner of this checkout on one
+GPU.
 
     python3 chip_kernel_times.py
 
-LDICT (`kernels.codec_bytes.ldict_bytes`) is timed on every distinct input
-that the advisor runs of `chip_smoke.py` phases 3 and 3b give it (DTAc
-`recommend` at TPC-H SF1 size on the TPC-H workload, then on 10,000
-statements with all five codecs and compression_budget 128), and the
-3b run's plan-phase seconds (`Recommendation.phase_seconds["plan"]`) are
-kept, with those of a second 3b run and the split of a third one's
-(`cProfile` around `DesignAdvisor.estimate_sizes`, cumulative seconds of
-the planner's parts in either checkout); the single dequantize call
-(`kernels.quantize_blockwise.dequantize_blockwise`, float32 output) at
-the q8 gradient wire's (32000, 2048) and (2048,) shapes, on as many
+LDICT and PREFIX (`kernels.codec_bytes.ldict_bytes` / `prefix_bytes`)
+are timed on every distinct input that the advisor runs of
+`chip_smoke.py` phases 3 and 3b give them (DTAc `recommend` at TPC-H SF1
+size on the TPC-H workload, then on 10,000 statements with all five
+codecs and compression_budget 128), PREFIX also at (801, 60000) int64,
+rpp 273, values below 2^32 from seed 0; the 3b run's plan-phase seconds
+(`Recommendation.phase_seconds["plan"]`) are kept, with those of a second
+3b run and the split of a third one's (`cProfile` around
+`DesignAdvisor.estimate_sizes`, cumulative seconds of the planner's parts
+in either checkout); the single quantize call
+(`kernels.quantize_blockwise.quantize_blockwise`, float32 input) at
+(32000, 2048), (5632, 2048) and (2048,), on as many tensors as one
+training step sends (2, 22 and 45), and at (32000, 2048) with 3/4 of the
+rows zero and at (2048, 32000) with a tenth of the values subnormal
+(where an IEEE division per element takes its slow path); the q8
+gradient wire
+(`train.step.q8_wire`) over one step's worth of TinyLlama-1.1B-shaped
+random float32 gradients from seed 0 (201 tensors), and those tensors'
+quantize as 201 single calls (and, where the checkout has it, as one
+`quantize_blockwise_group` launch per wire bucket); the single dequantize
+call (`kernels.quantize_blockwise.dequantize_blockwise`, float32 output)
+at the q8 gradient wire's (32000, 2048) and (2048,) shapes, on as many
 tensors as one training step sends (2 and 45), beside the one-call
 broadcast multiply; dequant-matmul (`kernels.dequant_matmul`) at the
 four shapes of `chip_smoke.py` phase 5c (TinyLlama-1.1B's MLP at M = 4
@@ -27,10 +40,11 @@ ways:
 * device time: the same calls enqueued behind `torch.cuda._sleep`, so no
   host gap falls between the events; the least of 3 runs.
 
-It calls only entry points that the port's earlier checkouts have too, so
-two checkouts compare by copying this file into each and running both on
-one card in turns (a, b, b, a).  It prints the card's name and power limit,
-then one JSON object.
+It calls only entry points that the port's earlier checkouts have too
+(the grouped quantize only where present), so two checkouts compare by
+copying this file into each and running both on one card in turns (a,
+b, b, a).  It prints the card's name and power limit, then one JSON
+object.
 """
 from __future__ import annotations
 
@@ -46,6 +60,11 @@ sys.path.insert(0, str(ROOT / "src"))
 
 FIVE = ("NS", "GDICT", "LDICT", "PREFIX", "RLE")
 WIRE = (((32000, 2048), 2), ((2048,), 45))     # (shape, tensors a step)
+# (shape, tensors, data): normal values; 3/4 of the rows zero (an
+# embedding gradient's shape); a tenth of the values subnormal
+QUANTIZE = (((32000, 2048), 2, "normal"), ((5632, 2048), 22, "normal"),
+            ((2048,), 45, "normal"), ((32000, 2048), 2, "zero rows"),
+            ((2048, 32000), 2, "subnormals"))
 # the plan phase's parts, (file, function): target collection, graph build,
 # sampling costs, the greedy (the record loop and the per-record scoring
 # before the walk; packing, the walk and its read-back after), feasibility
@@ -114,17 +133,22 @@ def main() -> int:
             runs.append(a.elapsed_time(b) / (reps * calls))
         return min(runs)
 
-    # LDICT: the distinct (shape, rpp) inputs of the two advisor runs
+    # LDICT and PREFIX: the distinct (shape, rpp) inputs of the two advisor
+    # runs
     schema = pt.make_tpch_like(scale=100, z=0.0, seed=0)
     budget = 0.25 * sum(t.nrows * (sum(c.width for c in t.columns) + 4)
                         for t in schema.tables.values())
-    seen = {}
-    ldict = cb.ldict_bytes
+    seen = {"ldict_bytes": {}, "prefix_bytes": {}}
+    ldict, prefix = cb.ldict_bytes, cb.prefix_bytes
 
-    def capture(cols, widths, rpp):
-        seen.setdefault((tuple(cols.shape), int(rpp)), (cols, widths))
-        return ldict(cols, widths, rpp)
-    cb.ldict_bytes = capture
+    def capturing(name, fn):
+        def capture(cols, widths, rpp):
+            seen[name].setdefault((tuple(cols.shape), int(rpp)),
+                                  (cols, widths))
+            return fn(cols, widths, rpp)
+        return capture
+    cb.ldict_bytes = capturing("ldict_bytes", ldict)
+    cb.prefix_bytes = capturing("prefix_bytes", prefix)
     try:
         wl = pt.make_tpch_workload(schema, insert_weight=0.1)
         pt.DesignAdvisor(wl, pt.AdvisorOptions(
@@ -136,7 +160,7 @@ def main() -> int:
         plan_s = [pt.DesignAdvisor(wl_big, opts5).recommend(
             budget).phase_seconds["plan"]]
     finally:
-        cb.ldict_bytes = ldict
+        cb.ldict_bytes, cb.prefix_bytes = ldict, prefix
     plan_s.append(pt.DesignAdvisor(wl_big, opts5).recommend(
         budget).phase_seconds["plan"])
     # a third run's plan phase, profiled
@@ -160,19 +184,95 @@ def main() -> int:
             pstats.Stats(prof).stats.items():
         if (Path(path).name, name) in PLAN_PARTS:
             plan_split[name] = {"calls": calls, "cumulative_s": cum}
-    ld = []
-    for (shape, rpp), (cols, widths) in sorted(seen.items()):
-        if not torch.equal(ldict(cols, widths, rpp),
-                           cb.ldict_bytes_plain(cols, widths, rpp)):
-            raise SystemExit(f"ldict_bytes != plain on {shape}, rpp {rpp}")
-        ld.append({"shape": list(shape), "rpp": rpp,
-                   "pages": shape[0] * -(-shape[1] // rpp),
-                   "ms": per_call_ms(lambda: ldict(cols, widths, rpp), 1, 20),
-                   "device_ms": device_ms(lambda: ldict(cols, widths, rpp),
-                                          1)})
+    rng = np.random.default_rng(0)
+    seen["prefix_bytes"][((801, 60000), 273)] = (
+        torch.as_tensor(rng.integers(0, 1 << 32, size=(801, 60000)),
+                        device="cuda"),
+        torch.as_tensor(rng.integers(1, 9, size=801), device="cuda"))
+    paged = {}
+    for name, fn in (("ldict_bytes", ldict), ("prefix_bytes", prefix)):
+        plain = getattr(cb, f"{name}_plain")
+        paged[name] = []
+        for (shape, rpp), (cols, widths) in sorted(seen[name].items()):
+            if not torch.equal(fn(cols, widths, rpp),
+                               plain(cols, widths, rpp)):
+                raise SystemExit(f"{name} != plain on {shape}, rpp {rpp}")
+            paged[name].append({
+                "shape": list(shape), "rpp": rpp,
+                "pages": shape[0] * -(-shape[1] // rpp),
+                "ms": per_call_ms(lambda: fn(cols, widths, rpp), 1, 20),
+                "device_ms": device_ms(lambda: fn(cols, widths, rpp), 1)})
+    del seen
+    ld = paged["ldict_bytes"]
+
+    # quantize at the LM shapes, random float32 tensors from seed 0
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    qz = []
+    for shape, count, data in QUANTIZE:
+        xs = [torch.randn(shape, device="cuda", generator=gen) * 1e-3
+              for _ in range(count)]
+        for x in xs:
+            if data == "zero rows":
+                x[torch.rand(shape[0], device="cuda", generator=gen)
+                  < 0.75] = 0.0
+            elif data == "subnormals":
+                tiny = torch.rand(shape, device="cuda", generator=gen) < 0.1
+                x[tiny] *= 1e-35
+        for x in xs[:2]:
+            q, s = qb.quantize_blockwise(x)
+            q_p, s_p = qb.quantize_blockwise_plain(x)
+            if not (torch.equal(q, q_p) and torch.equal(s, s_p)):
+                raise SystemExit(f"quantize_blockwise != plain at {shape}")
+
+        def calls():
+            for x in xs:
+                qb.quantize_blockwise(x)
+        qz.append({"shape": list(shape), "tensors": count, "data": data,
+                   "ms": per_call_ms(calls, count),
+                   "device_ms": device_ms(calls, count)})
+        del xs
+
+    # the q8 wire over one step of TinyLlama-1.1B-shaped gradients
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as MD
+    from repro_torch.train import step as train_step
+    lm = get_config("tinyllama-1.1b")
+    params = MD.init_params(torch.Generator("cuda").manual_seed(0), lm,
+                            device="cuda")
+    shapes = [(n, tuple(p.shape)) for n, p in params.named_parameters()]
+    del params
+    grads = {n: torch.randn(sh, device="cuda", generator=gen) * 1e-3
+             for n, sh in shapes}
+    wire_x = [g for g in grads.values() if train_step.on_wire(g)]
+    buckets = train_step.wire_buckets(wire_x)
+
+    def wire():
+        train_step.q8_wire(grads)
+
+    def singles():
+        for x in wire_x:
+            qb.quantize_blockwise(x)
+    wire_rec = {"tensors": len(wire_x), "buckets": len(buckets),
+                "q8_wire_ms": per_call_ms(wire, 1, 3),
+                "q8_wire_device_ms": device_ms(wire, 1, 3),
+                "quantize_single_calls_ms": per_call_ms(singles, 1, 3),
+                "quantize_single_calls_device_ms": device_ms(singles, 1, 3)}
+    if hasattr(qb, "quantize_blockwise_group"):
+        items = [[(wire_x[i], torch.empty(wire_x[i].shape, dtype=torch.int8,
+                                          device="cuda"),
+                   torch.empty((*wire_x[i].shape[:-1],
+                                -(-wire_x[i].shape[-1] // qb.DEFAULT_BLOCK)),
+                               device="cuda")) for i in b] for b in buckets]
+
+        def grouped():
+            for b in items:
+                qb.quantize_blockwise_group(b)
+        wire_rec["quantize_grouped_ms"] = per_call_ms(grouped, 1, 3)
+        wire_rec["quantize_grouped_device_ms"] = device_ms(grouped, 1, 3)
+        del items
+    del grads, wire_x
 
     # dequantize at the wire's shapes, random q8 tensors from seed 0
-    gen = torch.Generator(device="cuda").manual_seed(0)
     dq = []
     for shape, count in WIRE:
         nb = -(-shape[-1] // qb.DEFAULT_BLOCK)
@@ -227,8 +327,12 @@ def main() -> int:
                    "matmul_ms": per_call_ms(matmuls, LAYERS),
                    "matmul_device_ms": device_ms(matmuls, LAYERS)})
         del args, dense
+    px = paged["prefix_bytes"]
     print(json.dumps({"card": card, "ldict": ld,
                       "ldict_device_ms_sum": sum(r["device_ms"] for r in ld),
+                      "prefix": px,
+                      "prefix_device_ms_sum": sum(r["device_ms"] for r in px),
+                      "quantize": qz, "q8_wire": wire_rec,
                       "dequantize": dq, "dequant_matmul": dm,
                       "plan_seconds_3b": plan_s,
                       "plan_split_3b": plan_split}))

@@ -11,11 +11,14 @@ Phases (any failure exits non-zero; nothing is caught), run in the order
      (four libraries, one nvcc per source, all started together);
   2. hold each kernel against its plain PyTorch version on the card on
      edge cases: the five codec kernels (NS, GDICT, LDICT, PREFIX, RLE),
-     and LDICT once more on page sizes around its warp and block paths,
-     the int64 extremes and grids of more than 65,535 pages, blockwise
-     quantization and blockwise dequantization (float32 and bfloat16
-     output; single calls and groups, one of them longer than one launch
-     takes) bit-equal; prob_within and fused_score
+     and LDICT and PREFIX once more on page sizes around their warp and
+     block paths, the int64 extremes, pages that mix signs and grids of
+     more than 65,535 pages, blockwise quantization (single calls and
+     groups: mixed ranks and types, unaligned views, other blocks, .5
+     boundaries, a group longer than one launch takes) and blockwise
+     dequantization (float32 and bfloat16 output; single calls and
+     groups, one of them longer than one launch takes) bit-equal;
+     prob_within and fused_score
      within the stated tolerances, plus their two bitwise properties (prob
      consistency, K-pad invariance); the planner walk bit-equal to its plain
      version on a synthetic graph; dequant-matmul within rtol and atol 1e-4
@@ -41,8 +44,9 @@ Phases (any failure exits non-zero; nothing is caught), run in the order
      no advisor path since the walk: the largest record of 3b's plain
      walk), and time both there; the walk on 3b's graph, per call and in
      device time; LDICT's device time over the second runs of 3 and 3b
-     (torch.profiler) beside their SampleCF seconds, and LDICT at each
-     phase's largest input;
+     (torch.profiler) beside their SampleCF seconds, LDICT at each
+     phase's largest input, and PREFIX per call and in device time at
+     its largest input;
   5. LM serving at TinyLlama-1.1B's published size (22 layers, d_model
      2048, float32 weights from the port's init_params, seed 0): 5a the
      layout advisor's plan for the serve job at an 80 GB and a 1.5 GB
@@ -57,7 +61,8 @@ Phases (any failure exits non-zero; nothing is caught), run in the order
      before 5b and read after 5c;
   4b. time the quantize and dequant-matmul kernels at the shapes phase 5
      gave them, cycling through the 22 layers' weights (the main path
-     finds them cold in the L2 cache), per call and in device time, beside
+     finds them cold in the L2 cache), per call and in device time (both
+     kernels), beside
      float32 torch.matmul on the dequantized weight; dequant-matmul's two
      bounds (float32: bytes or operations at 67 TFLOP/s; tensor cores: 2
      M K N per bf16 pass at 989 TFLOP/s);
@@ -66,24 +71,28 @@ Phases (any failure exits non-zero; nothing is caught), run in the order
      plan for the train job at an 80 GB and a 10 GB budget (the q8
      gradient wire at both, q8 Adam moments at 10 GB required); 6b
      Trainer for 6 steps at 80 GB (float32 moments): losses finite, the
-     first near ln(32000), the last below it, exactly one quantize launch
-     per gradient tensor and one grouped dequantize launch per wire
-     bucket per step, step time,
+     first near ln(32000), the last below it, exactly one grouped
+     quantize launch and one grouped dequantize launch per wire bucket
+     per step, step time,
      tokens/s, share of the bf16 peak, peak device memory, then one more
      step traced with torch.profiler (device busy share, device time by
-     kernel family); 6c the same for 4 steps at 10 GB (q8 moments: two
-     more launches of each kernel per parameter per step); 6d both
-     kernels, and the grouped dequantize on the wire's buckets, bit-equal
-     to their plain versions on the gradients of 6b's next step (from the
-     step's own loss-and-gradient function) and 6c's moments; 6e a two-layer model at width 2048 trained for 2 steps in
+     kernel family); 6c the same for 4 steps at 10 GB (q8 moments: one
+     more grouped launch of each kernel per parameter per step); 6d both
+     kernels, and the grouped quantize and dequantize on the wire's
+     buckets and on 6c's moment pairs, bit-equal to their plain versions
+     on the gradients of 6b's next step (from the step's own
+     loss-and-gradient function) and 6c's moments; 6e a two-layer model
+     at width 2048 trained for 2 steps in
      float32 on the card and on the CPU, held to the CPU tests'
      tolerances;
-  4c. time the dequantize kernel (and quantize) at every distinct shape
+  4c. time the dequantize and quantize kernels at every distinct shape
      of phase 6's wire, cycling through its tensors (per call and in
      device time), beside the plain version and the one PyTorch call that
-     computes the same function; the grouped launch over all 201 wire
+     computes the same function; the grouped dequantize over all 201 wire
      tensors beside their summed bytes bound, 201 single calls and 201
-     one-call multiplies; the single call's host microseconds by part.
+     one-call multiplies; the wire's whole step of quantize (one grouped
+     launch per bucket) beside its summed bytes bound and 201 single
+     calls; the single dequantize call's host microseconds by part.
 
 Prints the per-phase wall times, launch counts, kernel times beside their
 bounds, peak device memory, a JSON line of kernel records, the card line,
@@ -115,9 +124,12 @@ CODECS = ("ns_bytes", "gdict_bytes", "ldict_bytes", "prefix_bytes",
 ORD_IND = ("ns_bytes", "gdict_bytes")     # wrappers that take no rpp
 # phase 2: LDICT page sizes around a warp's 32 lanes, its warp / block
 # split (512 rows), the main path's 273 and the largest (1638), and grids
-# of more than 65,535 pages
+# of more than 65,535 pages; PREFIX's the same, up to 4096
 LDICT_RPPS = (1, 31, 32, 33, 273, 512, 513, 1638)
 LDICT_GRIDS = (((1, 65535), 1), ((240, 75000), 273), ((41, 1638 * 1600), 1638))
+PREFIX_RPPS = (1, 31, 32, 33, 273, 512, 513, 4096)
+PREFIX_GRIDS = (((1, 65535), 1), ((65535, 3), 3), ((240, 75000), 273),
+                ((801, 60000), 273))
 N_SCALED = 10_000                # phase 3b: statements before compression
 COMPRESSION_BUDGET = 128         # phase 3b: representatives advised on
 # GDICT is priced on the host by the Adaptive Estimator in SampleCF (as in
@@ -151,8 +163,10 @@ FIRST_LOSS = (10.0, 11.5)
 # first match wins)
 KERNEL_FAMILIES = (
     ("matrix products", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
+    # "dequantize_group_kernel" contains "quantize_group_kernel": the
+    # dequantize family must come first
     ("q8 dequantize (ours)", ("dequantize_group_kernel",)),
-    ("q8 quantize (ours)", ("quantize_kernel",)),
+    ("q8 quantize (ours)", ("quantize_group_kernel", "quantize_kernel")),
     ("softmax / logsumexp", ("softmax", "logsumexp")),
     ("reductions", ("reduce",)),
     ("index / gather / scatter", ("index", "gather", "scatter",
@@ -300,17 +314,23 @@ def main() -> int:
     # empty-slot marker) or differing only in their high bits; then grids
     # of more than 65,535 pages
     i64_min, i64_max = -(1 << 63), (1 << 63) - 1
+
+    def edge_stack(n):
+        """Rows all equal, of both signs, at the int64 extremes, differing
+        only in their high bits, of a small domain, of the full range."""
+        ext = rng.choice([i64_min, i64_max, 0, -1, 1], size=n)
+        ext[0], ext[-1] = i64_min, i64_max
+        return np.stack([np.full(n, 5), np.arange(n) * 7 - n, ext,
+                         np.full(n, i64_min), np.full(n, i64_max),
+                         rng.integers(0, 256, size=n) << 55,
+                         rng.integers(0, 5, size=n),
+                         rng.integers(i64_min, i64_max, size=n,
+                                      endpoint=True)])
+
     n_ld = 0
     for rpp in LDICT_RPPS:
         for n in (3 * rpp + rpp // 2 + 1, max(1, rpp - 3)):
-            ext = rng.choice([i64_min, i64_max, 0, -1, 1], size=n)
-            ext[0], ext[-1] = i64_min, i64_max
-            stack = np.stack([np.full(n, 5), np.arange(n) * 7 - n, ext,
-                              np.full(n, i64_min), np.full(n, i64_max),
-                              rng.integers(0, 256, size=n) << 55,
-                              rng.integers(0, 5, size=n),
-                              rng.integers(i64_min, i64_max, size=n,
-                                           endpoint=True)])
+            stack = edge_stack(n)
             # as they are (few pages: a block per page) and 256 times over
             # (>= 1,024 pages: a warp per page, where a page has <= 512 rows)
             for copies in (1, 256):
@@ -329,11 +349,42 @@ def main() -> int:
             fail(f"ldict_bytes != plain on {shape} at rpp {rpp} "
                  f"({shape[0] * -(-shape[1] // rpp)} pages)")
         n_ld += 1
-    del cols, widths, stack, ext
     print(f"codec kernels: ldict_bytes bit-equal to plain on {n_ld} more "
           f"cases (rpp {LDICT_RPPS}, ragged and single short pages, equal, "
           f"distinct and int64-extreme rows, on few pages and on many; "
           f"grids {LDICT_GRIDS})")
+    # PREFIX on the same rows: few pages or pages of more than 512 rows
+    # take its block per page, >= 1,024 pages of <= 512 rows its warp
+    # path; each stack also from its second row on (pages whose first
+    # value is not 16-byte aligned where n is odd); then grids of more
+    # than 65,535 pages, values of both signs
+    n_px = 0
+    for rpp in PREFIX_RPPS:
+        for n in (3 * rpp + rpp // 2 + 1, max(1, rpp - 3)):
+            stack = edge_stack(n)
+            for copies in (1, 256):
+                cols = t64(np.tile(stack, (copies, 1)))
+                widths = t64([1, 2, 8, 8, 8, 8, 1, 8] * copies)
+                for off in (0, 1):
+                    args = (cols[off:], widths[off:], rpp)
+                    if not torch.equal(cb.prefix_bytes(*args),
+                                       cb.prefix_bytes_plain(*args)):
+                        fail(f"prefix_bytes != plain on edge rows, rpp "
+                             f"{rpp}, n {n}, {copies} copies, from row "
+                             f"{off}")
+                    n_px += 1
+    for shape, rpp in PREFIX_GRIDS:
+        cols = t64(rng.integers(-(1 << 40), 1 << 40, size=shape))
+        widths = t64(rng.integers(1, 9, size=shape[0]))
+        if not torch.equal(cb.prefix_bytes(cols, widths, rpp),
+                           cb.prefix_bytes_plain(cols, widths, rpp)):
+            fail(f"prefix_bytes != plain on {shape} at rpp {rpp} "
+                 f"({shape[0] * -(-shape[1] // rpp)} pages)")
+        n_px += 1
+    del cols, widths, stack, args
+    print(f"codec kernels: prefix_bytes bit-equal to plain on {n_px} more "
+          f"cases (rpp {PREFIX_RPPS}, the same rows on few pages and on "
+          f"many, aligned and not; grids {PREFIX_GRIDS})")
 
     e, q = 0.5, 0.9
 
@@ -484,6 +535,79 @@ def main() -> int:
     if qb.quantize_blockwise(f32(half))[0][0, 1:9].tolist() != \
             [0, 2, 2, 0, -2, -2, 126, -126]:
         fail("quantize_blockwise does not round half to even")
+
+    # grouped quantization, bit-equal to plain in one launch per
+    # group_capacity() items: a mixed list (ranks 1-4, ragged last blocks,
+    # last dimensions under one block and under 4, bfloat16, an empty
+    # tensor); a list longer than one parameter struct; x or q one element
+    # off an aligned address; blocks of 1, 6, 64, 100 and 256 (the
+    # two-pass path); x / scale on and a few ulps around every k + .5 and
+    # +-127 under random scales
+    def q_items(shapes, seed, block=qb.DEFAULT_BLOCK):
+        r = np.random.default_rng(seed)
+        items = []
+        for i, shape in enumerate(shapes):
+            x = f32(r.standard_normal(shape) * 3)
+            if i % 3 == 1:
+                x = x.to(torch.bfloat16)
+            items.append((x, torch.full(shape, 99, dtype=torch.int8,
+                                        device=dev),
+                          torch.full((*shape[:-1], -(-shape[-1] // block)),
+                                     float("nan"), device=dev)))
+        return items
+
+    def qgroup_case(label, items, block=qb.DEFAULT_BLOCK):
+        before = launch_counts()["quantize_blockwise"]
+        qb.quantize_blockwise_group(items, block)
+        launched = launch_counts()["quantize_blockwise"] - before
+        live = sum(1 for x, _, _ in items if x.numel())
+        if launched != -(-live // qb.group_capacity()):
+            fail(f"quantize_blockwise_group launched {launched} times for "
+                 f"{live} items ({label})")
+        for x, gq, gs in items:
+            q_p, s_p = qb.quantize_blockwise_plain(x, block)
+            if not (torch.equal(gq, q_p) and bit_equal(gs, s_p)):
+                fail(f"quantize_blockwise_group != plain on {label}: "
+                     f"{tuple(x.shape)} {x.dtype}, block {block}")
+        return len(items)
+
+    n_qg = qgroup_case("a mixed list", q_items(
+        [(2048,), (300,), (7,), (3,), (32, 64), (9, 130), (128, 256),
+         (3, 5, 200), (2, 3, 4, 384), (2, 2, 2, 129), (1000,), (0, 5),
+         (40, 8), (6, 1)], 7))
+    r = np.random.default_rng(8)
+    n_qg += qgroup_case("a list longer than one launch", q_items(
+        [(int(r.integers(1, 4)), int(r.integers(1, 300)))
+         for _ in range(qb.group_capacity() + 5)], 9))
+    for where in ("x", "q"):
+        items = q_items([(37, 256), (5, 130), (64,)], 10)
+        for i, (x, gq, gs) in enumerate(items):
+            src_t = x if where == "x" else gq
+            buf = torch.empty(src_t.numel() + 1, dtype=src_t.dtype,
+                              device=dev)
+            moved = buf[1:].view(src_t.shape).copy_(src_t)
+            items[i] = (moved, gq, gs) if where == "x" else (x, moved, gs)
+        n_qg += qgroup_case(f"{where} at an odd address", items)
+    for block in (1, 6, 64, 100, 256):
+        n_qg += qgroup_case(f"block {block}", q_items(
+            [(3, 300), (7,), (4, 2, 129), (1, 1000), (50, 64)], block,
+            block), block)
+    kq = r.integers(-127, 127, size=(8192, 128)).astype(np.float32)
+    sc = r.uniform(1e-6, 1e3, size=(8192, 1)).astype(np.float32)
+    edge = (kq + 0.5) * sc
+    edge[:, 0], edge[:, 1] = 127 * sc[:, 0], -127 * sc[:, 0]
+    edge *= (1 + r.integers(-3, 4, size=edge.shape) * 2.0 ** -23).astype(
+        np.float32)
+    for dt in (torch.float32, torch.bfloat16):
+        xe = f32(edge).to(dt)
+        n_qg += qgroup_case(f".5 boundaries ({dt})", [(
+            xe, torch.empty(xe.shape, dtype=torch.int8, device=dev),
+            torch.empty((8192, 1), device=dev))])
+    del items, buf, moved, src_t, edge, xe
+    print(f"LM kernels: quantize_blockwise_group bit-equal to plain on "
+          f"{n_qg} tensors (mixed ranks and types, unaligned x and q, blocks "
+          f"1 to 256, .5 boundaries; one launch per "
+          f"{qb.group_capacity()} items)")
 
     # blockwise dequantization of the same cases, bit-equal to plain in
     # float32 and bfloat16, and once more from an int8 tensor at an odd
@@ -982,6 +1106,10 @@ def main() -> int:
         reps = 20 if name in CODECS else 200
         ms = time_ms(lambda: fn(*args), reps)
         plain_ms = time_ms(lambda: plain(*args), max(5, reps // 10))
+        dev_ms = None
+        if name == "prefix_bytes":       # redesigned: its device time too
+            dev_ms = device_ms(lambda: fn(*args), reps)
+            extra += f", device time {dev_ms:.4f} ms"
         if name == "gdict_bytes":
             srt = torch.sort(args[0], dim=1).values
             sort_ms = time_ms(lambda: torch.sort(args[0], dim=1), reps)
@@ -1004,6 +1132,9 @@ def main() -> int:
                         "launches": launches[name], "max_abs_err": err,
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": None})
+        if dev_ms is not None:
+            records[-1].update(device_ms=dev_ms, shape=list(shape),
+                               rpp=int(args[2]))
     # the timing launches above count too; the record keeps the measured
     # paths' counts (phases 3, 3b and 3c)
     rec_ld = next(r for r in records if r["name"] == "ldict_bytes")
@@ -1298,6 +1429,8 @@ def main() -> int:
         q_cases.append({
             "shape": [rows, n],
             "ms": cycle_ms(qb.quantize_blockwise, [(w,) for w in ws]),
+            "device_ms": device_ms(lambda: [qb.quantize_blockwise(w)
+                                            for w in ws], 3) / len(ws),
             "plain_ms": cycle_ms(qb.quantize_blockwise_plain,
                                  [(w,) for w in ws], reps=2),
             "bound_ms": max(b_ms, o_ms), "bytes_ms": b_ms, "ops_ms": o_ms,
@@ -1362,8 +1495,7 @@ def main() -> int:
             yard = (f", float32 torch.matmul on the dequantized weight (the "
                     f"float path q8 replaces) {c['float_matmul_ms']:.4f} ms "
                     f"(device {c['float_matmul_device_ms']:.4f}); "
-                    f"{c['kernel']} kernel, device time "
-                    f"{c['device_ms']:.4f} ms; float32 bound "
+                    f"{c['kernel']} kernel; float32 bound "
                     f"{c['f32_bound_ms']:.6g} ms, tensor-core bound "
                     f"{c['tc_bound_ms']:.6g} ms ({PREFILL_PASSES} bf16 "
                     f"passes); the bound above is the "
@@ -1372,7 +1504,8 @@ def main() -> int:
                     if "float_matmul_ms" in c else "")
             print(f"kernel {name}: shape {tuple(c['shape'])}"
                   f"{' ' + c['path'] if 'path' in c else ''}: "
-                  f"{c['ms']:.4f} ms per call (plain {c['plain_ms']:.4f} ms, "
+                  f"{c['ms']:.4f} ms per call, device time "
+                  f"{c['device_ms']:.4f} ms (plain {c['plain_ms']:.4f} ms, "
                   f"bound {c['bound_ms']:.6g} ms by {c['bound_by']}; bytes "
                   f"{c['bytes_ms']:.6g} ms, operations {c['ops_ms']:.6g} ms"
                   f"{yard}), "
@@ -1382,7 +1515,8 @@ def main() -> int:
         records.append({"name": name, "route": "cuda", "source": src,
                         "replaces": tpu, "launches": launches5[name],
                         "max_abs_err": max(c["max_abs_err"] for c in cases),
-                        "ms": h["ms"], "plain_ms": h["plain_ms"],
+                        "ms": h["ms"], "device_ms": h["device_ms"],
+                        "plain_ms": h["plain_ms"],
                         "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
                         "library_ms": h.get("float_matmul_ms"),
                         "shape": h["shape"], "cases": cases})
@@ -1443,7 +1577,8 @@ def main() -> int:
         n_wire = sum(1 for p_ in plist if train_step.on_wire(p_))
         buckets = train_step.wire_buckets(plist)
         n_buckets = len(buckets)
-        # one grouped launch per bucket (per group_capacity() tensors)
+        # one grouped launch each way per bucket (per group_capacity()
+        # tensors)
         n_group = sum(-(-len(b) // qb.group_capacity()) for b in buckets)
         step_s = sum(secs[1:]) / len(secs[1:])
         print(f"phase {label}: Trainer({LM_ARCH}, batch {TRAIN_BATCH}, seq "
@@ -1465,18 +1600,18 @@ def main() -> int:
                  f"{FIRST_LOSS}")
         if not losses[-1] < losses[0]:
             fail(f"phase {label}: the loss did not fall: {losses}")
-        # the wire: a quantize per gradient, a grouped dequantize per
-        # bucket; q8 moments: 2 + 2 per parameter
-        per_param = 2 * len(names) if trainer.opt_cfg.state_codec == "q8" \
+        # the wire: a grouped quantize and a grouped dequantize per
+        # bucket; q8 moments: one grouped launch each way per parameter
+        per_param = len(names) if trainer.opt_cfg.state_codec == "q8" \
             else 0
-        per_step = {"quantize_blockwise": n_wire + per_param,
+        per_step = {"quantize_blockwise": n_group + per_param,
                     "dequantize_blockwise": n_group + per_param}
         for k, n_k in per_step.items():
             if counts[k] != steps * n_k:
                 fail(f"phase {label}: {counts[k]} {k} launches, not {steps} "
                      f"steps x {n_k}")
-        moments = (f", and m and sqrt v of {len(names)} parameters"
-                   if per_param else "")
+        moments = (f", and m and sqrt v of each of {len(names)} "
+                   "parameters as one group" if per_param else "")
         print(f"phase {label}: {per_step['quantize_blockwise']} "
               f"quantize_blockwise and {per_step['dequantize_blockwise']} "
               f"dequantize_blockwise launches per step ({n_wire} gradient "
@@ -1568,7 +1703,10 @@ def main() -> int:
                  f"of {name}")
         wire6[name] = (q_, s_)
         n6d += 1
+    # 6c's moments: single calls, then each parameter's (m, sqrt v) pair
+    # as one group each way, as AdamW runs them
     for name, m in moments6.items():
+        pair = []
         for k in ("m", "v"):
             got_d = qb.dequantize_blockwise(m[f"{k}_q"], m[f"{k}_s"])
             if not bit_equal(got_d, qb.dequantize_blockwise_plain(
@@ -1580,10 +1718,32 @@ def main() -> int:
             if not (bit_equal(q_, q_p) and bit_equal(s_, s_p)):
                 fail(f"phase 6d: quantize_blockwise != plain on {k} of "
                      f"{name}")
+            pair.append((got_d, q_p, s_p))
             n6d += 1
-    # the grouped dequantize on the wire's buckets of the same gradients
+        outs = [torch.empty_like(d) for d, _, _ in pair]
+        qb.dequantize_blockwise_group([(m["m_q"], m["m_s"], outs[0]),
+                                       (m["v_q"], m["v_s"], outs[1])])
+        items = [(d, torch.empty_like(q_p), torch.empty_like(s_p))
+                 for d, q_p, s_p in pair]
+        qb.quantize_blockwise_group(items)
+        for (d, q_p, s_p), out, (_, q_, s_) in zip(pair, outs, items):
+            if not (bit_equal(out, d) and bit_equal(q_, q_p)
+                    and bit_equal(s_, s_p)):
+                fail(f"phase 6d: a grouped kernel != plain on the moment "
+                     f"pair of {name}")
+    # the grouped quantize and dequantize on the wire's buckets of the
+    # same gradients
     wire_list = list(wire6.values())
-    for bucket in train_step.wire_buckets([q_ for q_, _ in wire_list]):
+    grad_list = list(grads6.values())
+    for bucket in train_step.wire_buckets(grad_list):
+        items = [(grad_list[i], torch.empty_like(wire_list[i][0]),
+                  torch.empty_like(wire_list[i][1])) for i in bucket]
+        qb.quantize_blockwise_group(items)
+        for i, (_, q_, s_) in zip(bucket, items):
+            if not (bit_equal(q_, wire_list[i][0])
+                    and bit_equal(s_, wire_list[i][1])):
+                fail(f"phase 6d: quantize_blockwise_group != plain on a "
+                     f"{tuple(q_.shape)} gradient")
         items = [(*wire_list[i], torch.empty(wire_list[i][0].shape,
                                              device=dev)) for i in bucket]
         qb.dequantize_blockwise_group(items)
@@ -1591,11 +1751,14 @@ def main() -> int:
             if not bit_equal(out, qb.dequantize_blockwise_plain(q_, s_)):
                 fail(f"phase 6d: dequantize_blockwise_group != plain on a "
                      f"{tuple(q_.shape)} gradient")
-    del moments6, got_d, q_, s_, q_p, s_p, grads6, items, out, wire_list
+    del (moments6, got_d, q_, s_, q_p, s_p, grads6, items, out, outs, pair,
+         wire_list, grad_list, d)
     print(f"phase 6d: quantize_blockwise and dequantize_blockwise bit-equal "
           f"to plain on {n6d} real tensors (6b's next step's gradients, "
-          f"6c's q8 m and sqrt v); dequantize_blockwise_group bit-equal on "
-          f"the {len(wire6)} gradients in the wire's buckets")
+          f"6c's q8 m and sqrt v); quantize_blockwise_group and "
+          f"dequantize_blockwise_group bit-equal on the {len(wire6)} "
+          f"gradients in the wire's buckets and on each parameter's moment "
+          f"pair")
 
     # 6e: the card against the CPU at width 2048, depth 2, float32 compute
     lm6e = dataclasses.replace(lm, name=f"{LM_ARCH}-depth2", n_layers=2)
@@ -1698,6 +1861,8 @@ def main() -> int:
             "shape": list(q0.shape), "path": f"training: {label}",
             "tensors": len(args),
             "ms": cycle_ms(qb.quantize_blockwise, xs6),
+            "device_ms": device_ms(lambda: [qb.quantize_blockwise(*a)
+                                            for a in xs6], 3) / len(xs6),
             "plain_ms": cycle_ms(qb.quantize_blockwise_plain, xs6, reps=2),
             "bound_ms": max(qb_ms, qo_ms), "bytes_ms": qb_ms,
             "ops_ms": qo_ms,
@@ -1736,6 +1901,49 @@ def main() -> int:
           f"{len(items)} single calls {g_singles:.4f} ms, {len(items)} "
           f"one-call broadcast multiplies {g_mults:.4f} ms")
     del items, out
+
+    # the wire's whole step of quantize: one grouped launch per bucket
+    # over the float32 inputs of all its tensors (6b's wire values), beside
+    # the summed bytes bound and the same tensors in single calls
+    wire_x = [qb.dequantize_blockwise(q_, s_) for q_, s_ in wire_all
+              if train_step.on_wire(q_)]
+    q_buckets = [[(wire_x[i], torch.empty(wire_x[i].shape, dtype=torch.int8,
+                                          device=dev),
+                   torch.empty((*wire_x[i].shape[:-1],
+                                -(-wire_x[i].shape[-1] // qb.DEFAULT_BLOCK)),
+                               device=dev)) for i in b]
+                 for b in train_step.wire_buckets(wire_x)]
+
+    def wire_quantize():
+        for b in q_buckets:
+            qb.quantize_blockwise_group(b)
+
+    before = launch_counts()["quantize_blockwise"]
+    wire_quantize()
+    qw_launches = launch_counts()["quantize_blockwise"] - before
+    for b in q_buckets:
+        for x_, q_, s_ in b:
+            q_p, s_p = qb.quantize_blockwise_plain(x_)
+            if not (bit_equal(q_, q_p) and bit_equal(s_, s_p)):
+                fail(f"quantize_blockwise_group != plain on a "
+                     f"{tuple(x_.shape)} wire tensor")
+    qw_bound = sum(x_.numel() * 5 + s_.numel() * 4 for b in q_buckets
+                   for x_, _, s_ in b) / HBM_BYTES_PER_S * 1e3
+    qw_ms = time_ms(wire_quantize, 3)
+    qw_dev = device_ms(wire_quantize, 3)
+    qw_singles = device_ms(lambda: [qb.quantize_blockwise(x_)
+                                    for x_ in wire_x], 3)
+    wire_q = {"tensors": len(wire_x), "buckets": len(q_buckets),
+              "launches": qw_launches, "ms": qw_ms, "device_ms": qw_dev,
+              "bound_ms": qw_bound, "single_calls_device_ms": qw_singles}
+    print(f"kernel quantize_blockwise_group: the wire's step, {len(wire_x)} "
+          f"tensors in {len(q_buckets)} buckets, {qw_launches} launches: "
+          f"{qw_ms:.4f} ms per step (CUDA events), device time "
+          f"{qw_dev:.4f} ms, bytes bound {qw_bound:.6g} ms "
+          f"({qw_bound / qw_dev:.4f} of it in device time); the same "
+          f"{len(wire_x)} tensors in single calls {qw_singles:.4f} ms of "
+          f"device time")
+    del wire_x, q_buckets, q_p, s_p, x_
 
     # where a single call's host microseconds go, at the (d_model,) norm
     # gradient: each part alone, enqueued 2,000 times (the raw launches
@@ -1791,7 +1999,9 @@ def main() -> int:
     for c in q6_cases:
         print(f"kernel quantize_blockwise: shape {tuple(c['shape'])} "
               f"{c['path']} (cycling {c['tensors']}): {c['ms']:.4f} ms per "
-              f"call (plain {c['plain_ms']:.4f} ms, bound {c['bound_ms']:.6g}"
+              f"call, device time {c['device_ms']:.4f} ms ("
+              f"{c['bound_ms'] / c['device_ms']:.4f} of the bound) (plain "
+              f"{c['plain_ms']:.4f} ms, bound {c['bound_ms']:.6g}"
               f" ms by {c['bound_by']}; bytes {c['bytes_ms']:.6g} ms, "
               f"operations {c['ops_ms']:.6g} ms), max_abs_err "
               f"{c['max_abs_err']}")
@@ -1814,6 +2024,7 @@ def main() -> int:
         "6c": launches6c["quantize_blockwise"]}
     rec_q["launches"] = sum(rec_q["launches_by_phase"].values())
     rec_q["cases"] += q6_cases
+    rec_q["wire_step"] = wire_q
     print(f"launches of quantize_blockwise by phase: "
           f"{json.dumps(rec_q['launches_by_phase'])}")
 

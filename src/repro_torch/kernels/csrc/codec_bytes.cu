@@ -9,7 +9,8 @@
 //                          (torch.sort), as it was XLA's on the TPU
 //   ldict_warp_kernel,  <- _ldict_kernel (l.113) AND the per-page lax.sort
 //   ldict_block_kernel     pre-pass of _codec_call (l.187-191)
-//   prefix_bytes_kernel <- _prefix_kernel (l.128)
+//   prefix_warp_kernel, <- _prefix_kernel (l.128)
+//   prefix_block_kernel
 //   rle_bytes_kernel    <- _rle_kernel (l.149)
 // The TPU version split each int64 into two uint32 planes because the TPU
 // path has no 64-bit integers; Hopper has them, so values are read as
@@ -23,10 +24,22 @@
 // device memory (8 bytes) and costs a handful of integer operations, far
 // below the card's integer rate, so the floor is m * n * 8 bytes over
 // 3.35 TB/s.  NS and GDICT: one block per row, a block-strided loop of
-// coalesced loads and a block reduction.  PREFIX and RLE: one block per
-// (row, page), whose byte count is added to the row total with a 64-bit
-// integer atomic (order-free, hence deterministic); PREFIX reduces the
-// page's min and max, RLE counts adjacent unequal pairs in the order given.
+// coalesced loads and a block reduction.  RLE: one block per (row, page),
+// counting adjacent unequal pairs in the order given, its byte count added
+// to the row total with a 64-bit integer atomic (order-free, hence
+// deterministic).
+//
+// PREFIX needs each page's min and max.  With many pages (>= 1,024) of up
+// to 512 rows, each warp of a persistent grid (as many warps as the card
+// holds at once) takes an equal run of consecutive pages of the flattened
+// (row, page) space and streams them: per page every lane loads pairs of
+// values with 16-byte loads from the page's first 16-byte-aligned value on
+// (a page of 273 rows starts 8-byte aligned, so one value may come
+// before them and one after), keeps a running signed min and max, and the
+// page closes with a shuffle reduction, no barrier; the warp adds its bytes
+// to a row total with one atomic per row it touched.  Fewer pages, or
+// larger ones, take one 256-thread block per page and a block reduction:
+// there a page's latency decides.
 //
 // LDICT counts each page's distinct values with a hash set in shared
 // memory, not a sort: a sort of a 273-row page in shared memory, padded to
@@ -352,7 +365,92 @@ __global__ void gdict_bytes_kernel(const long long* __restrict__ sorted,
   }
 }
 
-__global__ void prefix_bytes_kernel(const long long* __restrict__ cols,
+// PREFIX bytes of one page from its signed min and max
+__device__ __forceinline__ long long prefix_page_bytes(long long mn,
+                                                       long long mx,
+                                                       long long rows,
+                                                       long long w) {
+  const long long x = static_cast<long long>(
+      static_cast<unsigned long long>(mn) ^
+      static_cast<unsigned long long>(mx));
+  const long long diff = x == 0 ? 0 : sig_bytes(x);
+  const long long common = max(w - diff, 0ll);
+  const long long per_page = common + rows * (1 + w - common) + kPageMeta;
+  return min(per_page, rows * w + kPageMeta);
+}
+
+constexpr int kPrefixTeams = 4;                // warps per block
+constexpr long long kPrefixBlockPages = 1024;  // fewer: a block per page
+constexpr long long kInt64Max = 0x7fffffffffffffffll;
+
+// A warp per run of `chunk` consecutive pages of the flattened (row,
+// page) space, pages of <= 64 * kPairs rows: per page, lane i loads pairs
+// i, i + 32, ... (16-byte loads, all issued before the min and max use
+// them), lane 0 the value before the first aligned pair and lane 1 the
+// one after the last; a shuffle reduction closes the page.
+template <int kPairs>
+__global__ void __launch_bounds__(kPrefixTeams * 32)
+prefix_warp_kernel(const long long* __restrict__ cols,
+                   const long long* __restrict__ widths,
+                   unsigned long long* __restrict__ out, int n, int rpp,
+                   int npages, long long total_pages, long long chunk) {
+  const int lane = threadIdx.x & 31;
+  long long gp =
+      (static_cast<long long>(blockIdx.x) * kPrefixTeams + (threadIdx.x >> 5)) *
+      chunk;
+  const long long stop = min(gp + chunk, total_pages);
+  long long run_row = -1;
+  long long run_bytes = 0;
+  long long w = 0;
+  for (; gp < stop; ++gp) {
+    const long long row = gp / npages;
+    const int pg = static_cast<int>(gp - row * npages);
+    const int start = pg * rpp;
+    const int rows = (pg == npages - 1) ? n - start : rpp;
+    const long long* __restrict__ src = cols + row * n + start;
+    const int head = (reinterpret_cast<size_t>(src) & 15) ? 1 : 0;
+    const int pairs = (rows - head) >> 1;
+    const longlong2* __restrict__ p2 =
+        reinterpret_cast<const longlong2*>(src + head);
+    long long mn = kInt64Max;
+    long long mx = -kInt64Max - 1;
+#pragma unroll
+    for (int k = 0; k < kPairs; ++k) {
+      const int i = lane + 32 * k;
+      if (i < pairs) {
+        const longlong2 t = __ldg(p2 + i);
+        mn = min(mn, min(t.x, t.y));
+        mx = max(mx, max(t.x, t.y));
+      }
+    }
+    const int single = lane == 0 && head ? 0
+                       : lane == 1 && ((rows - head) & 1) ? rows - 1
+                                                          : -1;
+    if (single >= 0) {
+      const long long v = __ldg(src + single);
+      mn = min(mn, v);
+      mx = max(mx, v);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, off));
+      mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    }
+    if (row != run_row) {
+      if (lane == 0 && run_row >= 0)
+        atomicAdd(out + run_row, static_cast<unsigned long long>(run_bytes));
+      run_row = row;
+      run_bytes = 0;
+      w = widths[row];
+    }
+    run_bytes += prefix_page_bytes(mn, mx, rows, w);
+  }
+  if (lane == 0 && run_row >= 0)
+    atomicAdd(out + run_row, static_cast<unsigned long long>(run_bytes));
+}
+
+// One block per page: few pages, or pages of more than 512 rows.
+__global__ void prefix_block_kernel(const long long* __restrict__ cols,
                                     const long long* __restrict__ widths,
                                     unsigned long long* __restrict__ out,
                                     int n, int rpp, int npages) {
@@ -373,17 +471,34 @@ __global__ void prefix_bytes_kernel(const long long* __restrict__ cols,
     mx = max(mx, v);
   }
   block_minmax(mn, mx);
-  if (threadIdx.x == 0) {
-    const long long x = static_cast<long long>(
-        static_cast<unsigned long long>(mn) ^
-        static_cast<unsigned long long>(mx));
-    const long long diff = x == 0 ? 0 : sig_bytes(x);
-    const long long common = max(w - diff, 0ll);
-    const long long per_page = common + rows * (1 + w - common) + kPageMeta;
-    const long long cap = rows * w + kPageMeta;
-    atomicAdd(out + row,
-              static_cast<unsigned long long>(min(per_page, cap)));
-  }
+  if (threadIdx.x == 0)
+    atomicAdd(out + row, static_cast<unsigned long long>(
+                             prefix_page_bytes(mn, mx, rows, w)));
+}
+
+// The warp kernel on a persistent grid: as many warps as the card holds at
+// once, each taking an equal run of pages.
+template <int kPairs>
+int launch_prefix_warp(const long long* cols, const long long* widths,
+                       unsigned long long* out, int n, int rpp, int npages,
+                       long long pages, cudaStream_t st) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, prefix_warp_kernel<kPairs>, kPrefixTeams * 32, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long warps =
+      static_cast<long long>(sms) * std::max(per_sm, 1) * kPrefixTeams;
+  const long long chunk = (pages + warps - 1) / warps;
+  const long long teams = (pages + chunk - 1) / chunk;
+  prefix_warp_kernel<kPairs>
+      <<<static_cast<unsigned>((teams + kPrefixTeams - 1) / kPrefixTeams),
+         kPrefixTeams * 32, 0, st>>>(cols, widths, out, n, rpp, npages,
+                                     pages, chunk);
+  return static_cast<int>(cudaGetLastError());
 }
 
 __global__ void rle_bytes_kernel(const long long* __restrict__ cols,
@@ -501,16 +616,29 @@ int gdict_bytes_launch(const void* sorted, const void* widths, void* out,
 }
 
 // out: (m,) int64, zeroed by the caller; pages are added into it.
-// m * ceil(n / rpp) < 2^31 blocks.
+// m * ceil(n / rpp) < 2^31 pages.
 int prefix_bytes_launch(const void* cols, const void* widths, void* out,
                         int m, int n, int rpp, void* stream) {
   const int npages = (n + rpp - 1) / rpp;
-  prefix_bytes_kernel<<<m * npages, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const long long*>(cols),
-      static_cast<const long long*>(widths),
-      static_cast<unsigned long long*>(out), n, rpp, npages);
-  return static_cast<int>(cudaGetLastError());
+  const int rows = std::min(rpp, n);
+  const long long pages = static_cast<long long>(m) * npages;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* c = static_cast<const long long*>(cols);
+  const auto* w = static_cast<const long long*>(widths);
+  auto* o = static_cast<unsigned long long*>(out);
+  if (rows > 512 || pages < kPrefixBlockPages) {
+    prefix_block_kernel<<<static_cast<unsigned>(pages), kThreads, 0, st>>>(
+        c, w, o, n, rpp, npages);
+    return static_cast<int>(cudaGetLastError());
+  }
+  // pairs a lane loads per page, at most: rows / 2 over 32 lanes
+  if (rows <= 64)
+    return launch_prefix_warp<1>(c, w, o, n, rpp, npages, pages, st);
+  if (rows <= 128)
+    return launch_prefix_warp<2>(c, w, o, n, rpp, npages, pages, st);
+  if (rows <= 256)
+    return launch_prefix_warp<4>(c, w, o, n, rpp, npages, pages, st);
+  return launch_prefix_warp<8>(c, w, o, n, rpp, npages, pages, st);
 }
 
 // out: as prefix_bytes_launch.

@@ -11,6 +11,9 @@ the dictionary the scale.
   last dimension (the ragged last block is masked, which equals the JAX
   package's zero padding).  Returns (q int8 of x's shape, scales float32
   of shape x.shape[:-1] + (ceil(N / block),)).
+* `quantize_blockwise_group(items, block)` -- the same for a list of (x,
+  q, scales) triples, written into each q and scales, in one launch per
+  `group_capacity()` items.
 * `dequantize_blockwise(q, scales, block, dtype)` -- the inverse: q *
   scale of its block, one float32 multiply, cast to `dtype` (float32 or
   bfloat16); any rank, any last dimension.
@@ -18,25 +21,28 @@ the dictionary the scale.
   (q, scales, out) triples, written into each `out` (its dtype, float32 or
   bfloat16, is the output type) in one launch per `group_capacity()`
   items.
-* `quantize_blockwise_plain`, `dequantize_blockwise_plain`,
-  `dequantize_blockwise_group_plain` -- the plain PyTorch versions of the
-  same functions.
+* `quantize_blockwise_plain`, `quantize_blockwise_group_plain`,
+  `dequantize_blockwise_plain`, `dequantize_blockwise_group_plain` -- the
+  plain PyTorch versions of the same functions.
 
 Each wrapper takes its route from the device of its input: on a CUDA
 tensor it launches its hand-written kernel in `csrc/quantize_blockwise.cu`
 (one library, built on first use) or raises; on a CPU tensor it runs the
 plain version.  On the card the kernels' results are bit-equal to the
-plain versions'.  `LAUNCHES` counts kernel launches, per wrapper (the
-single and the grouped dequantize run one kernel and count under
+plain versions'.  `LAUNCHES` counts kernel launches, per kernel (a single
+call is a one-item group: the single and the grouped quantize count
+under "quantize_blockwise", the two dequantizes under
 "dequantize_blockwise").
 
 The CUDA kernels replace the Pallas kernels `_quantize_kernel` and
 `_dequantize_kernel` of the JAX package (`kernels/quantize_blockwise.py`);
 the plain versions follow `kernels/ref.py` `quantize_blockwise` /
 `dequantize_blockwise` and the any-rank wrappers of `kernels/ops.py`.
-The q8 codec of the LM stack runs through them: `quantize_mlp` (serving),
-the q8 gradient wire (`train/step.py`, grouped dequantize) and the q8
-AdamW moments (`optim/adamw.py`, one tensor at a time).
+The q8 codec of the LM stack runs through them: `quantize_mlp` (serving,
+single calls), the q8 gradient wire (`train/step.py`, a grouped quantize
+and a grouped dequantize per bucket) and the q8 AdamW moments
+(`optim/adamw.py`, m and sqrt(v) of a parameter as one two-item group
+each way).
 """
 from __future__ import annotations
 
@@ -49,7 +55,7 @@ from . import build
 
 DEFAULT_BLOCK = 128
 Q_MAX = 127.0
-_MAX_ITEM = 2 ** 31     # a dequantize kernel item holds fewer elements
+_MAX_ITEM = 2 ** 31     # a kernel item holds fewer elements
 
 LAUNCHES: Dict[str, int] = {"quantize_blockwise": 0, "dequantize_blockwise": 0}
 
@@ -67,8 +73,9 @@ def _load():
         lib.dequantize_blockwise_launch.argtypes = [vp, vp, vp, cll, ci, ci,
                                                     ci, vp]
         lib.dequantize_blockwise_launch.restype = ci
-        lib.dequantize_group_launch.argtypes = [vp, ci, ci, vp]
-        lib.dequantize_group_launch.restype = ci
+        for fn in (lib.quantize_group_launch, lib.dequantize_group_launch):
+            fn.argtypes = [vp, ci, ci, vp]
+            fn.restype = ci
         lib.dequantize_group_capacity.argtypes = []
         lib.dequantize_group_capacity.restype = ci
         lib.quantize_error_string.argtypes = [ci]
@@ -107,13 +114,9 @@ def quantize_blockwise_plain(x: torch.Tensor, block: int = DEFAULT_BLOCK
 
 def quantize_blockwise(x: torch.Tensor, block: int = DEFAULT_BLOCK
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Any-rank blockwise int8 quantization of the last dimension."""
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"quantize_blockwise takes float32 or bfloat16, "
-                         f"got {x.dtype}")
-    if x.ndim < 1 or block < 1:
-        raise ValueError("quantize_blockwise needs a last dimension and "
-                         "block >= 1")
+    """Any-rank blockwise int8 quantization of the last dimension: the
+    grouped kernel on a one-item list, on a CUDA tensor."""
+    _check_quantize_input(x, block)
     if x.device.type == "cpu":
         return quantize_blockwise_plain(x, block)
     if x.device.type != "cuda":
@@ -123,19 +126,29 @@ def quantize_blockwise(x: torch.Tensor, block: int = DEFAULT_BLOCK
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     scales = torch.empty((*x.shape[:-1], nb), dtype=torch.float32,
                          device=x.device)
-    rows = x.numel() // n if n else 0
-    if rows == 0:
+    total = x.numel()
+    if total == 0:
         return q, scales
-    if n >= 2 ** 31 or rows * nb >= 2 ** 34:   # grid of rows*nb/8 blocks
-        raise ValueError(f"shape {tuple(x.shape)} outside the kernel's "
-                         "sizes")
     x = x.contiguous()
+    if total >= _MAX_ITEM:          # split by rows: a grouped launch
+        _launch_group(_quantize_rows(x, q, scales, block), block,
+                      x.get_device(), "quantize_blockwise")
+        return q, scales
     err = _load().quantize_blockwise_launch(
-        x.data_ptr(), q.data_ptr(), scales.data_ptr(), rows, n, block,
+        x.data_ptr(), q.data_ptr(), scales.data_ptr(), total // n, n, block,
         int(x.dtype == torch.bfloat16), _stream(x.get_device()))
     _launch_check(err, "quantize_blockwise")
     LAUNCHES["quantize_blockwise"] += 1
     return q, scales
+
+
+def _check_quantize_input(x: torch.Tensor, block: int) -> None:
+    if x.dtype is not torch.float32 and x.dtype is not torch.bfloat16:
+        raise ValueError(f"quantize_blockwise takes float32 or bfloat16, "
+                         f"got {x.dtype}")
+    if x.ndim < 1 or block < 1:
+        raise ValueError("quantize_blockwise needs a last dimension and "
+                         "block >= 1")
 
 
 def _check_dequantize(q: torch.Tensor, scales: torch.Tensor, block: int,
@@ -209,36 +222,59 @@ def dequantize_blockwise(q: torch.Tensor, scales: torch.Tensor,
     return out
 
 
+def _row_runs(n: int, rows: int):
+    """(first row, rows) runs of whole rows of fewer than 2^31 elements
+    each: the kernel items of a tensor of `rows` rows of `n`."""
+    if n >= _MAX_ITEM:
+        raise ValueError(f"a last dimension of {n} is outside the kernel's "
+                         "sizes")
+    step = (_MAX_ITEM - 1) // n
+    return [(r, min(step, rows - r)) for r in range(0, rows, step)]
+
+
 def _table_rows(q: torch.Tensor, scales: torch.Tensor, out: torch.Tensor,
                 block: int):
-    """The kernel's table rows (q, scales, out addresses, rows, n,
-    out_bf16) for contiguous q, scales and out: one row, or one per run of
-    rows of fewer than 2^31 elements."""
+    """The dequantize kernel's table rows (q, scales, out addresses, rows,
+    n, out_bf16) for contiguous q, scales and out: one row, or one per run
+    of rows of fewer than 2^31 elements."""
     n = q.shape[-1]
-    if n >= _MAX_ITEM:
-        raise ValueError(f"shape {tuple(q.shape)} outside the kernel's "
-                         "sizes")
-    rows, nb = q.numel() // n, -(-n // block)
-    step = (_MAX_ITEM - 1) // n
+    nb = -(-n // block)
     es = out.element_size()
     return [(q.data_ptr() + r * n, scales.data_ptr() + r * nb * 4,
-             out.data_ptr() + r * n * es, min(step, rows - r), n,
+             out.data_ptr() + r * n * es, k, n,
              int(out.dtype == torch.bfloat16))
-            for r in range(0, rows, step)]
+            for r, k in _row_runs(n, q.numel() // n)]
 
 
-def _launch_group(table, block: int, device_index: int) -> None:
-    """One grouped launch per `group_capacity()` rows of `table`."""
+def _quantize_rows(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
+                   block: int):
+    """The quantize kernel's table rows (x, q, scales addresses, rows, n,
+    x_bf16) for contiguous x, q and scales, split as `_table_rows`."""
+    n = x.shape[-1]
+    nb = -(-n // block)
+    es = x.element_size()
+    return [(x.data_ptr() + r * n * es, q.data_ptr() + r * n,
+             scales.data_ptr() + r * nb * 4, k, n,
+             int(x.dtype == torch.bfloat16))
+            for r, k in _row_runs(n, x.numel() // n)]
+
+
+def _launch_group(table, block: int, device_index: int,
+                  what: str = "dequantize_blockwise") -> None:
+    """One grouped launch of `what`'s kernel ("quantize_blockwise" or
+    "dequantize_blockwise") per `group_capacity()` rows of `table`."""
     lib = _load()
+    launch = (lib.quantize_group_launch if what == "quantize_blockwise"
+              else lib.dequantize_group_launch)
     cap = lib.dequantize_group_capacity()
     stream = _stream(device_index)
     for i in range(0, len(table), cap):
         chunk = table[i:i + cap]
         flat = (ctypes.c_longlong * (6 * len(chunk)))(
             *(v for row in chunk for v in row))
-        err = lib.dequantize_group_launch(flat, len(chunk), block, stream)
-        _launch_check(err, "dequantize_blockwise_group")
-        LAUNCHES["dequantize_blockwise"] += 1
+        err = launch(flat, len(chunk), block, stream)
+        _launch_check(err, f"{what}_group")
+        LAUNCHES[what] += 1
 
 
 Group = Sequence[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
@@ -268,9 +304,9 @@ def dequantize_blockwise_group_plain(items: Group,
 
 
 def group_capacity() -> int:
-    """The most items one grouped dequantize launch takes (the kernel's
-    parameter struct; a tensor of 2^31 elements or more takes more than
-    one)."""
+    """The most items one grouped quantize or dequantize launch takes (the
+    kernels' parameter structs; a tensor of 2^31 elements or more takes
+    more than one)."""
     return _load().dequantize_group_capacity()
 
 
@@ -297,3 +333,64 @@ def dequantize_blockwise_group(items: Group,
         held.append((q, scales))       # alive until the launches are queued
         table += _table_rows(q, scales, out, block)
     _launch_group(table, block, items[0][0].get_device())
+
+
+def _check_quantize_group(items: Group, block: int) -> None:
+    device = items[0][0].device
+    for x, q, scales in items:
+        _check_quantize_input(x, block)
+        want = (*x.shape[:-1], -(-x.shape[-1] // block))
+        if q.dtype is not torch.int8 or q.shape != x.shape:
+            raise ValueError(f"q {q.dtype} {tuple(q.shape)} is not int8 of "
+                             f"x's shape {tuple(x.shape)}")
+        if scales.dtype is not torch.float32 or tuple(scales.shape) != want:
+            raise ValueError(f"scales {scales.dtype} {tuple(scales.shape)} "
+                             f"do not fit x {tuple(x.shape)} at block "
+                             f"{block}: want float32 {want}")
+        if not (q.is_contiguous() and scales.is_contiguous()):
+            raise ValueError("quantize_blockwise_group writes into "
+                             "contiguous q and scales only")
+        if not x.device == q.device == scales.device == device:
+            raise ValueError(f"a quantize group spans devices {device}, "
+                             f"{x.device}, {q.device} and {scales.device}")
+
+
+def quantize_blockwise_group_plain(items: Group,
+                                   block: int = DEFAULT_BLOCK) -> None:
+    """`quantize_blockwise_plain` of each (x, q, scales), written into q
+    and scales."""
+    items = list(items)
+    if not items:
+        return
+    _check_quantize_group(items, block)
+    for x, q, scales in items:
+        got_q, got_s = quantize_blockwise_plain(x, block)
+        q.copy_(got_q)
+        scales.copy_(got_s)
+
+
+def quantize_blockwise_group(items: Group,
+                             block: int = DEFAULT_BLOCK) -> None:
+    """Blockwise int8 quantization of every (x, q, scales) of `items` into
+    its q (int8, x's shape) and scales (float32, x.shape[:-1] +
+    (ceil(N / block),)); x float32 or bfloat16, any ranks and last
+    dimensions.  On CUDA tensors: one kernel launch per `group_capacity()`
+    items; on CPU tensors: the plain version."""
+    items = list(items)
+    if not items:
+        return
+    if items[0][0].device.type == "cpu":
+        quantize_blockwise_group_plain(items, block)
+        return
+    _check_quantize_group(items, block)
+    if items[0][0].device.type != "cuda":
+        raise ValueError(f"unsupported device {items[0][0].device}")
+    table, held = [], []
+    for x, q, scales in items:
+        if x.numel() == 0:
+            continue
+        x = x.contiguous()
+        held.append(x)                 # alive until the launches are queued
+        table += _quantize_rows(x, q, scales, block)
+    _launch_group(table, block, items[0][0].get_device(),
+                  "quantize_blockwise")

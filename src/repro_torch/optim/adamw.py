@@ -5,7 +5,7 @@ the direct analogue of the paper's clustered index.  The physical-design
 advisor (`repro_torch.design`) decides per tensor class whether moments
 are stored f32 (fast, 8 bytes/param) or q8 (2 bytes/param + scales,
 paying a quantize and a dequantize per moment per step -- the alpha/beta
-of Appendix A).
+of Appendix A; on the card one grouped launch each way per parameter).
 
 The q8 codec is `kernels.quantize_blockwise`; v (second moment) is
 quantized in sqrt space to preserve dynamic range.
@@ -42,8 +42,8 @@ import torch
 from torch import nn
 
 from ..kernels.quantize_blockwise import (DEFAULT_BLOCK,
-                                          dequantize_blockwise,
-                                          quantize_blockwise)
+                                          dequantize_blockwise_group,
+                                          quantize_blockwise_group)
 
 State = Dict[str, Any]
 
@@ -107,16 +107,21 @@ def adamw_update(params: nn.Module, grads: Mapping[str, torch.Tensor],
         return {"m": m, "v": v}
 
     def upd_q8(p, g, mom):
+        # m and sqrt(v) of the parameter as one two-item group each way
         g = g.to(torch.float32)
-        m = dequantize_blockwise(mom["m_q"], mom["m_s"])
-        v_sqrt = dequantize_blockwise(mom["v_q"], mom["v_s"])
+        m = torch.empty(p.shape, dtype=torch.float32, device=p.device)
+        v_sqrt = torch.empty_like(m)
+        dequantize_blockwise_group([(mom["m_q"], mom["m_s"], m),
+                                    (mom["v_q"], mom["v_s"], v_sqrt)])
         v = v_sqrt * v_sqrt
         m = cfg.b1 * m + (1 - cfg.b1) * g
         v = cfg.b2 * v + (1 - cfg.b2) * g * g
         p.copy_(new_param(p, m, v))
-        m_q, m_s = quantize_blockwise(m)
-        v_q, v_s = quantize_blockwise(torch.sqrt(v))
-        return {"m_q": m_q, "m_s": m_s, "v_q": v_q, "v_s": v_s}
+        new = {k: torch.empty_like(mom[k]) for k in ("m_q", "m_s", "v_q",
+                                                     "v_s")}
+        quantize_blockwise_group([(m, new["m_q"], new["m_s"]),
+                                  (torch.sqrt(v), new["v_q"], new["v_s"])])
+        return new
 
     upd = upd_q8 if cfg.state_codec == "q8" else upd_f32
     moments = state["moments"]

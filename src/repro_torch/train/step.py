@@ -13,10 +13,11 @@ own so that a caller can read the gradients a step computes.  The JAX
 
 The q8 gradient wire maps quantize-then-dequantize over every gradient, as
 the JAX step maps it over the gradient tree inside one jitted step; here
-it works in buckets of at most `WIRE_BUCKET_BYTES` q8 bytes: each gradient
-of a bucket is quantized, then one grouped dequantize launch writes the
-whole bucket back into the gradients' own storage (in place: the q8 copy
-of one bucket is the only extra memory).
+it works in buckets of at most `WIRE_BUCKET_BYTES` q8 bytes: one grouped
+quantize launch writes a bucket's q8 values and scales (the wire format),
+then one grouped dequantize launch writes the whole bucket back into the
+gradients' own storage (in place: the q8 copy of one bucket is the only
+extra memory).
 """
 from __future__ import annotations
 
@@ -25,16 +26,18 @@ from typing import Callable, Dict, List, Optional, Sequence
 import torch
 from torch import nn
 
-from ..kernels.quantize_blockwise import (dequantize_blockwise_group,
-                                          quantize_blockwise)
+from ..kernels.quantize_blockwise import (DEFAULT_BLOCK,
+                                          dequantize_blockwise_group,
+                                          quantize_blockwise_group)
 from ..models import model as MD
 from ..models.config import ModelConfig
 from ..optim import AdamWConfig, adamw_update
 
 Batch = Dict[str, torch.Tensor]
 
-# q8 bytes (one per element) of the gradients one grouped dequantize of the
-# q8 wire takes at most: the bound on the wire's extra memory
+# q8 bytes (one per element) of the gradients one grouped quantize and one
+# grouped dequantize of the q8 wire take at most: the bound on the wire's
+# extra memory
 WIRE_BUCKET_BYTES = 256 << 20
 
 
@@ -65,7 +68,8 @@ def on_wire(g: torch.Tensor) -> bool:
 def wire_buckets(tensors: Sequence[torch.Tensor]) -> List[List[int]]:
     """The indices of the tensors the q8 wire carries, in order, cut into
     buckets of at most `WIRE_BUCKET_BYTES` q8 bytes (a larger tensor is a
-    bucket of its own): one grouped dequantize launch each."""
+    bucket of its own): one grouped quantize and one grouped dequantize
+    launch each."""
     buckets: List[List[int]] = []
     size = 0
     for i, t in enumerate(tensors):
@@ -83,7 +87,7 @@ def q8_wire(grads: Dict[str, torch.Tensor]) -> None:
     """The q8 gradient wire, in place: every gradient the wire carries is
     quantized blockwise to int8, then dequantized back into its own
     storage (a contiguous copy first, where it is not contiguous), one
-    grouped launch per bucket."""
+    grouped launch each way per bucket."""
     for name, g in grads.items():
         if on_wire(g) and not g.is_contiguous():
             grads[name] = g.contiguous()
@@ -91,9 +95,14 @@ def q8_wire(grads: Dict[str, torch.Tensor]) -> None:
     for bucket in wire_buckets(gs):
         items = []
         for i in bucket:
-            q, s = quantize_blockwise(gs[i])
-            items.append((q, s, gs[i]))
-        dequantize_blockwise_group(items)
+            g = gs[i]
+            nb = -(-g.shape[-1] // DEFAULT_BLOCK)
+            items.append((g, torch.empty(g.shape, dtype=torch.int8,
+                                         device=g.device),
+                          torch.empty((*g.shape[:-1], nb),
+                                      dtype=torch.float32, device=g.device)))
+        quantize_blockwise_group(items)
+        dequantize_blockwise_group([(q, s, g) for g, q, s in items])
 
 
 def make_loss_and_grads(cfg: ModelConfig, remat: bool = True,
@@ -138,7 +147,7 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig, remat: bool = True,
 
     grad_compression="q8" quantizes every gradient blockwise to int8 and
     back before AdamW sees it (the wire format of a gradient all-reduce:
-    q8 values + f32 block scales), through the quantize and grouped
+    q8 values + f32 block scales), through the grouped quantize and
     dequantize kernels on the card (`q8_wire`, in place, in buckets): the
     paper's update-path compression trade-off (alpha cost vs I/O saving).
     `params` and `opt_state` are updated in place (see `adamw_update`).

@@ -18,10 +18,12 @@ dequant-matmul within rtol and atol 1e-4 of the plain version's IEEE
 float32 product (another summation order; the tensor-core route's a in
 two bf16 terms), on both of its kernels, bit-equal from call to call.
 Blockwise dequantization bit-equal in float32 and bfloat16 (one rounded
-multiply, a round-to-nearest-even cast), single and grouped.  LDICT's
-shared-memory hash set bit-equal on its edge cases (page sizes on both
-sides of the warp / block split, INT64_MIN and INT64_MAX, more than
-65,535 pages).
+multiply, a round-to-nearest-even cast), single and grouped; the grouped
+quantize bit-equal in one launch per `group_capacity()` items, on
+unaligned views, bfloat16 inputs, other blocks and .5 boundaries.  LDICT's
+shared-memory hash set and PREFIX's warp and block paths bit-equal on
+their edge cases (page sizes on both sides of the warp / block split,
+INT64_MIN and INT64_MAX, pages that mix signs, more than 65,535 pages).
 """
 import numpy as np
 import pytest
@@ -286,6 +288,46 @@ def test_cuda_ldict_edge_cases_equal_plain(cuda, rpp, pages, copies):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rpp", [1, 31, 32, 33, 273, 512, 513, 4096])
+@pytest.mark.parametrize("pages", ["ragged", "n < rpp"])
+@pytest.mark.parametrize("copies", [1, 256], ids=["few pages", "many pages"])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "row offset"])
+def test_cuda_prefix_edge_cases_equal_plain(cuda, rpp, pages, copies,
+                                            offset):
+    """Few pages, or pages of more than 512 rows, take PREFIX's
+    block-per-page path, >= 1,024 pages of <= 512 rows its warp path: the
+    int64 extremes, pages that mix signs and values differing only in
+    their high bits go through both, with pages starting 16-byte aligned
+    or not (a stack that starts one row later)."""
+    n = 3 * rpp + rpp // 2 + 1 if pages == "ragged" else max(1, rpp - 3)
+    stack = np.tile(ldict_stack(n, rpp + 1), (copies, 1))
+    cols = torch.as_tensor(stack, device=cuda)[offset:]
+    widths = torch.as_tensor([1, 2, 8, 8, 8, 8, 1, 8] * copies,
+                             device=cuda)[offset:]
+    before = launch_counts()["prefix_bytes"]
+    got = cb.prefix_bytes(cols, widths, rpp)
+    want = cb.prefix_bytes_plain(cols, widths, rpp)
+    torch.cuda.synchronize()
+    assert launch_counts()["prefix_bytes"] == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,rpp", [((1, 65535), 1), ((65535, 3), 3),
+                                       ((240, 75000), 273),
+                                       ((801, 60000), 273),
+                                       ((1639, 1638 * 40), 1638)])
+def test_cuda_prefix_over_65535_pages_equal_plain(cuda, shape, rpp):
+    rng = np.random.default_rng(shape[1] + 1)
+    top = 1 << int(rng.integers(1, 62))
+    cols = torch.as_tensor(rng.integers(-top, top, size=shape), device=cuda)
+    widths = torch.as_tensor(rng.integers(1, 9, size=shape[0]), device=cuda)
+    assert shape[0] * -(-shape[1] // rpp) >= 65535
+    assert torch.equal(cb.prefix_bytes(cols, widths, rpp),
+                       cb.prefix_bytes_plain(cols, widths, rpp))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape,rpp", [((1, 65535), 1), ((65535, 3), 3),
                                        ((240, 75000), 273),
                                        ((1639, 1638 * 40), 1638)])
@@ -503,6 +545,180 @@ def test_cuda_q8_wire_one_launch_per_bucket(cuda, monkeypatch):
     after = launch_counts()
     assert after["dequantize_blockwise"] == \
         before["dequantize_blockwise"] + n_buckets
-    assert after["quantize_blockwise"] == before["quantize_blockwise"] + 4
+    assert after["quantize_blockwise"] == \
+        before["quantize_blockwise"] + n_buckets
     for k, g in grads.items():
         assert torch.equal(g.view(torch.int32), want[k].view(torch.int32))
+
+
+def quantize_group_items(device, shapes, seed=0, block=qb.DEFAULT_BLOCK):
+    """(x, q, scales) items of seeded data: every third x bfloat16, q
+    starting at 99 and the scales as NaN, so an element left unwritten
+    shows."""
+    rng = np.random.default_rng(seed)
+    items = []
+    for i, shape in enumerate(shapes):
+        x = torch.as_tensor((rng.standard_normal(shape) * 3).astype(
+            np.float32), device=device)
+        if i % 3 == 1:
+            x = x.to(torch.bfloat16)
+        nb = -(-shape[-1] // block)
+        items.append((x, torch.full(shape, 99, dtype=torch.int8,
+                                    device=device),
+                      torch.full((*shape[:-1], nb), float("nan"),
+                                 device=device)))
+    return items
+
+
+def assert_quantized_bit_equal(items, block=qb.DEFAULT_BLOCK):
+    for x, q, s in items:
+        q_p, s_p = qb.quantize_blockwise_plain(x, block)
+        assert torch.equal(q, q_p), tuple(x.shape)
+        assert torch.equal(s.view(torch.int32), s_p.view(torch.int32))
+
+
+MIXED = [(2048,), (300,), (7,), (3,), (32, 64), (9, 130), (128, 256),
+         (3, 5, 200), (2, 3, 4, 384), (2, 2, 2, 129), (1000,), (0, 5),
+         (40, 8), (6, 1)]
+
+
+@pytest.mark.cuda
+def test_cuda_quantize_group_bit_equal_plain_one_launch(cuda):
+    items = quantize_group_items(cuda, MIXED)
+    before = launch_counts()["quantize_blockwise"]
+    qb.quantize_blockwise_group(items)
+    torch.cuda.synchronize()
+    assert launch_counts()["quantize_blockwise"] == before + 1
+    assert_quantized_bit_equal(items)
+
+
+@pytest.mark.cuda
+def test_cuda_quantize_group_longer_than_one_struct(cuda):
+    cap = qb.group_capacity()
+    rng = np.random.default_rng(1)
+    shapes = [(int(rng.integers(1, 4)), int(rng.integers(1, 300)))
+              for _ in range(cap + 5)]
+    items = quantize_group_items(cuda, shapes, seed=1)
+    before = launch_counts()["quantize_blockwise"]
+    qb.quantize_blockwise_group(items)
+    torch.cuda.synchronize()
+    assert launch_counts()["quantize_blockwise"] == before + 2
+    assert_quantized_bit_equal(items)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("where", ["x", "q", "both"])
+def test_cuda_quantize_group_on_unaligned_views(cuda, dtype, where):
+    """x or q one element past an aligned address: the kernel's one
+    element at a time path, the same bits."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(2)
+    items = []
+    for shape in [(37, 256), (5, 130), (64,)]:
+        x = torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                            device=cuda).to(dt)
+        q = torch.empty(shape, dtype=torch.int8, device=cuda)
+        if where in ("x", "both"):
+            buf = torch.empty(x.numel() + 1, dtype=dt, device=cuda)
+            x = buf[1:].view(shape).copy_(x)
+        if where in ("q", "both"):
+            buf = torch.empty(q.numel() + 1, dtype=torch.int8, device=cuda)
+            q = buf[1:].view(shape)
+        items.append((x, q, torch.empty((*shape[:-1], -(-shape[-1] // 128)),
+                                        device=cuda)))
+    before = launch_counts()["quantize_blockwise"]
+    qb.quantize_blockwise_group(items)
+    torch.cuda.synchronize()
+    assert launch_counts()["quantize_blockwise"] == before + 1
+    assert_quantized_bit_equal(items)
+    if where == "x":                          # and the single call
+        for x, q, s in items:
+            q1, s1 = qb.quantize_blockwise(x)
+            assert torch.equal(q1, q) and torch.equal(s1, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [1, 6, 64, 100, 256])
+def test_cuda_quantize_group_other_blocks(cuda, block):
+    items = quantize_group_items(cuda, [(3, 300), (7,), (4, 2, 129),
+                                        (1, 1000), (50, 64)], seed=block,
+                                 block=block)
+    qb.quantize_blockwise_group(items, block)
+    torch.cuda.synchronize()
+    assert_quantized_bit_equal(items, block)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_quantize_at_the_int8_boundaries(cuda, dtype):
+    """x / scale on and a few ulps around every k + .5 (k in -127..126)
+    and at +-127, under random scales: the IEEE division and round half to
+    even of the plain version, bit for bit."""
+    rng = np.random.default_rng(3)
+    k = rng.integers(-127, 127, size=(8192, 128)).astype(np.float32)
+    scale = rng.uniform(1e-6, 1e3, size=(8192, 1)).astype(np.float32)
+    x = (k + 0.5) * scale
+    x[:, 0] = 127 * scale[:, 0]
+    x[:, 1] = -127 * scale[:, 0]
+    x *= (1 + rng.integers(-3, 4, size=x.shape) * 2.0 ** -23).astype(
+        np.float32)
+    t = torch.as_tensor(x.astype(np.float32), device=cuda).to(
+        getattr(torch, dtype))
+    items = [(t, torch.empty(t.shape, dtype=torch.int8, device=cuda),
+              torch.empty((8192, 1), device=cuda))]
+    qb.quantize_blockwise_group(items)
+    q1, s1 = qb.quantize_blockwise(t)
+    torch.cuda.synchronize()
+    assert_quantized_bit_equal(items)
+    assert torch.equal(q1, items[0][1]) and torch.equal(s1, items[0][2])
+
+
+@pytest.mark.cuda
+def test_cuda_quantize_splits_large_tensors_by_rows(cuda, monkeypatch):
+    """A tensor of 2^31 elements or more goes as several kernel items of
+    whole rows (`_MAX_ITEM` made small here): one launch, the same bits,
+    grouped and single."""
+    monkeypatch.setattr(qb, "_MAX_ITEM", 5000)
+    items = quantize_group_items(cuda, [(2048,), (300, 130), (100, 384),
+                                        (7,), (64, 4, 64)], seed=4)
+    before = launch_counts()["quantize_blockwise"]
+    qb.quantize_blockwise_group(items)
+    single = [qb.quantize_blockwise(x) for x, _, _ in items]
+    torch.cuda.synchronize()
+    assert max(x.numel() for x, _, _ in items) > 5000
+    # one launch for the group, one for each single call
+    assert launch_counts()["quantize_blockwise"] == before + 1 + len(items)
+    assert_quantized_bit_equal(items)
+    for (_, q, s), (q1, s1) in zip(items, single):
+        assert torch.equal(q1, q) and torch.equal(s1, s)
+
+
+@pytest.mark.cuda
+def test_cuda_adamw_q8_one_launch_each_way_per_parameter(cuda):
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    rng = np.random.default_rng(5)
+    shapes = {"w": (64, 256), "b": (130,), "n": (3, 4, 64)}
+    params = torch.nn.ParameterDict({k: torch.nn.Parameter(torch.as_tensor(
+        rng.standard_normal(sh).astype(np.float32), device=cuda))
+        for k, sh in shapes.items()})
+    cfg = AdamWConfig(lr=1e-2, state_codec="q8")
+    state = adamw_init(params, cfg)
+    grads = {k: torch.as_tensor(rng.standard_normal(sh).astype(np.float32),
+                                device=cuda) for k, sh in shapes.items()}
+    before = launch_counts()
+    adamw_update(params, grads, state, cfg)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    for name in ("quantize_blockwise", "dequantize_blockwise"):
+        assert after[name] == before[name] + len(shapes)
+    # from zero moments: m = (1 - b1) g and sqrt(v) = sqrt((1 - b2) g g),
+    # the same ops on the same device, then the plain quantize
+    for k, mom in state["moments"].items():
+        zero = torch.zeros_like(grads[k])
+        m = cfg.b1 * zero + (1 - cfg.b1) * grads[k]
+        v = cfg.b2 * (zero * zero) + (1 - cfg.b2) * grads[k] * grads[k]
+        for name, t in (("m", m), ("v", torch.sqrt(v))):
+            q_p, s_p = qb.quantize_blockwise_plain(t)
+            assert torch.equal(q_p, mom[f"{name}_q"])
+            assert torch.equal(s_p, mom[f"{name}_s"])
