@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Time the LDICT, PREFIX, quantize, dequantize and dequant-matmul
-kernels, the q8 gradient wire and the planner of this checkout on one
-GPU.
+"""Time the NS, LDICT, PREFIX, RLE, quantize, dequantize and
+dequant-matmul kernels, the q8 gradient wire and the planner of this
+checkout on one GPU.
 
     python3 chip_kernel_times.py
 
-LDICT and PREFIX (`kernels.codec_bytes.ldict_bytes` / `prefix_bytes`)
-are timed on every distinct input that the advisor runs of
-`chip_smoke.py` phases 3 and 3b give them (DTAc `recommend` at TPC-H SF1
-size on the TPC-H workload, then on 10,000 statements with all five
-codecs and compression_budget 128), PREFIX also at (801, 60000) int64,
-rpp 273, values below 2^32 from seed 0; the 3b run's plan-phase seconds
+NS, LDICT, PREFIX and RLE (`kernels.codec_bytes.ns_bytes` /
+`ldict_bytes` / `prefix_bytes` / `rle_bytes`) are timed on every distinct
+input that the advisor runs of `chip_smoke.py` phases 3, 3b and 3c give
+them (DTAc `recommend` at TPC-H SF1 size on the TPC-H workload, then on
+10,000 statements with all five codecs and compression_budget 128, then
+`staged_recommend` with the five codecs on the TPC-H workload), PREFIX
+and RLE also at (801, 60000) int64, rpp 273, and NS at (11, 60000), values
+below 2^32 from seed 0 (`"input": "seed 0"`); the 3b run's plan-phase
+seconds
 (`Recommendation.phase_seconds["plan"]`) are kept, with those of a second
 3b run and the split of a third one's (`cProfile` around
 `DesignAdvisor.estimate_sizes`, cumulative seconds of the planner's parts
@@ -59,6 +62,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 FIVE = ("NS", "GDICT", "LDICT", "PREFIX", "RLE")
+# the codec kernels the advisor runs (GDICT is priced on the host)
+CODECS = ("ns_bytes", "ldict_bytes", "prefix_bytes", "rle_bytes")
 WIRE = (((32000, 2048), 2), ((2048,), 45))     # (shape, tensors a step)
 # (shape, tensors, data): normal values; 3/4 of the rows zero (an
 # embedding gradient's shape); a tenth of the values subnormal
@@ -133,22 +138,22 @@ def main() -> int:
             runs.append(a.elapsed_time(b) / (reps * calls))
         return min(runs)
 
-    # LDICT and PREFIX: the distinct (shape, rpp) inputs of the two advisor
-    # runs
+    # the codec kernels: the distinct (shape[, rpp]) inputs of the three
+    # advisor runs
     schema = pt.make_tpch_like(scale=100, z=0.0, seed=0)
     budget = 0.25 * sum(t.nrows * (sum(c.width for c in t.columns) + 4)
                         for t in schema.tables.values())
-    seen = {"ldict_bytes": {}, "prefix_bytes": {}}
-    ldict, prefix = cb.ldict_bytes, cb.prefix_bytes
+    seen = {name: {} for name in CODECS}
+    kernel = {name: getattr(cb, name) for name in CODECS}
 
-    def capturing(name, fn):
-        def capture(cols, widths, rpp):
-            seen[name].setdefault((tuple(cols.shape), int(rpp)),
+    def capturing(name):
+        def capture(cols, widths, *rpp):
+            seen[name].setdefault((tuple(cols.shape), *map(int, rpp)),
                                   (cols, widths))
-            return fn(cols, widths, rpp)
+            return kernel[name](cols, widths, *rpp)
         return capture
-    cb.ldict_bytes = capturing("ldict_bytes", ldict)
-    cb.prefix_bytes = capturing("prefix_bytes", prefix)
+    for name in CODECS:
+        setattr(cb, name, capturing(name))
     try:
         wl = pt.make_tpch_workload(schema, insert_weight=0.1)
         pt.DesignAdvisor(wl, pt.AdvisorOptions(
@@ -159,8 +164,12 @@ def main() -> int:
                                   methods=FIVE, compression_budget=128)
         plan_s = [pt.DesignAdvisor(wl_big, opts5).recommend(
             budget).phase_seconds["plan"]]
+        pt.staged_recommend(wl, budget, methods=FIVE,
+                            options=pt.AdvisorOptions(backend="torch",
+                                                      device="cuda"))
     finally:
-        cb.ldict_bytes, cb.prefix_bytes = ldict, prefix
+        for name in CODECS:
+            setattr(cb, name, kernel[name])
     plan_s.append(pt.DesignAdvisor(wl_big, opts5).recommend(
         budget).phase_seconds["plan"])
     # a third run's plan phase, profiled
@@ -184,26 +193,35 @@ def main() -> int:
             pstats.Stats(prof).stats.items():
         if (Path(path).name, name) in PLAN_PARTS:
             plan_split[name] = {"calls": calls, "cumulative_s": cum}
+    # the targets, values below 2^32 from seed 0
     rng = np.random.default_rng(0)
-    seen["prefix_bytes"][((801, 60000), 273)] = (
-        torch.as_tensor(rng.integers(0, 1 << 32, size=(801, 60000)),
-                        device="cuda"),
-        torch.as_tensor(rng.integers(1, 9, size=801), device="cuda"))
-    paged = {}
-    for name, fn in (("ldict_bytes", ldict), ("prefix_bytes", prefix)):
-        plain = getattr(cb, f"{name}_plain")
-        paged[name] = []
-        for (shape, rpp), (cols, widths) in sorted(seen[name].items()):
-            if not torch.equal(fn(cols, widths, rpp),
-                               plain(cols, widths, rpp)):
-                raise SystemExit(f"{name} != plain on {shape}, rpp {rpp}")
-            paged[name].append({
-                "shape": list(shape), "rpp": rpp,
-                "pages": shape[0] * -(-shape[1] // rpp),
-                "ms": per_call_ms(lambda: fn(cols, widths, rpp), 1, 20),
-                "device_ms": device_ms(lambda: fn(cols, widths, rpp), 1)})
-    del seen
-    ld = paged["ldict_bytes"]
+    big = tuple(torch.as_tensor(a, device="cuda") for a in (
+        rng.integers(0, 1 << 32, size=(801, 60000)),
+        rng.integers(1, 9, size=801)))
+    wide = tuple(torch.as_tensor(a, device="cuda") for a in (
+        rng.integers(0, 1 << 32, size=(11, 60000)),
+        rng.integers(1, 9, size=11)))
+    targets = {"ns_bytes": {((11, 60000),): wide},
+               "prefix_bytes": {((801, 60000), 273): big},
+               "rle_bytes": {((801, 60000), 273): big}}
+    codec = {}
+    for name in CODECS:
+        fn, plain = kernel[name], getattr(cb, f"{name}_plain")
+        codec[name] = []
+        for source, inputs in (("advisor", seen[name]),
+                               ("seed 0", targets.get(name, {}))):
+            for key, (cols, widths) in sorted(inputs.items()):
+                args = (cols, widths, *key[1:])
+                if not torch.equal(fn(*args), plain(*args)):
+                    raise SystemExit(f"{name} != plain on {key}")
+                rec = {"input": source, "shape": list(key[0]),
+                       "ms": per_call_ms(lambda: fn(*args), 1, 20),
+                       "device_ms": device_ms(lambda: fn(*args), 1)}
+                if len(key) > 1:
+                    rec.update(rpp=key[1],
+                               pages=key[0][0] * -(-key[0][1] // key[1]))
+                codec[name].append(rec)
+    del seen, targets, big, wide
 
     # quantize at the LM shapes, random float32 tensors from seed 0
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -327,12 +345,13 @@ def main() -> int:
                    "matmul_ms": per_call_ms(matmuls, LAYERS),
                    "matmul_device_ms": device_ms(matmuls, LAYERS)})
         del args, dense
-    px = paged["prefix_bytes"]
-    print(json.dumps({"card": card, "ldict": ld,
-                      "ldict_device_ms_sum": sum(r["device_ms"] for r in ld),
-                      "prefix": px,
-                      "prefix_device_ms_sum": sum(r["device_ms"] for r in px),
-                      "quantize": qz, "q8_wire": wire_rec,
+    out = {"card": card}
+    for name in CODECS:
+        short = name[:-len("_bytes")]
+        out[short] = codec[name]
+        out[f"{short}_device_ms_sum"] = sum(
+            r["device_ms"] for r in codec[name] if r["input"] == "advisor")
+    print(json.dumps({**out, "quantize": qz, "q8_wire": wire_rec,
                       "dequantize": dq, "dequant_matmul": dm,
                       "plan_seconds_3b": plan_s,
                       "plan_split_3b": plan_split}))

@@ -6,18 +6,21 @@ serving and LM training.
 
 Phases (any failure exits non-zero; nothing is caught), run in the order
 1, 2, 3, 3b, 3c, 4, 5, 4b, 6, 4c:
-  1. print the card (nvidia-smi name, power limit) and build the eleven
+  1. print the card (nvidia-smi name, power limit) and build the sixteen
      hand-written kernels from the sources under src/repro_torch/kernels/
      (four libraries, one nvcc per source, all started together);
   2. hold each kernel against its plain PyTorch version on the card on
      edge cases: the five codec kernels (NS, GDICT, LDICT, PREFIX, RLE),
-     and LDICT and PREFIX once more on page sizes around their warp and
-     block paths, the int64 extremes, pages that mix signs and grids of
-     more than 65,535 pages, blockwise quantization (single calls and
-     groups: mixed ranks and types, unaligned views, other blocks, .5
-     boundaries, a group longer than one launch takes) and blockwise
-     dequantization (float32 and bfloat16 output; single calls and
-     groups, one of them longer than one launch takes) bit-equal;
+     and LDICT, PREFIX and RLE once more on page sizes around their warp
+     and block paths, the int64 extremes, pages that mix signs, runs
+     across page, 16-byte pair and warp-step boundaries and grids of more
+     than 65,535 pages, NS on significant-byte edges with rows of one
+     block and rows split over a cluster, blockwise quantization
+     (single calls and groups: mixed ranks and types, unaligned views,
+     other blocks, .5 boundaries, a group longer than one launch takes)
+     and blockwise dequantization (float32 and bfloat16 output; single
+     calls and groups, one of them longer than one launch takes)
+     bit-equal;
      prob_within and fused_score
      within the stated tolerances, plus their two bitwise properties (prob
      consistency, K-pad invariance); the planner walk bit-equal to its plain
@@ -45,8 +48,8 @@ Phases (any failure exits non-zero; nothing is caught), run in the order
      walk), and time both there; the walk on 3b's graph, per call and in
      device time; LDICT's device time over the second runs of 3 and 3b
      (torch.profiler) beside their SampleCF seconds, LDICT at each
-     phase's largest input, and PREFIX per call and in device time at
-     its largest input;
+     phase's largest input, and NS, PREFIX and RLE per call and in device
+     time at their largest inputs;
   5. LM serving at TinyLlama-1.1B's published size (22 layers, d_model
      2048, float32 weights from the port's init_params, seed 0): 5a the
      layout advisor's plan for the serve job at an 80 GB and a 1.5 GB
@@ -122,6 +125,8 @@ FIVE = ("NS", "GDICT", "LDICT", "PREFIX", "RLE")
 CODECS = ("ns_bytes", "gdict_bytes", "ldict_bytes", "prefix_bytes",
           "rle_bytes")
 ORD_IND = ("ns_bytes", "gdict_bytes")     # wrappers that take no rpp
+# codec kernels whose device time phase 4 also records
+DEVICE_TIMED = ("ns_bytes", "prefix_bytes", "rle_bytes")
 # phase 2: LDICT page sizes around a warp's 32 lanes, its warp / block
 # split (512 rows), the main path's 273 and the largest (1638), and grids
 # of more than 65,535 pages; PREFIX's the same, up to 4096
@@ -130,6 +135,9 @@ LDICT_GRIDS = (((1, 65535), 1), ((240, 75000), 273), ((41, 1638 * 1600), 1638))
 PREFIX_RPPS = (1, 31, 32, 33, 273, 512, 513, 4096)
 PREFIX_GRIDS = (((1, 65535), 1), ((65535, 3), 3), ((240, 75000), 273),
                 ((801, 60000), 273))
+# NS: (m, n) of one block a row and of rows split over a cluster of blocks
+NS_EDGES = ((1, 1), (11, 7), (11, 60000), (11, 60001), (200, 60001),
+            (4096, 7), (4096, 4097), (3, (1 << 20) + 3))
 N_SCALED = 10_000                # phase 3b: statements before compression
 COMPRESSION_BUDGET = 128         # phase 3b: representatives advised on
 # GDICT is priced on the host by the Adaptive Estimator in SampleCF (as in
@@ -315,6 +323,22 @@ def main() -> int:
     # of more than 65,535 pages
     i64_min, i64_max = -(1 << 63), (1 << 63) - 1
 
+    def run_stack(n, rpp):
+        """Runs where RLE's page walk cuts: a run of rpp across every page
+        boundary, alternating values, runs of two on and off a 16-byte
+        pair, changes at and one before a warp step's 64 values."""
+        i = np.arange(n)
+        return np.stack([(i + rpp // 2) // rpp, i % 2, i // 2, (i + 1) // 2,
+                         i // 64, (i + 1) // 64])
+
+    def byte_edge_stack(n):
+        """Each row the values 2^(8k) - 1 and 2^(8k), k = 1..7, and -2^(8k)
+        at shifting positions."""
+        edges = np.array([v for k in range(1, 8) for v in
+                          ((1 << (8 * k)) - 1, 1 << (8 * k), -(1 << (8 * k)))],
+                         dtype=np.int64)
+        return np.stack([np.resize(np.roll(edges, j), n) for j in range(3)])
+
     def edge_stack(n):
         """Rows all equal, of both signs, at the int64 extremes, differing
         only in their high bits, of a small domain, of the full range."""
@@ -353,38 +377,64 @@ def main() -> int:
           f"cases (rpp {LDICT_RPPS}, ragged and single short pages, equal, "
           f"distinct and int64-extreme rows, on few pages and on many; "
           f"grids {LDICT_GRIDS})")
-    # PREFIX on the same rows: few pages or pages of more than 512 rows
-    # take its block per page, >= 1,024 pages of <= 512 rows its warp
-    # path; each stack also from its second row on (pages whose first
-    # value is not 16-byte aligned where n is odd); then grids of more
-    # than 65,535 pages, values of both signs
+    # PREFIX and RLE (one page walk) on the same rows and on runs across
+    # page, 16-byte pair and warp-step boundaries: few pages or pages of
+    # more than 512 rows take the block per page, >= 1,024 pages of <= 512
+    # rows the warp path; each stack also from its second row on (pages
+    # whose first value is not 16-byte aligned where n is odd); then grids
+    # of more than 65,535 pages, runs of 1-4 values of both signs
     n_px = 0
     for rpp in PREFIX_RPPS:
         for n in (3 * rpp + rpp // 2 + 1, max(1, rpp - 3)):
-            stack = edge_stack(n)
+            stack = np.concatenate([edge_stack(n), run_stack(n, rpp)])
             for copies in (1, 256):
                 cols = t64(np.tile(stack, (copies, 1)))
-                widths = t64([1, 2, 8, 8, 8, 8, 1, 8] * copies)
+                widths = t64(np.resize([1, 2, 8, 8, 8, 8, 1, 8, 3],
+                                       len(stack) * copies))
                 for off in (0, 1):
                     args = (cols[off:], widths[off:], rpp)
-                    if not torch.equal(cb.prefix_bytes(*args),
-                                       cb.prefix_bytes_plain(*args)):
-                        fail(f"prefix_bytes != plain on edge rows, rpp "
-                             f"{rpp}, n {n}, {copies} copies, from row "
-                             f"{off}")
+                    for name in ("prefix_bytes", "rle_bytes"):
+                        if not torch.equal(
+                                getattr(cb, name)(*args),
+                                getattr(cb, f"{name}_plain")(*args)):
+                            fail(f"{name} != plain on edge rows, rpp {rpp}, "
+                                 f"n {n}, {copies} copies, from row {off}")
                     n_px += 1
     for shape, rpp in PREFIX_GRIDS:
-        cols = t64(rng.integers(-(1 << 40), 1 << 40, size=shape))
+        vals = rng.integers(-(1 << 40), 1 << 40, size=shape)
+        cols = t64(np.repeat(vals, rng.integers(1, 5, size=shape[1]),
+                             axis=1)[:, :shape[1]])
         widths = t64(rng.integers(1, 9, size=shape[0]))
-        if not torch.equal(cb.prefix_bytes(cols, widths, rpp),
-                           cb.prefix_bytes_plain(cols, widths, rpp)):
-            fail(f"prefix_bytes != plain on {shape} at rpp {rpp} "
-                 f"({shape[0] * -(-shape[1] // rpp)} pages)")
+        for name in ("prefix_bytes", "rle_bytes"):
+            if not torch.equal(getattr(cb, name)(cols, widths, rpp),
+                               getattr(cb, f"{name}_plain")(cols, widths,
+                                                            rpp)):
+                fail(f"{name} != plain on {shape} at rpp {rpp} "
+                     f"({shape[0] * -(-shape[1] // rpp)} pages)")
         n_px += 1
+    del cols, widths, stack, args, vals
+    print(f"codec kernels: prefix_bytes and rle_bytes bit-equal to plain on "
+          f"{n_px} more cases each (rpp {PREFIX_RPPS}, the same rows and "
+          f"runs across page, pair and warp-step boundaries on few pages "
+          f"and on many, aligned and not; grids {PREFIX_GRIDS})")
+    # NS on the same rows with the significant-byte edges, rows of one
+    # block and rows split over a cluster of up to 8 blocks, 16-byte
+    # aligned and not
+    n_ns = 0
+    for m, n in NS_EDGES:
+        stack = np.concatenate([edge_stack(n), byte_edge_stack(n)])
+        cols = t64(np.resize(stack, (m + 1, n)))
+        widths = t64(np.resize(np.arange(1, 9), m + 1))
+        for off in (0, 1):
+            args = (cols[off:], widths[off:])
+            if not torch.equal(cb.ns_bytes(*args), cb.ns_bytes_plain(*args)):
+                fail(f"ns_bytes != plain on edge rows ({m}, {n}) from row "
+                     f"{off}")
+            n_ns += 1
     del cols, widths, stack, args
-    print(f"codec kernels: prefix_bytes bit-equal to plain on {n_px} more "
-          f"cases (rpp {PREFIX_RPPS}, the same rows on few pages and on "
-          f"many, aligned and not; grids {PREFIX_GRIDS})")
+    print(f"codec kernels: ns_bytes bit-equal to plain on {n_ns} more cases "
+          f"((m, n) {NS_EDGES}, significant-byte edges at widths 1-8, "
+          f"aligned and not)")
 
     e, q = 0.5, 0.9
 
@@ -1107,7 +1157,7 @@ def main() -> int:
         ms = time_ms(lambda: fn(*args), reps)
         plain_ms = time_ms(lambda: plain(*args), max(5, reps // 10))
         dev_ms = None
-        if name == "prefix_bytes":       # redesigned: its device time too
+        if name in DEVICE_TIMED:
             dev_ms = device_ms(lambda: fn(*args), reps)
             extra += f", device time {dev_ms:.4f} ms"
         if name == "gdict_bytes":
@@ -1133,8 +1183,9 @@ def main() -> int:
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": None})
         if dev_ms is not None:
-            records[-1].update(device_ms=dev_ms, shape=list(shape),
-                               rpp=int(args[2]))
+            records[-1].update(device_ms=dev_ms, shape=list(shape))
+            if name not in ORD_IND:
+                records[-1]["rpp"] = int(args[2])
     # the timing launches above count too; the record keeps the measured
     # paths' counts (phases 3, 3b and 3c)
     rec_ld = next(r for r in records if r["name"] == "ldict_bytes")

@@ -9,9 +9,8 @@
 //                          (torch.sort), as it was XLA's on the TPU
 //   ldict_warp_kernel,  <- _ldict_kernel (l.113) AND the per-page lax.sort
 //   ldict_block_kernel     pre-pass of _codec_call (l.187-191)
-//   prefix_warp_kernel, <- _prefix_kernel (l.128)
-//   prefix_block_kernel
-//   rle_bytes_kernel    <- _rle_kernel (l.149)
+//   page_warp_kernel,   <- _prefix_kernel (l.128) with PrefixPage,
+//   page_block_kernel      _rle_kernel (l.149) with RlePage
 // The TPU version split each int64 into two uint32 planes because the TPU
 // path has no 64-bit integers; Hopper has them, so values are read as
 // int64 directly and the result is exact for every int64 input (negative
@@ -23,23 +22,35 @@
 // What bounds them on an H100: bytes read.  Each value is read once from
 // device memory (8 bytes) and costs a handful of integer operations, far
 // below the card's integer rate, so the floor is m * n * 8 bytes over
-// 3.35 TB/s.  NS and GDICT: one block per row, a block-strided loop of
-// coalesced loads and a block reduction.  RLE: one block per (row, page),
-// counting adjacent unequal pairs in the order given, its byte count added
-// to the row total with a 64-bit integer atomic (order-free, hence
-// deterministic).
+// 3.35 TB/s.  GDICT: one block per row, a block-strided loop of coalesced
+// loads and a block reduction.
 //
-// PREFIX needs each page's min and max.  With many pages (>= 1,024) of up
-// to 512 rows, each warp of a persistent grid (as many warps as the card
-// holds at once) takes an equal run of consecutive pages of the flattened
-// (row, page) space and streams them: per page every lane loads pairs of
-// values with 16-byte loads from the page's first 16-byte-aligned value on
-// (a page of 273 rows starts 8-byte aligned, so one value may come
-// before them and one after), keeps a running signed min and max, and the
-// page closes with a shuffle reduction, no barrier; the warp adds its bytes
-// to a row total with one atomic per row it touched.  Fewer pages, or
-// larger ones, take one 256-thread block per page and a block reduction:
-// there a page's latency decides.
+// NS spreads each row over a thread-block cluster of up to 8 blocks
+// (more blocks per row while the grid would leave SMs idle and each block
+// keeps >= 1,024 values), launched with cudaLaunchKernelEx: each block
+// reads its share of the row's 16-byte pairs, four loads a thread in
+// flight, reduces it with shuffles and shared memory, and block rank 0
+// sums the blocks' partials through distributed shared memory and writes
+// the row's bytes.  No atomic, no zeroed output, one launch.  Rows that
+// fill the card alone, or of fewer than 2,048 values, take one block each
+// in a plain launch.
+//
+// PREFIX (each page's min and max) and RLE (each page's adjacent unequal
+// pairs, in the order given) walk pages the same way, one template each,
+// instantiated with the per-page operation.  With many pages (>= 1,024)
+// of up to 512 rows, each warp of a persistent grid (as many warps as the
+// card holds at once) takes an equal run of consecutive pages of the
+// flattened (row, page) space and streams them: per page every lane loads
+// pairs of values with 16-byte loads from the page's first 16-byte-aligned
+// value on (a page of 273 rows starts 8-byte aligned, so one value may
+// come before them and one after), all loads issued before any is used;
+// the page closes with a shuffle reduction, no barrier; the warp adds its
+// bytes to a row total with one atomic per row it touched.  RLE compares
+// each pair inside itself and with the value to its left, which a
+// __shfl_up brings from the lane before (lane 0 keeps lane 31's from the
+// step before, or the page's odd first value), never from another page.
+// Fewer pages, or larger ones, take one 256-thread block per page and a
+// block reduction: there a page's latency decides.
 //
 // LDICT counts each page's distinct values with a hash set in shared
 // memory, not a sort: a sort of a 273-row page in shared memory, padded to
@@ -63,6 +74,7 @@
 // is kept out of the table and counted with a flag.  Only a page's real
 // rows are read: the reference edge-pads the last page with its last
 // value, which adds no distinct value, no run and no new min or max.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -73,12 +85,12 @@ namespace {
 constexpr int kThreads = 256;
 constexpr long long kPageMeta = 16;
 
-__device__ __forceinline__ long long sig_bytes(long long v) {
-  const unsigned long long u = static_cast<unsigned long long>(v);
-  long long s = 1;
-#pragma unroll
-  for (int k = 1; k < 8; ++k) s += (u >= (1ull << (8 * k))) ? 1 : 0;
-  return s;
+// Significant bytes of v read as uint64, 1..8: a value of b significant
+// bits (b = 64 - clz, 1 <= b <= 64) takes ceil(b / 8) = (71 - clz) >> 3
+// bytes, and 0 (clz = 64) gives 0, raised to 1; a negative value has
+// clz = 0 and takes 8.
+__device__ __forceinline__ int sig_bytes(long long v) {
+  return max(1, (71 - __clzll(v)) >> 3);
 }
 
 __device__ __forceinline__ long long ptr_bytes(long long ndv) {
@@ -133,19 +145,86 @@ __device__ void block_minmax(long long& mn, long long& mx) {
   }
 }
 
-__global__ void ns_bytes_kernel(const long long* __restrict__ cols,
-                                const long long* __restrict__ widths,
-                                long long* __restrict__ out, int n) {
-  const int row = blockIdx.x;
-  const long long w = widths[row];
-  const long long* __restrict__ r = cols + static_cast<long long>(row) * n;
-  long long acc = 0;
-  for (int j = threadIdx.x; j < n; j += kThreads) {
-    const long long s = min(sig_bytes(r[j]), w);
-    acc += min(2 * s + 1, 2 * w);
+// blocks a row may take (the portable cluster size), and the values a
+// block keeps at least
+constexpr int kNsMaxCluster = 8;
+constexpr int kNsMinBlockValues = 1024;
+
+// Half-bytes of one value of a column of width wc = min(w, 9): for w >= 9
+// min(2s + 1, 2w) = 2s + 1 (s <= 8), so the cap changes nothing.
+__device__ __forceinline__ unsigned ns_half(long long v, int wc) {
+  const int s = min(sig_bytes(v), wc);
+  return static_cast<unsigned>(min(2 * s + 1, 2 * wc));
+}
+
+// kCluster: a cluster of P blocks per row (grid m * P, cluster P): block
+// rank r sums the half-bytes of pairs [r * pairs / P, (r + 1) * pairs / P)
+// of the row's 16-byte pairs (rank 0 also the odd value before them, rank
+// P - 1 the one after), and rank 0 sums the P partials through distributed
+// shared memory.  Otherwise one block per row, launched without a cluster:
+// a cluster launch and its barriers cost a short row more than they save.
+// A thread adds at most n / 256 + 2 values of <= 17 half-bytes in 32 bits
+// (n < 2^31); the block sums in 64.  Widths >= 1.
+template <bool kCluster>
+__global__ void __launch_bounds__(kThreads)
+ns_bytes_kernel(const long long* __restrict__ cols,
+                const long long* __restrict__ widths,
+                long long* __restrict__ out, int n) {
+  namespace cg = cooperative_groups;
+  int parts = 1, rank = 0;
+  if constexpr (kCluster) {
+    parts = static_cast<int>(cg::this_cluster().num_blocks());
+    rank = static_cast<int>(cg::this_cluster().block_rank());
   }
-  acc = block_sum(acc);
-  if (threadIdx.x == 0) out[row] = (acc + 1) / 2;
+  const long long row = blockIdx.x / parts;
+  const int wc = static_cast<int>(min(widths[row], 9ll));
+  const long long* __restrict__ r = cols + row * n;
+  const int head = (reinterpret_cast<size_t>(r) & 15) ? 1 : 0;
+  const int pairs = (n - head) >> 1;
+  const int lo =
+      static_cast<int>(static_cast<long long>(pairs) * rank / parts);
+  const int hi =
+      static_cast<int>(static_cast<long long>(pairs) * (rank + 1) / parts);
+  const longlong2* __restrict__ p2 =
+      reinterpret_cast<const longlong2*>(r + head);
+  unsigned acc = 0;
+  int i = lo + static_cast<int>(threadIdx.x);
+  for (; i + 3 * kThreads < hi; i += 4 * kThreads) {
+    const longlong2 a = __ldg(p2 + i);
+    const longlong2 b = __ldg(p2 + i + kThreads);
+    const longlong2 c = __ldg(p2 + i + 2 * kThreads);
+    const longlong2 d = __ldg(p2 + i + 3 * kThreads);
+    acc += ns_half(a.x, wc) + ns_half(a.y, wc) + ns_half(b.x, wc) +
+           ns_half(b.y, wc) + ns_half(c.x, wc) + ns_half(c.y, wc) +
+           ns_half(d.x, wc) + ns_half(d.y, wc);
+  }
+  for (; i < hi; i += kThreads) {
+    const longlong2 a = __ldg(p2 + i);
+    acc += ns_half(a.x, wc) + ns_half(a.y, wc);
+  }
+  if (threadIdx.x == 0 && rank == 0 && head) acc += ns_half(__ldg(r), wc);
+  if (threadIdx.x == 1 && rank == parts - 1 && ((n - head) & 1))
+    acc += ns_half(__ldg(r + n - 1), wc);
+  const long long sum = block_sum(acc);
+  if constexpr (!kCluster) {
+    if (threadIdx.x == 0) out[row] = (sum + 1) / 2;
+  } else {
+    cg::cluster_group cluster = cg::this_cluster();
+    __shared__ long long part;
+    if (threadIdx.x == 0) part = sum;
+    cluster.sync();
+    if (rank == 0 && threadIdx.x < 32) {
+      long long total =
+          static_cast<int>(threadIdx.x) < parts
+              ? *cluster.map_shared_rank(&part, threadIdx.x)
+              : 0;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        total += __shfl_xor_sync(0xffffffffu, total, off);
+      if (threadIdx.x == 0) out[row] = (total + 1) / 2;
+    }
+    cluster.sync();   // every partial stays until rank 0 has read it
+  }
 }
 
 constexpr unsigned long long kEmpty = 0x8000000000000000ull;   // INT64_MIN
@@ -365,6 +444,40 @@ __global__ void gdict_bytes_kernel(const long long* __restrict__ sorted,
   }
 }
 
+constexpr int kPageTeams = 4;                // warps per block
+constexpr long long kPageBlockPages = 1024;   // fewer: a block per page
+constexpr long long kInt64Max = 0x7fffffffffffffffll;
+
+// One page of <= 64 * kPairs values in a warp's registers: lane i holds
+// pairs i, i + 32, ... of 16-byte loads from the page's first
+// 16-byte-aligned value, lane 0 the odd value before them (`head`), and the
+// lane that holds the last pair the odd value after it (`tail`; lane 0 when
+// there is no pair).  Every load is issued before any value is used.
+template <int kPairs>
+struct WarpPage {
+  longlong2 t[kPairs];
+  long long head, tail;
+  int pairs;
+  bool has_head, has_tail;   // this lane holds them
+
+  __device__ __forceinline__ void load(const long long* __restrict__ src,
+                                       int rows, int lane) {
+    const int h = (reinterpret_cast<size_t>(src) & 15) ? 1 : 0;
+    pairs = (rows - h) >> 1;
+    const longlong2* __restrict__ p2 =
+        reinterpret_cast<const longlong2*>(src + h);
+#pragma unroll
+    for (int k = 0; k < kPairs; ++k) {
+      const int i = lane + 32 * k;
+      t[k] = i < pairs ? __ldg(p2 + i) : make_longlong2(0, 0);
+    }
+    has_head = lane == 0 && h;
+    has_tail = ((rows - h) & 1) && lane == (pairs > 0 ? (pairs - 1) & 31 : 0);
+    head = has_head ? __ldg(src) : 0;
+    tail = has_tail ? __ldg(src + rows - 1) : 0;
+  }
+};
+
 // PREFIX bytes of one page from its signed min and max
 __device__ __forceinline__ long long prefix_page_bytes(long long mn,
                                                        long long mx,
@@ -379,24 +492,114 @@ __device__ __forceinline__ long long prefix_page_bytes(long long mn,
   return min(per_page, rows * w + kPageMeta);
 }
 
-constexpr int kPrefixTeams = 4;                // warps per block
-constexpr long long kPrefixBlockPages = 1024;  // fewer: a block per page
-constexpr long long kInt64Max = 0x7fffffffffffffffll;
+// RLE bytes of one page of `runs` runs
+__device__ __forceinline__ long long rle_page_bytes(long long runs,
+                                                    long long rows,
+                                                    long long w) {
+  return min(runs * (w + 2) + kPageMeta, rows * w + kPageMeta);
+}
 
-// A warp per run of `chunk` consecutive pages of the flattened (row,
-// page) space, pages of <= 64 * kPairs rows: per page, lane i loads pairs
-// i, i + 32, ... (16-byte loads, all issued before the min and max use
-// them), lane 0 the value before the first aligned pair and lane 1 the
-// one after the last; a shuffle reduction closes the page.
-template <int kPairs>
-__global__ void __launch_bounds__(kPrefixTeams * 32)
-prefix_warp_kernel(const long long* __restrict__ cols,
-                   const long long* __restrict__ widths,
-                   unsigned long long* __restrict__ out, int n, int rpp,
-                   int npages, long long total_pages, long long chunk) {
+// The per-page operations of page_warp_kernel (warp_page: the page in the
+// warp's registers, bytes valid in every lane) and page_block_kernel
+// (block_page: the page read by a block, bytes computed by thread 0 only:
+// a block per page is short, and the other warps' share of it counts).
+struct PrefixPage {
+  template <int kPairs>
+  static __device__ __forceinline__ long long warp_page(
+      const WarpPage<kPairs>& p, int rows, long long w, int lane) {
+    long long mn = kInt64Max;
+    long long mx = -kInt64Max - 1;
+#pragma unroll
+    for (int k = 0; k < kPairs; ++k) {
+      if (lane + 32 * k < p.pairs) {
+        mn = min(mn, min(p.t[k].x, p.t[k].y));
+        mx = max(mx, max(p.t[k].x, p.t[k].y));
+      }
+    }
+    if (p.has_head) {
+      mn = min(mn, p.head);
+      mx = max(mx, p.head);
+    }
+    if (p.has_tail) {
+      mn = min(mn, p.tail);
+      mx = max(mx, p.tail);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, off));
+      mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    }
+    return prefix_page_bytes(mn, mx, rows, w);
+  }
+
+  static __device__ __forceinline__ long long block_page(
+      const long long* __restrict__ src, int rows, long long w) {
+    // every thread starts from the page's first value, so threads with no
+    // row of their own leave the reduction unchanged
+    long long mn = src[0];
+    long long mx = mn;
+    for (int i = threadIdx.x; i < rows; i += kThreads) {
+      const long long v = src[i];
+      mn = min(mn, v);
+      mx = max(mx, v);
+    }
+    block_minmax(mn, mx);
+    return threadIdx.x == 0 ? prefix_page_bytes(mn, mx, rows, w) : 0;
+  }
+};
+
+struct RlePage {
+  // runs = 1 + #(v[i] != v[i - 1]) over the page: each lane compares its
+  // pair inside and with the value to its left -- the previous pair's .y,
+  // from the lane before (__shfl_up), for lane 0 from lane 31 of the step
+  // before, on the first step the page's odd first value (`head`) or
+  // nothing: the page's first value starts a run -- and the last pair's
+  // lane its .y with the odd value after it.
+  template <int kPairs>
+  static __device__ __forceinline__ long long warp_page(
+      const WarpPage<kPairs>& p, int rows, long long w, int lane) {
+    int neq = 0;
+    long long carry = p.head;   // lane 0: the value left of its pair
+#pragma unroll
+    for (int k = 0; k < kPairs; ++k) {
+      const int i = lane + 32 * k;
+      const long long up = __shfl_up_sync(0xffffffffu, p.t[k].y, 1);
+      const long long last = __shfl_sync(0xffffffffu, p.t[k].y, 31);
+      if (i < p.pairs) {
+        const bool has_left = lane > 0 || k > 0 || p.has_head;
+        neq += (p.t[k].x != p.t[k].y) +
+               (has_left && (lane > 0 ? up : carry) != p.t[k].x);
+        if (p.has_tail && i == p.pairs - 1) neq += p.t[k].y != p.tail;
+      }
+      carry = last;
+    }
+    // two values, neither in a pair: lane 0 holds both
+    if (p.pairs == 0 && p.has_head && p.has_tail) neq += p.head != p.tail;
+    return rle_page_bytes(1 + __reduce_add_sync(0xffffffffu, neq), rows, w);
+  }
+
+  static __device__ __forceinline__ long long block_page(
+      const long long* __restrict__ src, int rows, long long w) {
+    long long neq = 0;
+    for (int i = 1 + threadIdx.x; i < rows; i += kThreads)
+      neq += src[i] != src[i - 1] ? 1 : 0;
+    neq = block_sum(neq);
+    return threadIdx.x == 0 ? rle_page_bytes(1 + neq, rows, w) : 0;
+  }
+};
+
+// A warp per run of `chunk` consecutive pages of the flattened (row, page)
+// space, pages of <= 64 * kPairs rows; the warp adds its bytes to a row's
+// total once per row it touched.
+template <class Op, int kPairs>
+__global__ void __launch_bounds__(kPageTeams * 32)
+page_warp_kernel(const long long* __restrict__ cols,
+                 const long long* __restrict__ widths,
+                 unsigned long long* __restrict__ out, int n, int rpp,
+                 int npages, long long total_pages, long long chunk) {
   const int lane = threadIdx.x & 31;
   long long gp =
-      (static_cast<long long>(blockIdx.x) * kPrefixTeams + (threadIdx.x >> 5)) *
+      (static_cast<long long>(blockIdx.x) * kPageTeams + (threadIdx.x >> 5)) *
       chunk;
   const long long stop = min(gp + chunk, total_pages);
   long long run_row = -1;
@@ -407,35 +610,8 @@ prefix_warp_kernel(const long long* __restrict__ cols,
     const int pg = static_cast<int>(gp - row * npages);
     const int start = pg * rpp;
     const int rows = (pg == npages - 1) ? n - start : rpp;
-    const long long* __restrict__ src = cols + row * n + start;
-    const int head = (reinterpret_cast<size_t>(src) & 15) ? 1 : 0;
-    const int pairs = (rows - head) >> 1;
-    const longlong2* __restrict__ p2 =
-        reinterpret_cast<const longlong2*>(src + head);
-    long long mn = kInt64Max;
-    long long mx = -kInt64Max - 1;
-#pragma unroll
-    for (int k = 0; k < kPairs; ++k) {
-      const int i = lane + 32 * k;
-      if (i < pairs) {
-        const longlong2 t = __ldg(p2 + i);
-        mn = min(mn, min(t.x, t.y));
-        mx = max(mx, max(t.x, t.y));
-      }
-    }
-    const int single = lane == 0 && head ? 0
-                       : lane == 1 && ((rows - head) & 1) ? rows - 1
-                                                          : -1;
-    if (single >= 0) {
-      const long long v = __ldg(src + single);
-      mn = min(mn, v);
-      mx = max(mx, v);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, off));
-      mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    }
+    WarpPage<kPairs> page;
+    page.load(cols + row * n + start, rows, lane);
     if (row != run_row) {
       if (lane == 0 && run_row >= 0)
         atomicAdd(out + run_row, static_cast<unsigned long long>(run_bytes));
@@ -443,86 +619,79 @@ prefix_warp_kernel(const long long* __restrict__ cols,
       run_bytes = 0;
       w = widths[row];
     }
-    run_bytes += prefix_page_bytes(mn, mx, rows, w);
+    run_bytes += Op::warp_page(page, rows, w, lane);
   }
   if (lane == 0 && run_row >= 0)
     atomicAdd(out + run_row, static_cast<unsigned long long>(run_bytes));
 }
 
 // One block per page: few pages, or pages of more than 512 rows.
-__global__ void prefix_block_kernel(const long long* __restrict__ cols,
-                                    const long long* __restrict__ widths,
-                                    unsigned long long* __restrict__ out,
-                                    int n, int rpp, int npages) {
+template <class Op>
+__global__ void page_block_kernel(const long long* __restrict__ cols,
+                                  const long long* __restrict__ widths,
+                                  unsigned long long* __restrict__ out,
+                                  int n, int rpp, int npages) {
   const int row = blockIdx.x / npages;
   const int pg = blockIdx.x - row * npages;
   const long long w = widths[row];
   const int start = pg * rpp;
   const int rows = (pg == npages - 1) ? n - start : rpp;
-  const long long* __restrict__ src =
-      cols + static_cast<long long>(row) * n + start;
-  // every thread starts from the page's first value, so threads with no
-  // row of their own leave the reduction unchanged
-  long long mn = src[0];
-  long long mx = mn;
-  for (int i = threadIdx.x; i < rows; i += kThreads) {
-    const long long v = src[i];
-    mn = min(mn, v);
-    mx = max(mx, v);
-  }
-  block_minmax(mn, mx);
+  const long long bytes = Op::block_page(
+      cols + static_cast<long long>(row) * n + start, rows, w);
   if (threadIdx.x == 0)
-    atomicAdd(out + row, static_cast<unsigned long long>(
-                             prefix_page_bytes(mn, mx, rows, w)));
+    atomicAdd(out + row, static_cast<unsigned long long>(bytes));
 }
 
 // The warp kernel on a persistent grid: as many warps as the card holds at
 // once, each taking an equal run of pages.
-template <int kPairs>
-int launch_prefix_warp(const long long* cols, const long long* widths,
-                       unsigned long long* out, int n, int rpp, int npages,
-                       long long pages, cudaStream_t st) {
+template <class Op, int kPairs>
+int launch_page_warp(const long long* cols, const long long* widths,
+                     unsigned long long* out, int n, int rpp, int npages,
+                     long long pages, cudaStream_t st) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, prefix_warp_kernel<kPairs>, kPrefixTeams * 32, 0);
+        &per_sm, page_warp_kernel<Op, kPairs>, kPageTeams * 32, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long warps =
-      static_cast<long long>(sms) * std::max(per_sm, 1) * kPrefixTeams;
+      static_cast<long long>(sms) * std::max(per_sm, 1) * kPageTeams;
   const long long chunk = (pages + warps - 1) / warps;
   const long long teams = (pages + chunk - 1) / chunk;
-  prefix_warp_kernel<kPairs>
-      <<<static_cast<unsigned>((teams + kPrefixTeams - 1) / kPrefixTeams),
-         kPrefixTeams * 32, 0, st>>>(cols, widths, out, n, rpp, npages,
-                                     pages, chunk);
+  page_warp_kernel<Op, kPairs>
+      <<<static_cast<unsigned>((teams + kPageTeams - 1) / kPageTeams),
+         kPageTeams * 32, 0, st>>>(cols, widths, out, n, rpp, npages, pages,
+                                   chunk);
   return static_cast<int>(cudaGetLastError());
 }
 
-__global__ void rle_bytes_kernel(const long long* __restrict__ cols,
-                                 const long long* __restrict__ widths,
-                                 unsigned long long* __restrict__ out,
-                                 int n, int rpp, int npages) {
-  const int row = blockIdx.x / npages;
-  const int pg = blockIdx.x - row * npages;
-  const long long w = widths[row];
-  const int start = pg * rpp;
-  const int rows = (pg == npages - 1) ? n - start : rpp;
-  const long long* __restrict__ src =
-      cols + static_cast<long long>(row) * n + start;
-  long long neq = 0;
-  for (int i = 1 + threadIdx.x; i < rows; i += kThreads)
-    neq += src[i] != src[i - 1] ? 1 : 0;
-  neq = block_sum(neq);
-  if (threadIdx.x == 0) {
-    const long long runs = 1 + neq;
-    const long long per_page = runs * (w + 2) + kPageMeta;
-    const long long cap = rows * w + kPageMeta;
-    atomicAdd(out + row,
-              static_cast<unsigned long long>(min(per_page, cap)));
+// out: (m,) int64, zeroed by the caller; pages are added into it.
+// m * ceil(n / rpp) < 2^31 pages.
+template <class Op>
+int page_launch(const void* cols, const void* widths, void* out, int m,
+                int n, int rpp, void* stream) {
+  const int npages = (n + rpp - 1) / rpp;
+  const int rows = std::min(rpp, n);
+  const long long pages = static_cast<long long>(m) * npages;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* c = static_cast<const long long*>(cols);
+  const auto* w = static_cast<const long long*>(widths);
+  auto* o = static_cast<unsigned long long*>(out);
+  if (rows > 512 || pages < kPageBlockPages) {
+    page_block_kernel<Op><<<static_cast<unsigned>(pages), kThreads, 0, st>>>(
+        c, w, o, n, rpp, npages);
+    return static_cast<int>(cudaGetLastError());
   }
+  // pairs a lane loads per page, at most: rows / 2 over 32 lanes
+  if (rows <= 64)
+    return launch_page_warp<Op, 1>(c, w, o, n, rpp, npages, pages, st);
+  if (rows <= 128)
+    return launch_page_warp<Op, 2>(c, w, o, n, rpp, npages, pages, st);
+  if (rows <= 256)
+    return launch_page_warp<Op, 4>(c, w, o, n, rpp, npages, pages, st);
+  return launch_page_warp<Op, 8>(c, w, o, n, rpp, npages, pages, st);
 }
 
 }  // namespace
@@ -533,13 +702,43 @@ const char* codec_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// out: (m,) int64, written.  m >= 1, n >= 1.
+// out: (m,) int64, written.  m >= 1, n >= 1, widths >= 1.  Blocks per row
+// (the cluster size) double from 1 while the grid has fewer blocks than
+// the card has SMs and each block keeps >= kNsMinBlockValues values, up to
+// kNsMaxCluster; one block per row takes a plain launch.  A launch the card
+// refuses is returned as an error.
 int ns_bytes_launch(const void* cols, const void* widths, void* out, int m,
                     int n, void* stream) {
-  ns_bytes_kernel<<<m, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const long long*>(cols),
-      static_cast<const long long*>(widths), static_cast<long long*>(out),
-      n);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int parts = 1;
+  while (parts < kNsMaxCluster && static_cast<long long>(m) * parts < sms &&
+         n / (2 * parts) >= kNsMinBlockValues)
+    parts *= 2;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* c = static_cast<const long long*>(cols);
+  const auto* w = static_cast<const long long*>(widths);
+  auto* o = static_cast<long long*>(out);
+  if (parts == 1) {
+    ns_bytes_kernel<false><<<m, kThreads, 0, st>>>(c, w, o, n);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = parts;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(m) * parts);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, ns_bytes_kernel<true>, c, w, o, n);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -619,38 +818,13 @@ int gdict_bytes_launch(const void* sorted, const void* widths, void* out,
 // m * ceil(n / rpp) < 2^31 pages.
 int prefix_bytes_launch(const void* cols, const void* widths, void* out,
                         int m, int n, int rpp, void* stream) {
-  const int npages = (n + rpp - 1) / rpp;
-  const int rows = std::min(rpp, n);
-  const long long pages = static_cast<long long>(m) * npages;
-  const auto st = static_cast<cudaStream_t>(stream);
-  const auto* c = static_cast<const long long*>(cols);
-  const auto* w = static_cast<const long long*>(widths);
-  auto* o = static_cast<unsigned long long*>(out);
-  if (rows > 512 || pages < kPrefixBlockPages) {
-    prefix_block_kernel<<<static_cast<unsigned>(pages), kThreads, 0, st>>>(
-        c, w, o, n, rpp, npages);
-    return static_cast<int>(cudaGetLastError());
-  }
-  // pairs a lane loads per page, at most: rows / 2 over 32 lanes
-  if (rows <= 64)
-    return launch_prefix_warp<1>(c, w, o, n, rpp, npages, pages, st);
-  if (rows <= 128)
-    return launch_prefix_warp<2>(c, w, o, n, rpp, npages, pages, st);
-  if (rows <= 256)
-    return launch_prefix_warp<4>(c, w, o, n, rpp, npages, pages, st);
-  return launch_prefix_warp<8>(c, w, o, n, rpp, npages, pages, st);
+  return page_launch<PrefixPage>(cols, widths, out, m, n, rpp, stream);
 }
 
 // out: as prefix_bytes_launch.
 int rle_bytes_launch(const void* cols, const void* widths, void* out, int m,
                      int n, int rpp, void* stream) {
-  const int npages = (n + rpp - 1) / rpp;
-  rle_bytes_kernel<<<m * npages, kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const long long*>(cols),
-      static_cast<const long long*>(widths),
-      static_cast<unsigned long long*>(out), n, rpp, npages);
-  return static_cast<int>(cudaGetLastError());
+  return page_launch<RlePage>(cols, widths, out, m, n, rpp, stream);
 }
 
 }  // extern "C"

@@ -21,9 +21,13 @@ Blockwise dequantization bit-equal in float32 and bfloat16 (one rounded
 multiply, a round-to-nearest-even cast), single and grouped; the grouped
 quantize bit-equal in one launch per `group_capacity()` items, on
 unaligned views, bfloat16 inputs, other blocks and .5 boundaries.  LDICT's
-shared-memory hash set and PREFIX's warp and block paths bit-equal on
-their edge cases (page sizes on both sides of the warp / block split,
-INT64_MIN and INT64_MAX, pages that mix signs, more than 65,535 pages).
+shared-memory hash set and the warp and block paths of PREFIX and RLE
+bit-equal on their edge cases (page sizes on both sides of the warp /
+block split, INT64_MIN and INT64_MAX, pages that mix signs, runs across
+page, pair and warp-step boundaries, more than 65,535 pages); NS on its
+significant-byte edges with rows of one block and rows split over a
+cluster of blocks (the edge inputs of `torch_port_util`, which
+test_torch_codec_page_edges.py holds to the JAX package on the CPU).
 """
 import numpy as np
 import pytest
@@ -34,9 +38,11 @@ from repro_torch.kernels import codec_bytes as cb, launch_counts
 from repro_torch.kernels import dequant_matmul as dm
 from repro_torch.kernels import planner_score as ps
 from repro_torch.kernels import quantize_blockwise as qb
-from torch_port_util import (TRAP_A_E, WALK_SUMS, WALK_SUMS_WIN, WALK_TIES,
-                             WALK_TIES_WIN, WALK_TRAP_A, trap_a_score,
-                             walk_graph, walk_synthetic)
+from torch_port_util import (PAGE_EDGE_RPPS, TRAP_A_E, WALK_SUMS,
+                             WALK_SUMS_WIN, WALK_TIES, WALK_TIES_WIN,
+                             WALK_TRAP_A, ns_edge_stack, page_edge_n,
+                             run_edge_stack, trap_a_score, walk_graph,
+                             walk_synthetic)
 
 E = 0.1
 
@@ -339,6 +345,78 @@ def test_cuda_ldict_over_65535_pages_equal_plain(cuda, shape, rpp):
     assert shape[0] * -(-shape[1] // rpp) >= 65535
     assert torch.equal(cb.ldict_bytes(cols, widths, rpp),
                        cb.ldict_bytes_plain(cols, widths, rpp))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rpp", PAGE_EDGE_RPPS)
+@pytest.mark.parametrize("pages", ["ragged", "n < rpp"])
+@pytest.mark.parametrize("copies", [1, 256], ids=["few pages", "many pages"])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "row offset"])
+def test_cuda_rle_edge_cases_equal_plain(cuda, rpp, pages, copies, offset):
+    """RLE (and PREFIX, which walks pages the same way) on runs across
+    page, 16-byte pair and warp-step boundaries, the int64 extremes and
+    top-bit-only differences: few pages, or pages of more than 512 rows,
+    take the block per page, >= 1,024 pages of <= 512 rows the warp path;
+    pages start 16-byte aligned or not (a stack that starts one row
+    later)."""
+    cols, widths = run_edge_stack(page_edge_n(rpp, pages), rpp, rpp + 1,
+                                  signed=True)
+    cols = torch.as_tensor(np.tile(cols, (copies, 1)), device=cuda)[offset:]
+    widths = torch.as_tensor(np.tile(widths, copies), device=cuda)[offset:]
+    before = launch_counts()
+    got = cb.rle_bytes(cols, widths, rpp)
+    got_px = cb.prefix_bytes(cols, widths, rpp)
+    want = cb.rle_bytes_plain(cols, widths, rpp)
+    want_px = cb.prefix_bytes_plain(cols, widths, rpp)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert after["rle_bytes"] == before["rle_bytes"] + 1
+    assert after["prefix_bytes"] == before["prefix_bytes"] + 1
+    assert torch.equal(got, want)
+    assert torch.equal(got_px, want_px)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,rpp", [((1, 65535), 1), ((65535, 3), 3),
+                                       ((240, 75000), 273),
+                                       ((801, 60000), 273),
+                                       ((1639, 1638 * 40), 1638)])
+def test_cuda_rle_over_65535_pages_equal_plain(cuda, shape, rpp):
+    """Runs of 1-4 equal values of both signs on more than 65,535 pages."""
+    rng = np.random.default_rng(shape[1] + 2)
+    vals = rng.integers(-(1 << 40), 1 << 40, size=shape)
+    cols = np.repeat(vals, rng.integers(1, 5, size=shape[1]),
+                     axis=1)[:, :shape[1]]
+    cols = torch.as_tensor(np.ascontiguousarray(cols), device=cuda)
+    widths = torch.as_tensor(rng.integers(1, 9, size=shape[0]), device=cuda)
+    assert shape[0] * -(-shape[1] // rpp) >= 65535
+    assert torch.equal(cb.rle_bytes(cols, widths, rpp),
+                       cb.rle_bytes_plain(cols, widths, rpp))
+
+
+NS_CARD_CASES = [(m, n) for m in (1, 11, 200, 4096)
+                 for n in (1, 7, 60000, 60001, (1 << 20) + 3)
+                 if m * n <= 1 << 24] + [(4096, 4097)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n", NS_CARD_CASES)
+def test_cuda_ns_edge_cases_equal_plain(cuda, m, n):
+    """NS's significant-byte edges (INT64_MIN and INT64_MAX among them) at
+    every width, with a row offset (rows not 16-byte aligned where n is
+    odd), one launch per call: rows of one block, and rows split over a
+    cluster of up to 8 blocks."""
+    stack, widths = ns_edge_stack(n, signed=True)
+    reps = -(-(m + 1) // len(stack))
+    cols = torch.as_tensor(np.tile(stack, (reps, 1))[:m + 1],
+                           device=cuda)[1:]
+    widths = torch.as_tensor(np.tile(widths, reps)[:m + 1], device=cuda)[1:]
+    before = launch_counts()["ns_bytes"]
+    got = cb.ns_bytes(cols, widths)
+    want = cb.ns_bytes_plain(cols, widths)
+    torch.cuda.synchronize()
+    assert launch_counts()["ns_bytes"] == before + 1
+    assert torch.equal(got, want)
 
 
 def quantize_cases():

@@ -222,3 +222,65 @@ def trap_a_score(device="cpu") -> float:
     mask = torch.ones((1, 1), dtype=torch.bool, device=device)
     return float(ps.fused_score(m, s, *fac, mask, None, None, TRAP_A_E,
                                 0.5)[2][0, 0])
+
+
+# ---------------------------------------------------------------------------
+# codec edge inputs where the RLE and NS kernels cut their work (shared
+# with the card tests)
+# ---------------------------------------------------------------------------
+
+I64_MIN, I64_MAX = -(1 << 63), (1 << 63) - 1
+# rows per page around a warp's 64 values a step (32 lanes, 16-byte pairs),
+# the warp / block split at 512 rows, the main path's 273 and the largest
+PAGE_EDGE_RPPS = (1, 2, 63, 64, 65, 273, 511, 512, 513, 1638)
+# row lengths around NS's split of a row over 1-8 blocks (>= 1,024 values
+# a block, 2,048 values a block step) and the main path's 60,000
+NS_EDGE_NS = (1, 2, 3, 7, 2047, 2048, 2049, 4095, 4096, 4097, 8191, 8192,
+              8193, 16383, 16384, 16385, 32767, 32768, 32769, 60000, 60001)
+
+
+def page_edge_n(rpp: int, pages: str) -> int:
+    """A ragged last page after three whole ones, or one page short of
+    rpp."""
+    return 3 * rpp + rpp // 2 + 1 if pages == "ragged" else max(1, rpp - 3)
+
+
+def run_edge_stack(n: int, rpp: int, seed: int, signed: bool):
+    """(cols, widths) of rows whose runs start where the RLE kernels cut a
+    page: all equal (every page starts a run of the same value), runs of
+    rpp that cross every page boundary, alternating values, runs of two
+    that start on and off a 16-byte pair, changes at, one before and one
+    after a warp step's 64 values, random short runs; `signed` adds the
+    int64 extremes and values that differ only in the top bit."""
+    rng = np.random.default_rng(seed)
+    i = np.arange(n, dtype=np.int64)
+    rows = [np.full(n, 5), (i + rpp // 2) // rpp, i % 2, i // 2,
+            (i + 1) // 2, i // 64, (i + 1) // 64, (i + 63) // 64,
+            np.repeat(rng.integers(0, 3, size=n),
+                      rng.integers(1, 5, size=n))[:n]]
+    if signed:
+        rows += [np.where(i % 2 == 1, I64_MIN, I64_MAX),
+                 np.where((i // 64) % 2 == 1, I64_MIN, 0),
+                 np.where(((i + 1) // 2) % 2 == 1, -1, I64_MAX)]
+    cols = np.stack(rows).astype(np.int64)
+    widths = np.resize(np.array([1, 2, 4, 8, 3], dtype=np.int64), len(rows))
+    return cols, widths
+
+
+def ns_edge_stack(n: int, signed: bool):
+    """(cols, widths) of rows that hold NS's significant-byte edges
+    2^(8k) - 1 and 2^(8k) (k = 1..7), 0, 1 and 2^63 - 1 at shifting
+    positions, at every width 1-8 (where min(sig, w) caps), a row of
+    255s (an odd half-byte sum where n is odd), and with `signed` -1,
+    INT64_MIN and -2^(8k)."""
+    edges = [0, 1, I64_MAX]
+    for k in range(1, 8):
+        edges += [(1 << (8 * k)) - 1, 1 << (8 * k)]
+    if signed:
+        edges += [-1, I64_MIN] + [-(1 << (8 * k)) for k in range(1, 8)]
+    edges = np.array(edges, dtype=np.int64)
+    rows = [np.resize(np.roll(edges, w), n) for w in range(1, 9)]
+    rows.append(np.full(n, 255, dtype=np.int64))
+    cols = np.stack(rows).astype(np.int64)
+    widths = np.array(list(range(1, 9)) + [8], dtype=np.int64)
+    return cols, widths
