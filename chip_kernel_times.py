@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the NS, LDICT, PREFIX, RLE, quantize, dequantize and
-dequant-matmul kernels, the q8 gradient wire and the planner of this
-checkout on one GPU.
+"""Time the NS, GDICT, LDICT, PREFIX, RLE, prob_within, quantize,
+dequantize and dequant-matmul kernels, the q8 gradient wire and the
+planner of this checkout on one GPU.
 
     python3 chip_kernel_times.py
 
@@ -12,8 +12,14 @@ them (DTAc `recommend` at TPC-H SF1 size on the TPC-H workload, then on
 10,000 statements with all five codecs and compression_budget 128, then
 `staged_recommend` with the five codecs on the TPC-H workload), PREFIX
 and RLE also at (801, 60000) int64, rpp 273, and NS at (11, 60000), values
-below 2^32 from seed 0 (`"input": "seed 0"`); the 3b run's plan-phase
-seconds
+below 2^32 from seed 0 (`"input": "seed 0"`); GDICT
+(`kernels.codec_bytes.gdict_bytes`, on no advisor path) on every column of
+the SF1 lineitem sample at f = 0.01 ((11, 60000), `chip_smoke.py` phase 4's
+input), at (11, 60000) below 2^32 from seed 0, and on one row of 60,000
+values of three distinct values and of all distinct ones;
+`kernels.planner_score.prob_within` at (90,) float32 from seed 0 (the
+planner's per-plan targets x fractions before the walk took it over); the
+3b run's plan-phase seconds
 (`Recommendation.phase_seconds["plan"]`) are kept, with those of a second
 3b run and the split of a third one's (`cProfile` around
 `DesignAdvisor.estimate_sizes`, cumulative seconds of the planner's parts
@@ -223,6 +229,44 @@ def main() -> int:
                 codec[name].append(rec)
     del seen, targets, big, wide
 
+    # GDICT: the smoke's lineitem input, seed 0, one row of three distinct
+    # values and one of all distinct values
+    sample = pt.SampleManager(schema.tables, seed=0).get_sample(
+        "lineitem", 0.01)
+    li = schema.tables["lineitem"]
+    r0 = np.random.default_rng(0)
+    gd_inputs = {
+        "lineitem f=0.01": (np.stack([sample.values[c.name]
+                                      for c in sample.columns]),
+                            [li.col_by_name[c.name].width
+                             for c in sample.columns]),
+        "seed 0": (r0.integers(0, 1 << 32, size=(11, 60000)),
+                   r0.integers(1, 9, size=11)),
+        "3 distinct": (r0.choice([7, 1 << 20, 1 << 40], size=(1, 60000)),
+                       [8]),
+        "all distinct": (r0.permutation(60000)[None] * 7 + 3, [4])}
+    gdict = []
+    for label, (cols, widths) in gd_inputs.items():
+        args = tuple(torch.as_tensor(np.asarray(a, dtype=np.int64),
+                                     device="cuda") for a in (cols, widths))
+        if not torch.equal(cb.gdict_bytes(*args), cb.gdict_bytes_plain(*args)):
+            raise SystemExit(f"gdict_bytes != plain on {label}")
+        gdict.append({"input": label, "shape": list(args[0].shape),
+                      "ms": per_call_ms(lambda: cb.gdict_bytes(*args), 1, 20),
+                      "device_ms": device_ms(lambda: cb.gdict_bytes(*args),
+                                             1, 20)})
+    # prob_within at the planner's (90,): means and stds from seed 0
+    from repro_torch.kernels import planner_score as ps
+    pw = tuple(torch.as_tensor(a, dtype=torch.float32, device="cuda")
+               for a in (r0.uniform(0.8, 1.2, 90), r0.uniform(0.0, 0.1, 90)))
+    if float((ps.prob_within(*pw, 0.5)
+              - ps.prob_within_plain(*pw, 0.5)).abs().max()) > 1e-6:
+        raise SystemExit("prob_within differs from plain at (90,)")
+    prob = {"shape": [90], "ms": per_call_ms(
+        lambda: ps.prob_within(*pw, 0.5), 1, 200),
+        "device_ms": device_ms(lambda: ps.prob_within(*pw, 0.5), 1, 200)}
+    del gd_inputs, args, pw
+
     # quantize at the LM shapes, random float32 tensors from seed 0
     gen = torch.Generator(device="cuda").manual_seed(0)
     qz = []
@@ -351,7 +395,8 @@ def main() -> int:
         out[short] = codec[name]
         out[f"{short}_device_ms_sum"] = sum(
             r["device_ms"] for r in codec[name] if r["input"] == "advisor")
-    print(json.dumps({**out, "quantize": qz, "q8_wire": wire_rec,
+    print(json.dumps({**out, "gdict": gdict, "prob_within": prob,
+                      "quantize": qz, "q8_wire": wire_rec,
                       "dequantize": dq, "dequant_matmul": dm,
                       "plan_seconds_3b": plan_s,
                       "plan_split_3b": plan_split}))

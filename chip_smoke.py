@@ -6,7 +6,7 @@ serving and LM training.
 
 Phases (any failure exits non-zero; nothing is caught), run in the order
 1, 2, 3, 3b, 3c, 4, 5, 4b, 6, 4c:
-  1. print the card (nvidia-smi name, power limit) and build the sixteen
+  1. print the card (nvidia-smi name, power limit) and build the eighteen
      hand-written kernels from the sources under src/repro_torch/kernels/
      (four libraries, one nvcc per source, all started together);
   2. hold each kernel against its plain PyTorch version on the card on
@@ -15,7 +15,10 @@ Phases (any failure exits non-zero; nothing is caught), run in the order
      and block paths, the int64 extremes, pages that mix signs, runs
      across page, 16-byte pair and warp-step boundaries and grids of more
      than 65,535 pages, NS on significant-byte edges with rows of one
-     block and rows split over a cluster, blockwise quantization
+     block and rows split over a cluster, GDICT's hash set on rows of
+     equal, three, all distinct and int64-extreme values at the limits of
+     each of its three layouts (a block's shared memory, a cluster's,
+     global memory), blockwise quantization
      (single calls and groups: mixed ranks and types, unaligned views,
      other blocks, .5 boundaries, a group longer than one launch takes)
      and blockwise dequantization (float32 and bfloat16 output; single
@@ -24,7 +27,8 @@ Phases (any failure exits non-zero; nothing is caught), run in the order
      prob_within and fused_score
      within the stated tolerances, plus their two bitwise properties (prob
      consistency, K-pad invariance); the planner walk bit-equal to its plain
-     version on a synthetic graph; dequant-matmul within rtol and atol 1e-4
+     version on a synthetic graph, its feasibility verdict (p, feasible)
+     too; dequant-matmul within rtol and atol 1e-4
      of the plain IEEE float32 product on both of its kernels (M on both
      sides of the decode threshold, N masked), bit-equal call to call;
   3. run DTAc `DesignAdvisor.recommend` on make_tpch_like(scale=100) --
@@ -33,9 +37,10 @@ Phases (any failure exits non-zero; nothing is caught), run in the order
      size, on backend="torch", device="cuda", with the launch counters
      zeroed just before and read just after; run it once more, keeping
      each kernel's largest inputs, and require the same result; the
-     plan's one planner_walk launch bit-equal to planner_walk_plain on the
-     card (the per-record fused_score kernel and float64 decisions); then
-     run the port's numpy backend and compare the two;
+     plan's one planner_walk launch (no prob_within: the walk judges the
+     plan's feasibility) bit-equal to planner_walk_plain on the card (the
+     per-record fused_score kernel and float64 decisions); then run the
+     port's numpy backend and compare the two;
   3b. the same for the large-workload path: make_scaled_workload(10,000
      statements) on the same data, all five codecs, compression_budget=128
      (workload compression, paper Section 7), budget 25 %;
@@ -43,10 +48,13 @@ Phases (any failure exits non-zero; nothing is caught), run in the order
      workload, torch/cuda against numpy;
   4. hold each advisor kernel against its plain version again on the
      largest inputs phases 3 and 3b gave it (GDICT, on no advisor path:
-     every column of the SF1 lineitem sample at f = 0.01; fused_score, on
-     no advisor path since the walk: the largest record of 3b's plain
-     walk), and time both there; the walk on 3b's graph, per call and in
-     device time; LDICT's device time over the second runs of 3 and 3b
+     every column of the SF1 lineitem sample at f = 0.01, per call and in
+     device time, and rows past the cluster's layout with their scratch
+     bytes; fused_score, on no advisor path since the walk: the largest
+     record of 3b's plain walk; prob_within, on no advisor path since the
+     walk judges feasibility: the targets' final RVs of 3b's walk, in
+     device time), and time both there; the walk on 3b's graph, per call
+     and in device time; LDICT's device time over the second runs of 3 and 3b
      (torch.profiler) beside their SampleCF seconds, LDICT at each
      phase's largest input, and NS, PREFIX and RLE per call and in device
      time at their largest inputs;
@@ -125,8 +133,9 @@ FIVE = ("NS", "GDICT", "LDICT", "PREFIX", "RLE")
 CODECS = ("ns_bytes", "gdict_bytes", "ldict_bytes", "prefix_bytes",
           "rle_bytes")
 ORD_IND = ("ns_bytes", "gdict_bytes")     # wrappers that take no rpp
-# codec kernels whose device time phase 4 also records
-DEVICE_TIMED = ("ns_bytes", "prefix_bytes", "rle_bytes")
+# kernels whose device time phase 4 also records
+DEVICE_TIMED = ("ns_bytes", "gdict_bytes", "prefix_bytes", "rle_bytes",
+                "prob_within")
 # phase 2: LDICT page sizes around a warp's 32 lanes, its warp / block
 # split (512 rows), the main path's 273 and the largest (1638), and grids
 # of more than 65,535 pages; PREFIX's the same, up to 4096
@@ -138,11 +147,19 @@ PREFIX_GRIDS = (((1, 65535), 1), ((65535, 3), 3), ((240, 75000), 273),
 # NS: (m, n) of one block a row and of rows split over a cluster of blocks
 NS_EDGES = ((1, 1), (11, 7), (11, 60000), (11, 60001), (200, 60001),
             (4096, 7), (4096, 4097), (3, (1 << 20) + 3))
+# GDICT: row lengths at its layouts' limits (a block's shared memory up to
+# 4,681 values, a cluster's up to 74,898, one block's share up to 9,362)
+# and the main path's 60,000; (m, n) stacks of the advisor's widths; a
+# stack past the cluster's layout timed in phase 4
+GDICT_NS = (1, 4681, 4682, 9362, 9363, 60000, 74898, 74899)
+GDICT_STACKS = ((801, 60000), (801, 4682), (200, 74899))
+GDICT_GLOBAL = (11, 100_000)
 N_SCALED = 10_000                # phase 3b: statements before compression
 COMPRESSION_BUDGET = 128         # phase 3b: representatives advised on
 # GDICT is priced on the host by the Adaptive Estimator in SampleCF (as in
-# the JAX package); only batched_bytes("GDICT", ...) reaches its kernel
-ADVISOR_KERNELS = CODECS + ("prob_within", "planner_walk")
+# the JAX package); only batched_bytes("GDICT", ...) reaches its kernel;
+# the walk judges each plan's feasibility, so no prob_within either
+ADVISOR_KERNELS = CODECS + ("planner_walk",)
 LM_ARCH = "tinyllama-1.1b"       # phase 5: the dense model served
 LM_SLOTS, LM_MAX_LEN, LM_NEW = 4, 256, 16
 LM_REQUESTS = 8
@@ -198,6 +215,10 @@ GDICT_EXEMPT = ("gdict_bytes is on no advisor path: SampleCF prices GDICT "
                 "on the host with the Adaptive Estimator (App. B), in this "
                 "port as in the JAX package; its kernel is held against its "
                 "plain version in phases 2 and 4")
+PROB_EXEMPT = ("prob_within is on no advisor path: each plan's one "
+               "planner_walk launch judges its feasibility; the kernel "
+               "stays for single records and is held against its plain "
+               "version in phases 2 and 4")
 
 
 def card_line() -> str:
@@ -435,6 +456,41 @@ def main() -> int:
     print(f"codec kernels: ns_bytes bit-equal to plain on {n_ns} more cases "
           f"((m, n) {NS_EDGES}, significant-byte edges at widths 1-8, "
           f"aligned and not)")
+    # GDICT's hash set on the same rows and on rows of three distinct
+    # values, values differing only in their high or low 32 bits, and
+    # INT64_MIN (its empty-slot marker) replaced by its successor, at each
+    # layout's limits; one launch a call
+    def gdict_stack(n):
+        i = np.arange(n)
+        ext = edge_stack(n)
+        return np.concatenate([ext, np.stack([
+            np.resize([7, 1 << 20, 1 << 40], n), (i // 2) << 32,
+            (5 << 32) | (i // 2),
+            np.where(ext[2] == i64_min, i64_min + 1, ext[2])])])
+
+    n_gd, routes = 0, set()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for n in GDICT_NS:
+        stack = gdict_stack(n)
+        for m in [len(stack)] + [m_ for m_, n_ in GDICT_STACKS if n_ == n]:
+            cols = t64(np.resize(stack, (m + 1, n)))
+            widths = t64(np.resize([1, 2, 4, 8, 3], m + 1))
+            for off in (0, 1):
+                args = (cols[off:], widths[off:])
+                before = launch_counts()["gdict_bytes"]
+                got = cb.gdict_bytes(*args)
+                if launch_counts()["gdict_bytes"] != before + 1 or \
+                        not torch.equal(got, cb.gdict_bytes_plain(*args)):
+                    fail(f"gdict_bytes != plain, or not one launch, on edge "
+                         f"rows ({m}, {n}) from row {off}")
+                routes.add(cb.gdict_plan(m, n, sms).route)
+                n_gd += 1
+    if routes != set(cb.GDICT_ROUTES):
+        fail(f"phase 2 reached GDICT's layouts {sorted(routes)} only")
+    del cols, widths, stack, args, got
+    print(f"codec kernels: gdict_bytes bit-equal to plain in one launch on "
+          f"{n_gd} more cases (n {GDICT_NS}, stacks {GDICT_STACKS}, aligned "
+          f"and not; layouts {sorted(routes)})")
 
     e, q = 0.5, 0.9
 
@@ -532,7 +588,7 @@ def main() -> int:
             t(dmv * dmv, np.float32), t(scost, np.float64),
             t(r.uniform(0.9, 1.1, (2, nf)), np.float64),
             t(r.uniform(0.01, 0.3, (2, nf)), np.float64),
-            max_cands=int(ncand.max()))
+            t(tids, np.int32), max_cands=int(ncand.max()))
 
     def walk_equal(got, want):
         return all(bit_equal(a, b) for a, b in zip(got, want))
@@ -543,10 +599,19 @@ def main() -> int:
         if layout != ("shared" if in_smem else "global"):
             fail(f"planner_walk keeps a graph of {shape[0]} nodes in "
                  f"{layout} memory")
-        got = ps.planner_walk(wg, e, q)
-        if not walk_equal(got, ps.planner_walk_plain(wg, e, q)):
+        # feasibility judged against a q_feas that splits the fractions:
+        # the median over the fractions of their least target p
+        q_feas = float(ps.planner_walk(wg, e, q).p.double().amin(dim=0)
+                       .median())
+        got = ps.planner_walk(wg, e, q, q_feas)
+        if not walk_equal(got, ps.planner_walk_plain(wg, e, q, q_feas)):
             fail(f"planner_walk differs from its plain version on the "
                  f"synthetic graph {shape}")
+        tg = wg.targets.long()
+        if not bit_equal(got.p, ps.prob_within(got.mean[tg].float(),
+                                               got.std[tg].float(), e)):
+            fail(f"planner_walk's p differs from prob_within on its own "
+                 f"final RVs on the synthetic graph {shape}")
         kinds = {c: int(v) for c, v in (
             ("skipped", (got.win == ps.WALK_SKIP).sum()),
             ("fallback", (got.win == ps.WALK_FALLBACK).sum()),
@@ -558,7 +623,8 @@ def main() -> int:
         print(f"planner kernels: planner_walk bit-equal to its plain version "
               f"on a synthetic graph {shape} (nodes, records, fractions, "
               f"nodes used), node state in {layout} memory: decisions "
-              f"{kinds}")
+              f"{kinds}; feasible {got.feasible.tolist()} against q_feas "
+              f"{q_feas!r}, p = prob_within's on its final RVs")
 
     # blockwise quantization, bit-equal to plain
     half = np.zeros((2, 128), np.float32)
@@ -798,8 +864,6 @@ def main() -> int:
     def captured_run(make, label):
         originals = {(cb, n): capture(cb, n, lambda c, *r: c.numel(), label)
                      for n in CODECS}
-        originals[(ps, "prob_within")] = capture(
-            ps, "prob_within", lambda mm, ss, ee: mm.numel())
         try:
             return make()
         finally:
@@ -875,19 +939,21 @@ def main() -> int:
         for name in names:
             if counts[name] <= 0:
                 fail(f"kernel {name} was not launched in {label}")
-        # the planner: one walk for the run's one plan, no per-record launch
-        if counts["planner_walk"] != 1 or counts["fused_score"] != 0:
-            fail(f"{label}: {counts['planner_walk']} planner_walk and "
-                 f"{counts['fused_score']} fused_score launches, not 1 and 0")
+        # the planner: one walk for the run's one plan, no per-record
+        # launch, no probability launch (the walk judges feasibility)
+        planner = {n: counts[n] for n in ("planner_walk", "fused_score",
+                                          "prob_within")}
+        if planner != {"planner_walk": 1, "fused_score": 0, "prob_within": 0}:
+            fail(f"{label}: planner launches {planner}, not one walk alone")
 
-    # each measured run's walk: its packed graph, e, q and result
+    # each measured run's walk: its packed graph, (e, q, q_feas) and result
     walks = {}
     walk = ps.planner_walk
 
     def walked(label, make):
-        def recording(g, e_, q_):
-            walks[label] = (g, e_, q_, walk(g, e_, q_))
-            return walks[label][3]
+        def recording(g, *a):
+            walks[label] = (g, a, walk(g, *a))
+            return walks[label][2]
         ps.planner_walk = recording
         try:
             return measured(label, make)
@@ -898,9 +964,9 @@ def main() -> int:
         """The run's walk bit-equal to planner_walk_plain on the card (each
         record scored by the fused_score kernel); returns the plain walk's
         seconds."""
-        g, e_, q_, got = walks[label]
+        g, args_, got = walks[label]
         t0 = time.perf_counter()
-        want = ps.planner_walk_plain(g, e_, q_)
+        want = ps.planner_walk_plain(g, *args_)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         for name, a, b in zip(ps.WalkResult._fields, got, want):
@@ -909,17 +975,20 @@ def main() -> int:
                      "planner_walk_plain on the card")
         print(f"{label}: planner_walk (one launch, {g.tid.numel()} records, "
               f"{g.dm.numel()} candidates, {g.scost.shape[0]} nodes with the "
-              f"pad, {g.scost.shape[1]} fractions) bit-equal to "
-              f"planner_walk_plain on the card ({secs:.3f} s)")
+              f"pad, {g.scost.shape[1]} fractions, {g.targets.numel()} "
+              f"targets; e, q, q_feas {args_}: feasible "
+              f"{got.feasible.tolist()}) bit-equal to planner_walk_plain "
+              f"on the card ({secs:.3f} s)")
         return secs
 
     opts = pt.AdvisorOptions(backend="torch", device="cuda")
     rec_t, wall_t, launches3 = walked(
         "phase 3", lambda: pt.DesignAdvisor(wl, opts).recommend(budget))
     need_launches("phase 3", launches3, ("ns_bytes", "ldict_bytes",
-                                         "prob_within", "planner_walk"))
+                                         "planner_walk"))
     check_walk("phase 3")
     print(f"phase 3: {FUSED_EXEMPT}")
+    print(f"phase 3: {PROB_EXEMPT}")
     t0 = time.perf_counter()
     adv_n = pt.DesignAdvisor(wl, pt.AdvisorOptions(backend="numpy"))
     rec_n = adv_n.recommend(budget)
@@ -969,12 +1038,14 @@ def main() -> int:
     print(f"phase 3b: methods in the recommendation {chosen}")
 
     # ---- phase 3c: the staged baseline (Example 1) ---------------------
-    rec_st, wall_st, launches3c = measured(
+    rec_st, wall_st, launches3c = walked(
         "phase 3c", lambda: pt.staged_recommend(
             wl, budget, methods=FIVE,
             options=pt.AdvisorOptions(backend="torch", device="cuda")))
     if launches3c["prefix_bytes"] + launches3c["rle_bytes"] <= 0:
         fail("neither prefix_bytes nor rle_bytes launched in phase 3c")
+    need_launches("phase 3c", launches3c, ("planner_walk",))
+    check_walk("phase 3c")
     t0 = time.perf_counter()
     rec_sn = pt.staged_recommend(wl, budget, methods=FIVE,
                                  options=pt.AdvisorOptions(backend="numpy"))
@@ -1034,6 +1105,12 @@ def main() -> int:
     li_widths = t64([schema.tables["lineitem"].col_by_name[c.name].width
                      for c in sample.columns])
     captured["gdict_bytes"] = (li_cols.numel(), (li_cols, li_widths))
+    # prob_within at the targets' final RVs of 3b's walk, as float32
+    g, a, res = walks["phase 3b"]
+    tg = g.targets.long()
+    captured["prob_within"] = (res.p.numel(), (
+        res.mean[tg].float().contiguous(), res.std[tg].float().contiguous(),
+        a[0]))
 
     def time_ms(fn, reps):
         fn()
@@ -1080,8 +1157,9 @@ def main() -> int:
                             for r in pages)
 
     # operations each function needs on its inputs: NS ~6 integer ops per
-    # value (significant bytes, two mins, 2s+1, the sum); GDICT and LDICT a
-    # comparison sort of each row or page and the adjacent compares;
+    # value (significant bytes, two mins, 2s+1, the sum); GDICT ~8 (a hash:
+    # xor, shift, multiply, shift; a probe's compare); LDICT a comparison
+    # sort of each page and the adjacent compares;
     # PREFIX two compares per value (min and max); RLE one compare and one
     # add per value; one probability ~40 float ops (two erf polynomials,
     # divisions, the difference); the Goodman fold 6 float ops per
@@ -1090,8 +1168,7 @@ def main() -> int:
         if name == "ns_bytes":
             return 6 * args[0].numel()
         if name == "gdict_bytes":
-            return sort_ops(args[0].shape[0], args[0].shape[1],
-                            args[0].shape[1])
+            return 8 * args[0].numel()
         if name == "ldict_bytes":
             return sort_ops(args[0].shape[0], args[0].shape[1], args[2])
         if name in ("prefix_bytes", "rle_bytes"):
@@ -1161,12 +1238,9 @@ def main() -> int:
             dev_ms = device_ms(lambda: fn(*args), reps)
             extra += f", device time {dev_ms:.4f} ms"
         if name == "gdict_bytes":
-            srt = torch.sort(args[0], dim=1).values
-            sort_ms = time_ms(lambda: torch.sort(args[0], dim=1), reps)
-            count_ms = time_ms(lambda: cb.gdict_bytes_sorted(srt, args[1]),
-                               reps)
-            extra = (f" (torch.sort pre-pass {sort_ms:.4f} ms + counting "
-                     f"kernel {count_ms:.4f} ms)")
+            plan = cb.gdict_plan(*shape, sms)
+            extra += (f", {plan.route} layout ({plan.parts} blocks a row, "
+                      f"scratch {plan.scratch_bytes} B)")
         bytes_ms = (nbytes(*in_t) + out_b) / HBM_BYTES_PER_S * 1e3
         ops_ms = ops_of(name, args) / OPS_PER_S * 1e3
         bound_ms = max(bytes_ms, ops_ms)
@@ -1184,8 +1258,28 @@ def main() -> int:
                         "bound_by": bound_by, "library_ms": None})
         if dev_ms is not None:
             records[-1].update(device_ms=dev_ms, shape=list(shape))
-            if name not in ORD_IND:
+            if name in CODECS and name not in ORD_IND:
                 records[-1]["rpp"] = int(args[2])
+    # GDICT past the cluster's layout: tables in global memory, the
+    # wrapper's scratch; values below 2^32 from seed 0
+    r0 = np.random.default_rng(0)
+    args = (t64(r0.integers(0, 1 << 32, size=GDICT_GLOBAL)),
+            t64(r0.integers(1, 9, size=GDICT_GLOBAL[0])))
+    plan = cb.gdict_plan(*GDICT_GLOBAL, sms)
+    if plan.route != "global" or not torch.equal(
+            cb.gdict_bytes(*args), cb.gdict_bytes_plain(*args)):
+        fail(f"gdict_bytes at {GDICT_GLOBAL}: {plan.route} layout, or != "
+             "plain")
+    ms = time_ms(lambda: cb.gdict_bytes(*args), 20)
+    dev_ms = device_ms(lambda: cb.gdict_bytes(*args), 20)
+    bytes_ms = (nbytes(*args) + GDICT_GLOBAL[0] * 8) / HBM_BYTES_PER_S * 1e3
+    print(f"kernel gdict_bytes: shape {GDICT_GLOBAL}, global layout "
+          f"({plan.tables} tables of {1 << plan.log_slots} slots, scratch "
+          f"{plan.scratch_bytes} B): {ms:.4f} ms per call, device time "
+          f"{dev_ms:.4f} ms (bound {bytes_ms:.6g} ms by bytes)")
+    next(r for r in records if r["name"] == "gdict_bytes")["global"] = {
+        "shape": list(GDICT_GLOBAL), "ms": ms, "device_ms": dev_ms,
+        "bound_ms": bytes_ms, "scratch_bytes": plan.scratch_bytes}
     # the timing launches above count too; the record keeps the measured
     # paths' counts (phases 3, 3b and 3c)
     rec_ld = next(r for r in records if r["name"] == "ldict_bytes")
@@ -1203,11 +1297,12 @@ def main() -> int:
               "bytes)")
     # the walk at 3b's graph: per call, device time, the plain walk's
     # seconds from phase 3b; bound by the bytes it must move or the fold and
-    # probability work of the (record, fraction) pairs this run walked
-    g, e_w, q_w, res = walks["phase 3b"]
-    walk_ms = time_ms(lambda: ps.planner_walk(g, e_w, q_w), 5)
-    walk_dev = device_ms(lambda: ps.planner_walk(g, e_w, q_w), 5)
-    again = ps.planner_walk(g, e_w, q_w)
+    # probability work of the (record, fraction) pairs this run walked and
+    # the targets' probabilities
+    g, a, res = walks["phase 3b"]
+    walk_ms = time_ms(lambda: ps.planner_walk(g, *a), 5)
+    walk_dev = device_ms(lambda: ps.planner_walk(g, *a), 5)
+    again = ps.planner_walk(g, *a)
     torch.cuda.synchronize()
     if not all(bit_equal(a, b) for a, b in zip(again, res)):
         fail("a second planner_walk on 3b's graph differs from the first")
@@ -1215,7 +1310,8 @@ def main() -> int:
     csum = np.concatenate([[0], np.cumsum(per_cand)])
     off = g.cand_off.cpu().numpy()
     active = (res.win != ps.WALK_SKIP).sum(dim=1).cpu().numpy()
-    w_ops = float(((csum[off[1:]] - csum[off[:-1]]) * active).sum())
+    w_ops = float(((csum[off[1:]] - csum[off[:-1]]) * active).sum()) + \
+        40 * res.p.numel()
     w_bytes = nbytes(g.tid, g.kind, g.cand_off, g.child, g.nchild, g.dm, g.vt,
                      g.mq, g.scost, g.samp_mean, g.samp_std, *res)
     bytes_ms = w_bytes / HBM_BYTES_PER_S * 1e3
@@ -1244,7 +1340,7 @@ def main() -> int:
     captured.clear()
     ldict_inputs.clear()
     walks.clear()
-    del li_cols, srt, args, got, want, inputs, g, res, again
+    del li_cols, args, got, want, inputs, g, res, again, tg
 
     # ---- phase 5: LM serving at TinyLlama-1.1B -------------------------
     from repro_torch.configs import get_config

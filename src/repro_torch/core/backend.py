@@ -8,8 +8,8 @@ CostEngine):
   numpy backend.  It uses no device.
 * ``"torch"`` -- everything the reference sends to its accelerator is a
   torch tensor on an explicit device: the codec stacks (the five codec
-  kernels), the planner score stacks (prob_within / fused_score kernels)
-  and the cost arrays.  On ``device="cuda"`` the hand-written kernels run;
+  kernels), the planner's packed graph (the planner_walk kernel) and the
+  cost arrays.  On ``device="cuda"`` the hand-written kernels run;
   on ``device="cpu"`` their plain PyTorch versions do.
 
 There is no fallback: asking for CUDA where there is none raises.

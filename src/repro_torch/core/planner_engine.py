@@ -32,11 +32,10 @@ its plain version on the CPU.  Records read states that earlier records
 wrote, but every read and write is per (node, f), so the walk runs the
 fractions side by side.  It scores each record as the JAX package's jax
 backend does (the `fused_score` fold and float32 probability) and picks
-winners and accumulates costs in float64 as the host does.  The memoized
-probability path (feasibility) goes through `prob_within`; every kernel
-shares one probability expression, so a probability recomputed from a
-stored (mean, std) pair — float32-exact once deduced — equals the walk's
-in-line value bitwise.
+winners and accumulates costs in float64 as the host does.  The same
+launch judges each fraction's feasibility from the targets' final RVs,
+rounded to float32 and scored by the same float32 probability, so a plan
+costs one launch.
 
 Not ported yet: the cross-run replay of recorded decisions, node-universe
 epoch eviction and fault injection, which serve the online session.
@@ -122,6 +121,7 @@ class _RunState:
     used: np.ndarray              # (nnodes+1, nf) used-as-child flags
     chosen: Dict[Tuple[int, int], Deduction]
     total: List[float]            # per-f accumulated sampling cost
+    feasible: Optional[np.ndarray] = None   # (nf,) judged by the walk
 
 
 class PlannerEngine:
@@ -223,17 +223,11 @@ class PlannerEngine:
     # ------------------------------------------------------------------
     # Scoring backend (probability + fused candidate scoring)
     # ------------------------------------------------------------------
-    def _prob(self, means: np.ndarray, stds: np.ndarray,
-              e: float) -> np.ndarray:
-        if self.device is None:
-            return err.prob_within_batch(means, stds, e)
-        m, s = to_device([means, stds], np.float32, self.device)
-        return _ps.prob_within(m, s, e).cpu().numpy().astype(np.float64)
-
     def _prob_cached(self, means: np.ndarray, stds: np.ndarray,
                      e: float) -> np.ndarray:
-        """`_prob` behind a (e, mean, std) memo: composed RVs recur heavily
-        across candidates, targets and fractions.  Cache values are exactly
+        """The host's float64 probabilities behind a (e, mean, std) memo:
+        composed RVs recur heavily across candidates, targets and
+        fractions.  Cache values are exactly
         the batch-computed floats, so parity is unaffected.  Large requests
         are deduplicated first (packing the exact float pair into a complex
         for one `np.unique`)."""
@@ -256,8 +250,9 @@ class PlannerEngine:
             else:
                 out[i] = v
         if miss:
-            got = self._prob(np.array([ml[i] for i in miss]),
-                             np.array([sl[i] for i in miss]), e).tolist()
+            got = err.prob_within_batch(np.array([ml[i] for i in miss]),
+                                        np.array([sl[i] for i in miss]),
+                                        e).tolist()
             for i, v in zip(miss, got):
                 out[i] = v
                 pc[(e, ml[i], sl[i])] = v
@@ -298,7 +293,7 @@ class PlannerEngine:
         """The "All" baseline: greedy under FORCE_ALL_Q (every deduction
         fails, so everything samples), feasibility re-judged against the
         caller's q; first feasible fraction wins, else the cheapest."""
-        st = self._run(targets, e, FORCE_ALL_Q)
+        st = self._run(targets, e, FORCE_ALL_Q, q_feas=q)
         feas = self._feasible_vec(st, e, q)
         fb_fi = 0
         for fi in range(len(st.f_grid)):
@@ -317,10 +312,12 @@ class PlannerEngine:
             return a
         return np.concatenate([a, b], axis=0)
 
-    def _run(self, targets: Sequence[NodeKey], e: float,
-             q: float) -> "_RunState":
+    def _run(self, targets: Sequence[NodeKey], e: float, q: float,
+             q_feas: Optional[float] = None) -> "_RunState":
         """One pass over the targets, scoring lines 6-9 of the §5.2
         pseudocode for the whole candidate set, for every f, at once.
+        On a torch device the walk also judges feasibility against
+        q_feas (q by default).
 
         One composed-RV evaluation serves BOTH phases: with unknown
         children substituted by their hypothetical SampleCF error, the
@@ -356,7 +353,8 @@ class PlannerEngine:
         samp_std = samp[:, 1, :]
         if self.device is not None:
             return self._walk(g, targets, f_grid, scost, samp_mean,
-                              samp_std, e, q)
+                              samp_std, e, q,
+                              q if q_feas is None else q_feas)
 
         total = [0.0] * nf
         used = np.zeros((n + 1, nf), dtype=bool)
@@ -497,11 +495,11 @@ class PlannerEngine:
     # The torch backend: the whole greedy in one planner_walk call
     # ------------------------------------------------------------------
     def _pack(self, g: _Graph, scost: np.ndarray, samp_mean: np.ndarray,
-              samp_std: np.ndarray) -> tuple:
-        """`g` as the walk's packed arrays (see `planner_score.WalkGraph`),
-        on the engine's device; also returns the host copies of the
-        candidate offsets and child rows, which rebuild `chosen` and
-        `used` from the walk's winners."""
+              samp_std: np.ndarray, targets: Sequence[NodeKey]) -> tuple:
+        """`g` and the plan's `targets` as the walk's packed arrays (see
+        `planner_score.WalkGraph`), on the engine's device; also returns
+        the host copies of the candidate offsets and child rows, which
+        rebuild `chosen` and `used` from the walk's winners."""
         recs = g.recs
         n = len(g.node_keys)
         ncand = np.array([len(r.cands) for r in recs], dtype=np.int64)
@@ -527,24 +525,26 @@ class PlannerEngine:
             nchild[o:o + len(r.cands)] = r.nchild
         tid = np.array([r.tid for r in recs], dtype=np.int64)
         kind = np.array([r.kind for r in recs], dtype=np.int64)
-        ints = to_device([tid, kind, off, child, nchild], np.int32,
+        tg = np.array([g.node_id[t] for t in targets], dtype=np.int64)
+        ints = to_device([tid, kind, off, child, nchild, tg], np.int32,
                          self.device)
         dm, vt, mq = to_device(list(fac), np.float32, self.device)
         doubles = to_device([scost, samp_mean, samp_std], np.float64,
                             self.device)
-        wg = _ps.WalkGraph(*ints, dm, vt, mq, *doubles,
+        wg = _ps.WalkGraph(*ints[:5], dm, vt, mq, *doubles, targets=ints[5],
                            max_cands=int(ncand.max(initial=0)))
         return wg, off, child
 
     def _walk(self, g: _Graph, targets: Sequence[NodeKey],
               f_grid: Tuple[float, ...], scost: np.ndarray,
               samp_mean: np.ndarray, samp_std: np.ndarray, e: float,
-              q: float) -> "_RunState":
+              q: float, q_feas: float) -> "_RunState":
         """`_run` on a torch device: one `planner_walk` over the packed
         graph; `chosen` and `used` rebuilt from its winners."""
-        wg, off, child = self._pack(g, scost, samp_mean, samp_std)
-        res = _ps.planner_walk(wg, e, q)
-        state, mean, std, win, total = (t.cpu().numpy() for t in res)
+        wg, off, child = self._pack(g, scost, samp_mean, samp_std, targets)
+        res = _ps.planner_walk(wg, e, q, q_feas)
+        state, mean, std, win, total = (t.cpu().numpy() for t in res[:5])
+        feasible = res.feasible.cpu().numpy()
         used = np.zeros(state.shape, dtype=bool)
         chosen: Dict[Tuple[int, int], Deduction] = {}
         rr, ff = np.nonzero(win >= 0)
@@ -555,12 +555,16 @@ class PlannerEngine:
             chosen[(rec.tid, fi)] = rec.cands[wi]
         return _RunState(g=g, targets=tuple(targets), f_grid=f_grid,
                          state=state, mean=mean, std=std, used=used,
-                         chosen=chosen, total=total.tolist())
+                         chosen=chosen, total=total.tolist(),
+                         feasible=feasible)
 
     # ------------------------------------------------------------------
     def _feasible_vec(self, st: "_RunState", e: float,
                       q: float) -> np.ndarray:
-        """Per-f feasibility: every target's final RV satisfies (e, q)."""
+        """Per-f feasibility: every target's final RV satisfies (e, q);
+        the walk's own verdict on a torch device."""
+        if st.feasible is not None:
+            return st.feasible
         tids = [st.g.node_id[t] for t in st.targets]
         m = st.mean[tids]                          # (ntargets, nf)
         s = st.std[tids]

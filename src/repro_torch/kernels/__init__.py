@@ -3,7 +3,9 @@ version:
 
   codec_bytes.py   -- NS, GDICT, LDICT, PREFIX and RLE codec-size kernels
                       (SampleCF)
-  planner_score.py -- prob_within and fused_score (the Section 5.2 planner)
+  planner_score.py -- prob_within, fused_score and planner_walk (the
+                      Section 5.2 planner: a plan's greedy and its
+                      feasibility in one walk)
   quantize_blockwise.py -- blockwise int8 quantize and dequantize (the q8
                       codec: q8 weights, the q8 gradient wire, q8 AdamW
                       moments)

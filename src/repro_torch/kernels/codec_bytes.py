@@ -17,13 +17,14 @@ The CUDA kernels replace the Pallas kernels `_ns_kernel`, `_gdict_kernel`,
 `_rle_kernel` of the JAX package.  The TPU path split values into uint32
 planes and routed inputs outside an int32 envelope (negatives among them)
 to NumPy; these kernels read int64 directly and are exact for every int64
-input, so no routing remains.  GDICT's row sort runs before its kernel as
-`torch.sort`, as the JAX package ran `lax.sort` outside its Pallas body.
+input, so no routing remains.  GDICT and LDICT count distinct values with
+a hash set on the card, not a sort (`gdict_plan` says how GDICT's table of
+a row is laid out).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import torch
 
@@ -32,6 +33,18 @@ from . import build
 PAGE_META = 16          # per-page metadata bytes of page-local methods
 MAX_PAGE_P2 = 4096      # largest page (rounded up to a power of two) the
                         # LDICT kernel's shared-memory hash set takes
+# GDICT's hash set of a row: 2^log_slots >= 7n / 4 slots (never more than
+# 4/7 full), 64 at least, in one block's shared memory up to BLOCK_SLOTS
+# (64 KB), split over a cluster of up to MAX_CLUSTER blocks of at most
+# SHARE_SLOTS (128 KB) each up to MAX_CLUSTER * SHARE_SLOTS, in global
+# memory beyond, one table per cluster of MAX_CLUSTER blocks, as many at
+# once as fit in L2_TABLE_BYTES of the card's 50 MB L2 (one at least, a
+# cluster for every MAX_CLUSTER SMs at most)
+GDICT_BLOCK_SLOTS = 1 << 13
+GDICT_SHARE_SLOTS = 1 << 14
+GDICT_MAX_CLUSTER = 8
+GDICT_L2_TABLE_BYTES = 32 << 20
+GDICT_ROUTES = ("block", "cluster", "global")
 
 LAUNCHES: Dict[str, int] = {"ns_bytes": 0, "gdict_bytes": 0,
                             "ldict_bytes": 0, "prefix_bytes": 0,
@@ -47,7 +60,8 @@ def _load():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.ns_bytes_launch.argtypes = [vp, vp, vp, ci, ci, vp]
         lib.ns_bytes_launch.restype = ci
-        lib.gdict_bytes_launch.argtypes = [vp, vp, vp, ci, ci, vp]
+        lib.gdict_bytes_launch.argtypes = [vp, vp, vp] + [ci] * 5 + [
+            vp, ci, vp]
         lib.gdict_bytes_launch.restype = ci
         for fn in (lib.ldict_bytes_launch, lib.prefix_bytes_launch,
                    lib.rle_bytes_launch):
@@ -234,35 +248,73 @@ def ldict_bytes(cols: torch.Tensor, widths: torch.Tensor,
     return _paged_launch("ldict_bytes", cols, widths, rpp)
 
 
+class GdictPlan(NamedTuple):
+    """How the GDICT kernel lays out the hash set of each row: `route`
+    "block" (the table in a block's shared memory), "cluster" (split over
+    the shared memory of `parts` blocks of a thread-block cluster; 1: one
+    block in a plain launch) or "global" (`tables` tables in global
+    memory at once, the scratch of `scratch_bytes`, each filled by a
+    cluster of `parts` blocks), with 2^log_slots slots a row."""
+    route: str
+    log_slots: int
+    parts: int
+    tables: int
+
+    @property
+    def scratch_bytes(self) -> int:
+        return self.tables << (self.log_slots + 3)
+
+
+def gdict_plan(m: int, n: int, sms: int) -> GdictPlan:
+    """The GDICT kernel's layout for an (m, n) stack on a card of `sms`
+    SMs (n >= 1).  A cluster doubles from the fewest blocks that hold the
+    table while the rows alone would leave SMs idle, as NS's does."""
+    log_slots = max(6, (-(-7 * n // 4) - 1).bit_length())
+    slots = 1 << log_slots
+    if slots <= GDICT_BLOCK_SLOTS:
+        return GdictPlan("block", log_slots, 1, 0)
+    if slots <= GDICT_MAX_CLUSTER * GDICT_SHARE_SLOTS:
+        parts = max(1, slots // GDICT_SHARE_SLOTS)
+        while parts < GDICT_MAX_CLUSTER and m * parts < sms:
+            parts *= 2
+        return GdictPlan("cluster", log_slots, parts, 0)
+    fit = max(1, GDICT_L2_TABLE_BYTES // (slots * 8))
+    return GdictPlan("global", log_slots, GDICT_MAX_CLUSTER,
+                     min(m, max(1, sms // GDICT_MAX_CLUSTER), fit))
+
+
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def gdict_bytes(cols: torch.Tensor, widths: torch.Tensor) -> torch.Tensor:
     """GDICT payload bytes per row of an (m, n) int64 stack -> (m,) int64.
-    On the card each row is sorted with `torch.sort` first (the library
-    sort the JAX package also ran outside its kernel), then
-    `gdict_bytes_sorted` counts the distinct values of each sorted row."""
+    On the card one launch counts each row's distinct values with a hash
+    set (`gdict_plan`), no sort; the global-memory tables of the longest
+    rows are scratch allocated here."""
     _check_inputs(cols, widths)
     if cols.device.type == "cpu":
         return gdict_bytes_plain(cols, widths)
-    return gdict_bytes_sorted(torch.sort(cols, dim=1).values, widths)
-
-
-def gdict_bytes_sorted(srt: torch.Tensor,
-                       widths: torch.Tensor) -> torch.Tensor:
-    """`gdict_bytes` of a stack whose rows are already sorted ascending:
-    the kernel alone on a CUDA tensor, the plain version on a CPU one."""
-    _check_inputs(srt, widths)
-    if srt.device.type == "cpu":
-        return gdict_bytes_plain(srt, widths)
-    m, n = srt.shape
+    m, n = cols.shape
     if m == 0 or n == 0:
-        return torch.zeros(m, dtype=torch.int64, device=srt.device)
+        return torch.zeros(m, dtype=torch.int64, device=cols.device)
     if m >= 2 ** 31 or n >= 2 ** 31:
-        raise ValueError(f"stack {tuple(srt.shape)} exceeds the kernel's "
+        raise ValueError(f"stack {tuple(cols.shape)} exceeds the kernel's "
                          "int32 sizes")
-    srt = srt.contiguous()
+    plan = gdict_plan(m, n, _sm_count(cols.device))
+    if plan.log_slots > 31 or m * plan.parts >= 2 ** 31:
+        raise ValueError(f"stack {tuple(cols.shape)} exceeds the kernel's "
+                         "2^31-slot hash set or grid")
+    cols = cols.contiguous()
     widths = widths.contiguous()
-    out = torch.empty(m, dtype=torch.int64, device=srt.device)
-    err = _load().gdict_bytes_launch(srt.data_ptr(), widths.data_ptr(),
-                                     out.data_ptr(), m, n, _stream(srt))
+    out = torch.empty(m, dtype=torch.int64, device=cols.device)
+    scratch = torch.empty(plan.scratch_bytes // 8, dtype=torch.int64,
+                          device=cols.device) if plan.tables else None
+    err = _load().gdict_bytes_launch(
+        cols.data_ptr(), widths.data_ptr(), out.data_ptr(), m, n,
+        GDICT_ROUTES.index(plan.route), plan.log_slots, plan.parts,
+        None if scratch is None else scratch.data_ptr(), plan.tables,
+        _stream(cols))
     _launch_check(err, "gdict_bytes")
     LAUNCHES["gdict_bytes"] += 1
     return out

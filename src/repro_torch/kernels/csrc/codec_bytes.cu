@@ -4,9 +4,8 @@
 //
 // Replaces the Pallas kernels of src/repro/kernels/codec_bytes.py:
 //   ns_bytes_kernel     <- _ns_kernel (l.95)
-//   gdict_bytes_kernel  <- _gdict_kernel (l.104); the row sort before it
-//                          (lax.sort, l.179-180) stays a library sort
-//                          (torch.sort), as it was XLA's on the TPU
+//   gdict_kernel        <- _gdict_kernel (l.104) AND the row sort before
+//                          it (lax.sort, l.179-180): no sort at all
 //   ldict_warp_kernel,  <- _ldict_kernel (l.113) AND the per-page lax.sort
 //   ldict_block_kernel     pre-pass of _codec_call (l.187-191)
 //   page_warp_kernel,   <- _prefix_kernel (l.128) with PrefixPage,
@@ -22,8 +21,37 @@
 // What bounds them on an H100: bytes read.  Each value is read once from
 // device memory (8 bytes) and costs a handful of integer operations, far
 // below the card's integer rate, so the floor is m * n * 8 bytes over
-// 3.35 TB/s.  GDICT: one block per row, a block-strided loop of coalesced
-// loads and a block reduction.
+// 3.35 TB/s.
+//
+// GDICT counts each row's distinct values with a hash set, LDICT's
+// (open addressing, linear probing, Fibonacci hashing, INT64_MIN as the
+// empty slot and a flag for a real INT64_MIN, never more than 4/7 full),
+// of next_pow2(ceil(7n / 4)) slots a row: a sort of 60,000 keys (the TPU
+// path's lax.sort, a torch.sort before) was 87 % of the time.  Values are
+// read with 16-byte loads, four in flight a thread; a warp's equal values are
+// merged with __match_any_sync and one lane inserts each (a column of few
+// distinct values would otherwise queue a warp's 64-bit atomicCAS on one
+// slot); a slot is read before any atomicCAS, and the CAS is tried only
+// on a slot read as empty; ndv is the number of slots claimed.  Three classes by the
+// table's size, one template (gdict_kernel), chosen by the wrapper
+// (codec_bytes.gdict_plan):
+//  1. up to 8,192 slots (64 KB, rows <= 4,681): one 256-thread block a
+//     row, the table in its shared memory, several blocks to an SM;
+//  2. up to 131,072 slots (1 MiB, rows <= 74,898): one logical table
+//     split over a thread-block cluster of up to 8 blocks of 1,024
+//     threads, <= 128 KB each; slot h lives in block rank h >> log_share
+//     and is reached through cluster.map_shared_rank (atomics on
+//     distributed shared memory); each block reads its share of the row
+//     and counts the slots its threads claimed, and block rank 0 sums the
+//     counts through distributed shared memory: no atomic in global
+//     memory, no zeroed output.  The cluster doubles (NS's rule) while
+//     the rows alone would leave SMs idle; a cluster of one is a plain
+//     launch.  At (11, 60000): 8 x 128 KB, 88 blocks;
+//  3. longer rows: a table in global memory (the wrapper's scratch, few
+//     enough tables to stay in the 50 MB L2 where they can) per cluster
+//     of 8 blocks of a persistent grid; the cluster fills its table with
+//     the empty marker before each of its rows and inserts the row as in
+//     class 2, with atomics in global memory.
 //
 // NS spreads each row over a thread-block cluster of up to 8 blocks
 // (more blocks per row while the grid would leave SMs idle and each block
@@ -245,28 +273,58 @@ __device__ __forceinline__ unsigned ldict_hash(unsigned long long v,
       ((v ^ (v >> 32)) * 0x9E3779B97F4A7C15ull) >> (64 - log_slots));
 }
 
-// Inserts v (!= kEmpty) into an open-addressing table of 2^log_slots
-// slots shared by a block (linear probing).  Returns the slot v claimed,
-// or -1 when v was there already.  Slots are only ever claimed while a
-// page is inserted, so a slot that holds another value stays that way
-// and probing past it is safe; the table is never more than 4/7 full, so
-// the probe ends.
-__device__ __forceinline__ int ldict_insert(unsigned long long* table,
-                                            int log_slots,
-                                            unsigned long long v) {
-  const unsigned mask = (1u << log_slots) - 1;
-  unsigned h = ldict_hash(v, log_slots);
+// A table of 2^log_slots slots in one piece: a block's shared memory, or
+// a region of global memory.
+struct FlatTable {
+  unsigned long long* t;
+  int log_slots;
+  __device__ __forceinline__ unsigned long long* slot(unsigned h) const {
+    return t + h;
+  }
+};
+
+// One table of 2^log_slots slots split over the blocks of a cluster, each
+// holding 2^log_share of them at the same shared-memory offset `t`: slot h
+// lives in block rank h >> log_share.
+struct ClusterTable {
+  unsigned long long* t;
+  int log_slots, log_share;
+  __device__ __forceinline__ unsigned long long* slot(unsigned h) const {
+    return cooperative_groups::this_cluster().map_shared_rank(
+        t + (h & ((1u << log_share) - 1)), h >> log_share);
+  }
+};
+
+// Inserts v (!= kEmpty) into an open-addressing table of 2^log_slots <=
+// 2^31 slots (linear probing).  Returns the slot v claimed, or -1 when v
+// was there already.  Slots are only ever claimed while a page or row is
+// inserted, so a slot that holds another value stays that way and probing
+// past it is safe; each distinct value ends in exactly one slot (a value
+// placed further along would have passed its own slot); the table is
+// never more than 4/7 full, so the probe ends.
+template <class Table>
+__device__ __forceinline__ int hash_insert(const Table& tb,
+                                           unsigned long long v) {
+  const unsigned mask = (1u << tb.log_slots) - 1;
+  unsigned h = ldict_hash(v, tb.log_slots);
   for (;;) {
-    unsigned long long cur =
-        *reinterpret_cast<volatile unsigned long long*>(table + h);
+    unsigned long long* s = tb.slot(h);
+    unsigned long long cur = *reinterpret_cast<volatile unsigned long long*>(s);
     if (cur == v) return -1;
     if (cur == kEmpty) {
-      cur = atomicCAS(table + h, kEmpty, v);
+      cur = atomicCAS(s, kEmpty, v);
       if (cur == kEmpty) return static_cast<int>(h);
       if (cur == v) return -1;
     }
     h = (h + 1) & mask;
   }
+}
+
+// hash_insert into a block's table in shared memory
+__device__ __forceinline__ int ldict_insert(unsigned long long* table,
+                                            int log_slots,
+                                            unsigned long long v) {
+  return hash_insert(FlatTable{table, log_slots}, v);
 }
 
 // One warp per page of <= 32 * kPerLane rows, kLdictTeams warps per
@@ -428,19 +486,175 @@ ldict_block_kernel(const long long* __restrict__ cols,
     atomicAdd(out + run_row, static_cast<unsigned long long>(run_bytes));
 }
 
-// rows arrive sorted (torch.sort); ndv = 1 + #(adjacent unequal)
-__global__ void gdict_bytes_kernel(const long long* __restrict__ sorted,
-                                   const long long* __restrict__ widths,
-                                   long long* __restrict__ out, int n) {
-  const int row = blockIdx.x;
-  const long long* __restrict__ r = sorted + static_cast<long long>(row) * n;
-  long long neq = 0;
-  for (int j = 1 + threadIdx.x; j < n; j += kThreads)
-    neq += r[j] != r[j - 1] ? 1 : 0;
-  neq = block_sum(neq);
-  if (threadIdx.x == 0) {
-    const long long ndv = 1 + neq;
-    out[row] = ndv * widths[row] + static_cast<long long>(n) * ptr_bytes(ndv);
+constexpr int kGdictBlockThreads = 256;    // class 1: a block a row
+constexpr int kGdictWideThreads = 1024;    // classes 2 and 3
+constexpr int kGdictLoads = 4;             // 16-byte loads a thread in flight
+constexpr int kGdictMaxBlockLog = 13;      // class 1: <= 8,192 slots (64 KB)
+constexpr int kGdictMaxShareLog = 14;      // class 2: <= 16,384 slots a block
+constexpr int kGdictMaxCluster = 8;        //   (128 KB) in <= 8 blocks
+
+// The table's layout: one block's shared memory (a plain launch), split
+// over a cluster's shared memory, or a region of global memory that a
+// cluster shares.
+enum GdictTable { kGdictBlock, kGdictCluster, kGdictGlobal };
+
+// Warp-collective (all 32 lanes, converged): the lanes where `mine` offer
+// v; a real INT64_MIN only sets has_min; of the lanes offering one value
+// the lowest inserts it.  Returns 1 where this lane claimed a slot.
+template <class Table>
+__device__ __forceinline__ int gdict_put(const Table& tb,
+                                         unsigned long long v, bool mine,
+                                         bool& has_min) {
+  if (mine && v == kEmpty) {
+    has_min = true;
+    mine = false;
+  }
+  const unsigned live = __ballot_sync(0xffffffffu, mine);
+  if (live == 0) return 0;
+  const unsigned peers = __match_any_sync(0xffffffffu, v) & live;
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  return (mine && __ffs(peers) - 1 == lane && hash_insert(tb, v) >= 0) ? 1
+                                                                       : 0;
+}
+
+// Inserts pairs [lo, hi) of row r's 16-byte pairs (from its first 16-byte
+// aligned value), `first`: also the odd value before them, `last`: the odd
+// value after them.  Every thread of the block calls it (the loop's trip
+// count is the block's).  Returns the slots this thread claimed.
+template <class Table>
+__device__ __forceinline__ int gdict_insert_span(
+    const Table& tb, const long long* __restrict__ r, int n, int lo, int hi,
+    bool first, bool last, bool& has_min) {
+  const int head = (reinterpret_cast<size_t>(r) & 15) ? 1 : 0;
+  const longlong2* __restrict__ p2 =
+      reinterpret_cast<const longlong2*>(r + head);
+  const int nt = static_cast<int>(blockDim.x);
+  const int tid = static_cast<int>(threadIdx.x);
+  int fresh = 0;
+  for (int base = lo; base < hi; base += kGdictLoads * nt) {
+    longlong2 a[kGdictLoads];
+#pragma unroll
+    for (int u = 0; u < kGdictLoads; ++u) {
+      const int i = base + u * nt + tid;
+      a[u] = i < hi ? __ldg(p2 + i) : make_longlong2(0, 0);
+    }
+#pragma unroll
+    for (int u = 0; u < kGdictLoads; ++u) {
+      const bool ok = base + u * nt + tid < hi;
+      fresh += gdict_put(tb, static_cast<unsigned long long>(a[u].x), ok,
+                         has_min);
+      fresh += gdict_put(tb, static_cast<unsigned long long>(a[u].y), ok,
+                         has_min);
+    }
+  }
+  if (tid < 32) {
+    const bool h = tid == 0 && first && head;
+    const bool t = tid == 1 && last && ((n - head) & 1);
+    const long long v = h ? __ldg(r) : (t ? __ldg(r + n - 1) : 0);
+    fresh += gdict_put(tb, static_cast<unsigned long long>(v), h || t,
+                       has_min);
+  }
+  return fresh;
+}
+
+__device__ __forceinline__ long long gdict_row_bytes(long long ndv, int n,
+                                                     long long w) {
+  return ndv * w + static_cast<long long>(n) * ptr_bytes(ndv);
+}
+
+// kKind kGdictBlock: one block a row (a plain launch), its table of
+// 2^log_slots slots in the block's shared memory.  kGdictCluster: a
+// cluster of P blocks a row (grid m * P), 2^log_share slots in each
+// block's shared memory, slot h in block rank h >> log_share.
+// kGdictGlobal: cluster c of a grid of `tables` clusters owns the table of
+// 2^log_slots slots at scratch + (c << log_slots) in global memory and
+// takes rows c, c + tables, ...; its block of rank b fills slots [b, b +
+// 1) * 2^log_slots / P with the empty marker before each row.
+// A cluster's block of rank b inserts pairs [b * pairs / P, (b + 1) *
+// pairs / P) of the row (rank 0 also the odd value before them, rank P -
+// 1 the one after) and counts the slots its threads claimed; rank 0 sums
+// the blocks' counts and INT64_MIN flags through distributed shared
+// memory.
+template <int kKind>
+__global__ void __launch_bounds__(kGdictWideThreads)
+gdict_kernel(const long long* __restrict__ cols,
+             const long long* __restrict__ widths,
+             long long* __restrict__ out, int m, int n, int log_slots,
+             int log_share, unsigned long long* __restrict__ scratch) {
+  namespace cg = cooperative_groups;
+  extern __shared__ unsigned long long table[];
+  __shared__ unsigned count;
+  __shared__ int any_min;
+  int parts = 1, rank = 0;
+  if constexpr (kKind != kGdictBlock) {
+    parts = static_cast<int>(cg::this_cluster().num_blocks());
+    rank = static_cast<int>(cg::this_cluster().block_rank());
+  }
+  const long long group = blockIdx.x / parts;
+  const long long groups = gridDim.x / parts;
+  unsigned long long* gtable = nullptr;
+  if constexpr (kKind == kGdictGlobal) gtable = scratch + (group << log_slots);
+  for (long long row = group; row < m; row += groups) {
+    if constexpr (kKind == kGdictGlobal) {
+      const long long share = (1ll << log_slots) / parts;
+      ulonglong2* t2 = reinterpret_cast<ulonglong2*>(gtable + rank * share);
+      for (long long i = threadIdx.x; i < share / 2; i += blockDim.x)
+        t2[i] = make_ulonglong2(kEmpty, kEmpty);
+    } else {
+      for (int i = threadIdx.x; i < (1 << log_share); i += blockDim.x)
+        table[i] = kEmpty;
+    }
+    if (threadIdx.x == 0) count = 0;
+    if constexpr (kKind == kGdictBlock)
+      __syncthreads();
+    else
+      cg::this_cluster().sync();   // the whole table empty before inserts
+    const long long* __restrict__ r = cols + row * n;
+    const int head = (reinterpret_cast<size_t>(r) & 15) ? 1 : 0;
+    const int pairs = (n - head) >> 1;
+    const int lo =
+        static_cast<int>(static_cast<long long>(pairs) * rank / parts);
+    const int hi =
+        static_cast<int>(static_cast<long long>(pairs) * (rank + 1) / parts);
+    bool has_min = false;
+    int fresh;
+    if constexpr (kKind == kGdictCluster)
+      fresh = gdict_insert_span(ClusterTable{table, log_slots, log_share}, r,
+                                n, lo, hi, rank == 0, rank == parts - 1,
+                                has_min);
+    else
+      fresh = gdict_insert_span(
+          FlatTable{kKind == kGdictGlobal ? gtable : table, log_slots}, r, n,
+          lo, hi, rank == 0, rank == parts - 1, has_min);
+    fresh = static_cast<int>(
+        __reduce_add_sync(0xffffffffu, static_cast<unsigned>(fresh)));
+    if ((threadIdx.x & 31) == 0 && fresh)
+      atomicAdd(&count, static_cast<unsigned>(fresh));
+    const int saw_min = __syncthreads_or(has_min);   // count complete
+    if constexpr (kKind == kGdictBlock) {
+      if (threadIdx.x == 0)
+        out[row] = gdict_row_bytes(static_cast<long long>(count) + saw_min,
+                                   n, widths[row]);
+    } else {
+      cg::cluster_group cluster = cg::this_cluster();
+      if (threadIdx.x == 0) any_min = saw_min;
+      cluster.sync();   // every insert done, every block's count written
+      if (rank == 0 && threadIdx.x < 32) {
+        const bool mine = static_cast<int>(threadIdx.x) < parts;
+        long long ndv =
+            mine ? *cluster.map_shared_rank(&count, threadIdx.x) : 0u;
+        int flag =
+            mine ? *cluster.map_shared_rank(&any_min, threadIdx.x) : 0;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          ndv += __shfl_xor_sync(0xffffffffu, ndv, off);
+          flag |= __shfl_xor_sync(0xffffffffu, flag, off);
+        }
+        if (threadIdx.x == 0)
+          out[row] = gdict_row_bytes(ndv + (flag ? 1 : 0), n, widths[row]);
+      }
+      cluster.sync();   // the counts and tables stay until rank 0 read them
+    }
   }
 }
 
@@ -803,14 +1017,65 @@ int ldict_bytes_launch(const void* cols, const void* widths, void* out, int m,
   return static_cast<int>(cudaGetLastError());
 }
 
-// sorted: (m, n) int64, each row sorted ascending.  out: (m,) int64,
-// written.  m >= 1, n >= 1.
-int gdict_bytes_launch(const void* sorted, const void* widths, void* out,
-                       int m, int n, void* stream) {
-  gdict_bytes_kernel<<<m, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const long long*>(sorted),
-      static_cast<const long long*>(widths), static_cast<long long*>(out),
-      n);
+// out: (m,) int64, written.  m >= 1, n >= 1, a table of 2^log_slots >=
+// 7n / 4 slots a row.  route 0: a block a row (parts 1, log_slots <=
+// kGdictMaxBlockLog); 1: a cluster of `parts` blocks a row (1: a plain
+// launch), 2^log_slots / parts <= 2^kGdictMaxShareLog slots a block; 2:
+// `tables` clusters of `parts` blocks, scratch holding tables <<
+// log_slots slots.  A size the card refuses, or a refused launch, is
+// returned as an error.
+int gdict_bytes_launch(const void* cols, const void* widths, void* out,
+                       int m, int n, int route, int log_slots, int parts,
+                       void* scratch, int tables, void* stream) {
+  int log_parts = 0;
+  while ((1 << log_parts) < parts) ++log_parts;
+  const int log_share = log_slots - log_parts;
+  bool ok = (1 << log_parts) == parts && parts <= kGdictMaxCluster &&
+            log_share >= 1 && log_slots <= 31;
+  if (route == 0)
+    ok = ok && parts == 1 && log_slots <= kGdictMaxBlockLog;
+  else if (route == 1)
+    ok = ok && log_share <= kGdictMaxShareLog;
+  else
+    ok = ok && route == 2 && parts > 1 && scratch != nullptr && tables >= 1;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem =
+      route == 2 ? 0 : static_cast<int>(sizeof(unsigned long long))
+                           << log_share;
+  auto kernel = route == 2 ? gdict_kernel<kGdictGlobal>
+                : parts > 1 ? gdict_kernel<kGdictCluster>
+                            : gdict_kernel<kGdictBlock>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* c = static_cast<const long long*>(cols);
+  const auto* w = static_cast<const long long*>(widths);
+  auto* o = static_cast<long long*>(out);
+  auto* sc = static_cast<unsigned long long*>(scratch);
+  const int threads = route == 0 ? kGdictBlockThreads : kGdictWideThreads;
+  if (parts == 1) {
+    kernel<<<m, threads, smem, st>>>(c, w, o, m, n, log_slots, log_share, sc);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = parts;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim =
+      dim3(static_cast<unsigned>(route == 2 ? tables : m) * parts);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, c, w, o, m, n,
+                                             log_slots, log_share, sc);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

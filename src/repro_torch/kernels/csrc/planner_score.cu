@@ -5,7 +5,10 @@
 //   fused_score_kernel  <- _fused_kernel (l.138), one target record
 //   planner_walk_kernel <- _fused_kernel (l.138) and the host loop around
 //                          it (src/repro/core/planner_engine.py _run): the
-//                          whole greedy of one plan in one launch
+//                          whole greedy of one plan in one launch, and the
+//                          plan's per-f feasibility check after it (the
+//                          _prob_kernel call of src/repro/core/
+//                          planner_engine.py l.428-433)
 //
 // What bounds them on an H100: launch latency.  A planner record is tiny
 // (at TPC-H SF1: nc <= 14 candidates, K <= 11 children, nf = 5 fractions,
@@ -45,7 +48,11 @@
 // SAMPLED nodes hold the float64 SampleCF mean and std, rounded to float32
 // only where a child is gathered for the fold.  What bounds it: the
 // records' dependency chain, two barriers per active record, not bytes
-// or operations.
+// or operations.  After the fraction's last record its block judges the
+// plan's feasibility, one thread per target: p = prob_expr of the
+// target's final (mean, std) rounded to float32 (what prob_within is given
+// for the same RV), feasible = every float64(p) >= q_feas, a separate q:
+// the "All" baseline walks under one q and judges under the caller's.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -143,13 +150,15 @@ __global__ void fused_score_kernel(
 // child ids child[c][0 ..] (K a row; pads are the EXACT node n1 - 1) and
 // its deduction factors dm / vt / mq[c].  scost: (nf, n1) float64 sampling
 // costs; samp_mean / samp_std: (2, nf) float64 SampleCF error RVs.
-// Outputs: state / mean / std (nf, n1), win (R, nf), total (nf,).
+// targets: (T,) the plan's target node ids.  Outputs: state / mean / std
+// (nf, n1), win (R, nf), total (nf,), p (T, nf), feasible (nf,).
 template <bool SMEM>
 __global__ void __launch_bounds__(kWalkThreads)
 planner_walk_kernel(const int* __restrict__ tid, const int* __restrict__ kind,
                     const int* __restrict__ cand_off,
                     const int* __restrict__ child,
                     const int* __restrict__ nchild,
+                    const int* __restrict__ targets,
                     const float* __restrict__ dm,
                     const float* __restrict__ vt,
                     const float* __restrict__ mq,
@@ -159,8 +168,11 @@ planner_walk_kernel(const int* __restrict__ tid, const int* __restrict__ kind,
                     uint8_t* __restrict__ state_out,
                     double* __restrict__ mean_out,
                     double* __restrict__ std_out, int* __restrict__ win,
-                    double* __restrict__ total_out, int nrec, int k, int n1,
-                    int nf, int max_cands, float lo, float hi, double q) {
+                    double* __restrict__ total_out,
+                    float* __restrict__ p_out,
+                    uint8_t* __restrict__ feasible_out, int nrec, int k,
+                    int n1, int nf, int max_cands, int ntargets, float lo,
+                    float hi, double q, double q_feas) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int f = blockIdx.x;
   const int t = threadIdx.x;
@@ -318,7 +330,21 @@ planner_walk_kernel(const int* __restrict__ tid, const int* __restrict__ kind,
     }
     __syncthreads();
   }
-  if (t == 0) total_out[f] = total;
+  // the states are final (the last record that wrote one ended in a
+  // barrier): the plan's feasibility at this fraction
+  bool ok = true;
+  for (int i = t; i < ntargets; i += blockDim.x) {
+    const int id = targets[i];
+    const float pv = planner::prob_expr(__double2float_rn(mu[id]),
+                                        __double2float_rn(sd[id]), lo, hi);
+    p_out[static_cast<long long>(i) * nf + f] = pv;
+    ok = ok && static_cast<double>(pv) >= q_feas;
+  }
+  ok = __syncthreads_and(ok);
+  if (t == 0) {
+    total_out[f] = total;
+    feasible_out[f] = ok ? 1 : 0;
+  }
   if (SMEM) {
     for (int i = t; i < n1; i += blockDim.x) {
       state_out[col + i] = st[i];
@@ -384,16 +410,17 @@ int fused_score_launch(const void* m, const void* s, const void* dm,
 }
 
 // See planner_walk_kernel.  scost / state / mean / std are (nf, n1), one
-// fraction a row; win is (nrec, nf).
+// fraction a row; win is (nrec, nf), p (ntargets, nf).
 int planner_walk_launch(const void* tid, const void* kind,
                         const void* cand_off, const void* child,
-                        const void* nchild, const void* dm, const void* vt,
-                        const void* mq, const void* scost,
-                        const void* samp_mean, const void* samp_std,
-                        void* state, void* mean, void* std, void* win,
-                        void* total, int nrec, int k, int n1, int nf,
-                        int max_cands, float lo, float hi, double q,
-                        void* stream) {
+                        const void* nchild, const void* targets,
+                        const void* dm, const void* vt, const void* mq,
+                        const void* scost, const void* samp_mean,
+                        const void* samp_std, void* state, void* mean,
+                        void* std, void* win, void* total, void* p,
+                        void* feasible, int nrec, int k, int n1, int nf,
+                        int max_cands, int ntargets, float lo, float hi,
+                        double q, double q_feas, void* stream) {
   size_t optin = 0;
   const cudaError_t e0 = walk_optin(&optin);
   if (e0 != cudaSuccess) return static_cast<int>(e0);
@@ -411,14 +438,15 @@ int planner_walk_launch(const void* tid, const void* kind,
   kernel<<<nf, kWalkThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(tid), static_cast<const int*>(kind),
       static_cast<const int*>(cand_off), static_cast<const int*>(child),
-      static_cast<const int*>(nchild), static_cast<const float*>(dm),
-      static_cast<const float*>(vt), static_cast<const float*>(mq),
-      static_cast<const double*>(scost),
+      static_cast<const int*>(nchild), static_cast<const int*>(targets),
+      static_cast<const float*>(dm), static_cast<const float*>(vt),
+      static_cast<const float*>(mq), static_cast<const double*>(scost),
       static_cast<const double*>(samp_mean),
       static_cast<const double*>(samp_std), static_cast<uint8_t*>(state),
       static_cast<double*>(mean), static_cast<double*>(std),
-      static_cast<int*>(win), static_cast<double*>(total), nrec, k, n1, nf,
-      max_cands, lo, hi, q);
+      static_cast<int*>(win), static_cast<double*>(total),
+      static_cast<float*>(p), static_cast<uint8_t*>(feasible), nrec, k, n1,
+      nf, max_cands, ntargets, lo, hi, q, q_feas);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -10,14 +10,18 @@
   fraction (first argmax of p over `mask67 & (p >= q)`; where there is
   none, first argmin of `extra` over `pre9 & (p >= q)`; 2^31 - 1 when
   empty).
-* `planner_walk(g, e, q)` -- the whole greedy of one plan (lines 6-11 of
-  the Section 5.2 pseudocode over every target record in order, for every
-  sampling fraction) on one packed graph `WalkGraph`: the final node
-  states, float64 error-RV means and stds, the winner of each (record,
-  fraction) and the float64 sampling cost per fraction (`WalkResult`).
+* `planner_walk(g, e, q, q_feas)` -- the whole greedy of one plan (lines
+  6-11 of the Section 5.2 pseudocode over every target record in order,
+  for every sampling fraction) on one packed graph `WalkGraph`: the final
+  node states, float64 error-RV means and stds, the winner of each
+  (record, fraction) and the float64 sampling cost per fraction, then the
+  plan's feasibility per fraction: each target's accuracy probability p
+  from its final RV rounded to float32, and whether every float64(p) >=
+  q_feas (`WalkResult`).
   Its plain version walks the records one by one and scores each with
-  `fused_score` (on CUDA tensors, the per-record kernel), so on the card
-  it is the walk kernel's bitwise reference.  Where the greedy works in
+  `fused_score`, and the targets with `prob_within` (on CUDA tensors, the
+  two kernels), so on the card it is the walk kernel's bitwise reference.
+  Where the greedy works in
   float64 the walk does too: p >= q compares float64(p) with q, the
   unknown children's cost is a float64 sum in child order, the lines 8-9
   winner is the first argmin of that sum, `total` adds float64 costs in
@@ -42,7 +46,8 @@ values are only float32-close (a different erf, float32 arithmetic).
 The CUDA kernels replace the Pallas kernels `_prob_kernel` and
 `_fused_kernel` of the JAX package; the walk replaces `_fused_kernel`
 together with the per-record host loop around it (`core/planner_engine.py`
-`_run`).
+`_run`) and the per-plan `_prob_kernel` call of its feasibility check;
+`prob_within` stays for single records.
 """
 from __future__ import annotations
 
@@ -83,8 +88,8 @@ def _load():
         lib.fused_score_launch.argtypes = [vp] * 10 + [ci, ci, ci,
                                                        cf, cf, cf, vp]
         lib.fused_score_launch.restype = ci
-        lib.planner_walk_launch.argtypes = [vp] * 16 + [ci] * 5 + [
-            cf, cf, ctypes.c_double, vp]
+        lib.planner_walk_launch.argtypes = [vp] * 19 + [ci] * 6 + [
+            cf, cf, ctypes.c_double, ctypes.c_double, vp]
         lib.planner_walk_launch.restype = ci
         lib.planner_walk_in_smem.argtypes = [ci, ci]
         lib.planner_walk_in_smem.restype = ci
@@ -133,6 +138,8 @@ class WalkGraph:
     scost (n + 1, nf) float64 -- sampling costs, 0 on the pad row;
     samp_mean, samp_std (2, nf) float64 -- SampleCF error RV per order
     class and fraction;
+    targets (T,) int32 -- the plan's target nodes, whose final RVs judge
+    its feasibility;
     max_cands -- the most candidates of a record.
     """
     tid: torch.Tensor
@@ -146,6 +153,7 @@ class WalkGraph:
     scost: torch.Tensor
     samp_mean: torch.Tensor
     samp_std: torch.Tensor
+    targets: torch.Tensor
     max_cands: int
 
 
@@ -155,6 +163,8 @@ class WalkResult(NamedTuple):
     std: torch.Tensor     # (n + 1, nf) float64 error-RV stds
     win: torch.Tensor     # (R, nf) int32 winner codes
     total: torch.Tensor   # (nf,) float64 sampling cost
+    p: torch.Tensor       # (T, nf) float32 accuracy probability per target
+    feasible: torch.Tensor  # (nf,) bool: every target's p >= q_feas
 
 
 # ---------------------------------------------------------------------------
@@ -230,10 +240,12 @@ def _first_index(hit: torch.Tensor) -> torch.Tensor:
     return torch.where(hit, iota, nc).amin(dim=0)
 
 
-def planner_walk_plain(g: WalkGraph, e: float, q: float) -> WalkResult:
+def planner_walk_plain(g: WalkGraph, e: float, q: float,
+                       q_feas: Optional[float] = None) -> WalkResult:
     """The greedy record by record, vectorised over the fractions; each
     record scored by `fused_score` (its winners are taken here, in
-    float64, as the walk takes them)."""
+    float64, as the walk takes them), the targets' final RVs by
+    `prob_within`."""
     dev = g.scost.device
     n1, nf = g.scost.shape
     k = g.child.shape[1]
@@ -307,7 +319,11 @@ def planner_walk_plain(g: WalkGraph, e: float, q: float) -> WalkResult:
         total = total + torch.where(rest, g.scost[t], 0.0)
         win[r] = torch.where(~act, WALK_SKIP,
                              torch.where(has6 | has9, code, WALK_FALLBACK))
-    return WalkResult(state, mean, std, win, total)
+    tg = g.targets.long()
+    p = prob_within(mean[tg].to(torch.float32), std[tg].to(torch.float32), e)
+    q_feas = q if q_feas is None else q_feas
+    return WalkResult(state, mean, std, win, total, p,
+                      (p.to(torch.float64) >= q_feas).all(dim=0))
 
 
 # ---------------------------------------------------------------------------
@@ -400,14 +416,18 @@ def walk_in_shared_memory(g: WalkGraph) -> bool:
     return r == 1
 
 
-def planner_walk(g: WalkGraph, e: float, q: float) -> WalkResult:
+def planner_walk(g: WalkGraph, e: float, q: float,
+                 q_feas: Optional[float] = None) -> WalkResult:
     """The greedy of one plan over the packed graph `g` (see `WalkGraph`,
-    `WalkResult`); one launch for every fraction on a CUDA graph."""
+    `WalkResult`) under accuracy (e, q), its feasibility judged against
+    q_feas (q by default); one launch for every fraction on a CUDA
+    graph."""
     n1, nf = g.scost.shape
     nrec = g.tid.numel()
+    nt = g.targets.numel()
     nc = g.dm.numel()
     k = g.child.shape[1]
-    ints = (g.tid, g.kind, g.cand_off, g.child, g.nchild)
+    ints = (g.tid, g.kind, g.cand_off, g.child, g.nchild, g.targets)
     floats = (g.dm, g.vt, g.mq)
     doubles = (g.scost, g.samp_mean, g.samp_std)
     if any(t.dtype != torch.int32 for t in ints) or \
@@ -418,16 +438,19 @@ def planner_walk(g: WalkGraph, e: float, q: float) -> WalkResult:
     if g.kind.shape != (nrec,) or g.cand_off.shape != (nrec + 1,) or \
             g.child.shape[0] != nc or g.nchild.shape != (nc,) or \
             g.vt.shape != (nc,) or g.mq.shape != (nc,) or k < 1 or \
-            g.samp_mean.shape != (2, nf) or g.samp_std.shape != (2, nf):
+            g.samp_mean.shape != (2, nf) or g.samp_std.shape != (2, nf) \
+            or g.targets.shape != (nt,):
         raise ValueError("planner_walk: inconsistent packed graph")
     dev = g.scost.device
     if any(t.device != dev for t in ints + floats + doubles):
         raise ValueError("all inputs must be on one device")
+    q_feas = q if q_feas is None else q_feas
     if dev.type == "cpu":
-        return planner_walk_plain(g, e, q)
+        return planner_walk_plain(g, e, q, q_feas)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    if g.max_cands >= WALK_LINE9 or nc * k >= 2 ** 31 or n1 * nf >= 2 ** 31:
+    if g.max_cands >= WALK_LINE9 or nc * k >= 2 ** 31 or \
+            n1 * nf >= 2 ** 31 or nt * nf >= 2 ** 31:
         raise ValueError("planner_walk: graph outside the kernel's sizes")
     ins = [t.contiguous() for t in ints + floats]
     scost_t = g.scost.t().contiguous()
@@ -437,15 +460,19 @@ def planner_walk(g: WalkGraph, e: float, q: float) -> WalkResult:
     std = torch.empty((nf, n1), dtype=torch.float64, device=dev)
     win = torch.empty((nrec, nf), dtype=torch.int32, device=dev)
     total = torch.empty(nf, dtype=torch.float64, device=dev)
+    p = torch.empty((nt, nf), dtype=torch.float32, device=dev)
+    feasible = torch.empty(nf, dtype=torch.uint8, device=dev)
+    res = WalkResult(state.t(), mean.t(), std.t(), win, total, p,
+                     feasible.view(torch.bool))
     if nf == 0:
-        return WalkResult(state.t(), mean.t(), std.t(), win, total)
+        return res
     lo, hi = bounds(e)
     err = _load().planner_walk_launch(
         *(t.data_ptr() for t in ins), scost_t.data_ptr(),
         *(t.data_ptr() for t in samp),
-        *(t.data_ptr() for t in (state, mean, std, win, total)),
-        nrec, k, n1, nf, max(g.max_cands, 1), lo, hi, float(q),
-        torch.cuda.current_stream(dev).cuda_stream)
+        *(t.data_ptr() for t in (state, mean, std, win, total, p, feasible)),
+        nrec, k, n1, nf, max(g.max_cands, 1), nt, lo, hi, float(q),
+        float(q_feas), torch.cuda.current_stream(dev).cuda_stream)
     _launch_check(err, "planner_walk")
     LAUNCHES["planner_walk"] += 1
-    return WalkResult(state.t(), mean.t(), std.t(), win, total)
+    return res

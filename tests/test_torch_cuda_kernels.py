@@ -28,6 +28,10 @@ page, pair and warp-step boundaries, more than 65,535 pages); NS on its
 significant-byte edges with rows of one block and rows split over a
 cluster of blocks (the edge inputs of `torch_port_util`, which
 test_torch_codec_page_edges.py holds to the JAX package on the CPU).
+GDICT's hash set bit-equal on its edge rows in each of its three layouts
+(a block's shared memory, a cluster's, global memory), one launch a call
+and no sort; the walk's feasibility (p and feasible) bit-equal to
+`prob_within` on the walk's own final RVs and to the plain walk.
 """
 import numpy as np
 import pytest
@@ -38,11 +42,11 @@ from repro_torch.kernels import codec_bytes as cb, launch_counts
 from repro_torch.kernels import dequant_matmul as dm
 from repro_torch.kernels import planner_score as ps
 from repro_torch.kernels import quantize_blockwise as qb
-from torch_port_util import (PAGE_EDGE_RPPS, TRAP_A_E, WALK_SUMS,
-                             WALK_SUMS_WIN, WALK_TIES, WALK_TIES_WIN,
-                             WALK_TRAP_A, ns_edge_stack, page_edge_n,
-                             run_edge_stack, trap_a_score, walk_graph,
-                             walk_synthetic)
+from torch_port_util import (GDICT_EDGE_NS, PAGE_EDGE_RPPS, TRAP_A_E,
+                             WALK_SUMS, WALK_SUMS_WIN, WALK_TIES,
+                             WALK_TIES_WIN, WALK_TRAP_A, gdict_edge_stack,
+                             ns_edge_stack, page_edge_n, run_edge_stack,
+                             trap_a_score, walk_graph, walk_synthetic)
 
 E = 0.1
 
@@ -228,7 +232,7 @@ def test_cuda_planner_walk_equals_plain_on_the_tpch_graph(cuda, tpch_targets,
     wgs = []
     walk = ps.planner_walk
     try:
-        ps.planner_walk = lambda g, e_, q_: wgs.append(g) or walk(g, e_, q_)
+        ps.planner_walk = lambda g, *a: wgs.append(g) or walk(g, *a)
         eng.plan_batch(targets, 0.5, q)
     finally:
         ps.planner_walk = walk
@@ -254,6 +258,28 @@ def test_cuda_planner_one_walk_launch_per_plan(cuda, tpch_targets,
     after = launch_counts()
     assert after["planner_walk"] == before["planner_walk"] + 1
     assert after["fused_score"] == before["fused_score"]
+    assert after["prob_within"] == before["prob_within"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, in_smem", [(600, True), (12_000, False)])
+@pytest.mark.parametrize("q_feas", [None, 0.3, 0.95])
+def test_cuda_planner_walk_feasibility_equals_prob_within(cuda, n, in_smem,
+                                                          q_feas):
+    """The walk's p is prob_within's on the walk's own final (mean, std)
+    of the targets, rounded to float32; feasible is every float64(p) >=
+    q_feas; both bit-equal to the plain walk, in both state layouts."""
+    spec = walk_synthetic(n, 450, 5, 3, used=600)
+    spec["targets"] = [r[0] for r in spec["recs"][::3]] + [n - 1]
+    g = walk_graph(spec, cuda)
+    assert ps.walk_in_shared_memory(g) is in_smem
+    got = ps.planner_walk(g, 0.5, 0.9, q_feas)
+    walk_bit_equal(got, ps.planner_walk_plain(g, 0.5, 0.9, q_feas))
+    tg = g.targets.long()
+    again = ps.prob_within(got.mean[tg].float(), got.std[tg].float(), 0.5)
+    assert torch.equal(got.p.view(torch.int32), again.view(torch.int32))
+    q = 0.9 if q_feas is None else q_feas
+    assert torch.equal(got.feasible, (got.p.double() >= q).all(dim=0))
 
 
 I64_MIN, I64_MAX = -(1 << 63), (1 << 63) - 1
@@ -800,3 +826,56 @@ def test_cuda_adamw_q8_one_launch_each_way_per_parameter(cuda):
             q_p, s_p = qb.quantize_blockwise_plain(t)
             assert torch.equal(q_p, mom[f"{name}_q"])
             assert torch.equal(s_p, mom[f"{name}_s"])
+
+
+def no_sort(monkeypatch):
+    def fail(*a, **kw):
+        raise AssertionError("a sort on GDICT's card path")
+    for mod, name in ((torch, "sort"), (torch, "argsort"), (torch, "unique"),
+                      (torch, "msort"), (torch.Tensor, "sort"),
+                      (torch.Tensor, "argsort"), (torch.Tensor, "unique")):
+        monkeypatch.setattr(mod, name, fail)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", GDICT_EDGE_NS)
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "row offset"])
+def test_cuda_gdict_edge_cases_equal_plain(cuda, monkeypatch, n, offset):
+    """GDICT's hash set on its edge rows (INT64_MIN, its empty-slot marker,
+    present and absent; 3 and n distinct values; values differing only in
+    their high or low 32 bits) at each layout's size limits +-1: a block's
+    shared memory, a cluster's, global memory; one launch, no sort; rows
+    from the second on (not 16-byte aligned where n is odd)."""
+    cols, widths = gdict_edge_stack(n, n)
+    want = cb.gdict_bytes_plain(torch.as_tensor(cols),
+                                torch.as_tensor(widths))[offset:]
+    c = torch.as_tensor(cols, device=cuda)[offset:]
+    w = torch.as_tensor(widths, device=cuda)[offset:]
+    no_sort(monkeypatch)
+    before = launch_counts()["gdict_bytes"]
+    got = cb.gdict_bytes(c, w)
+    torch.cuda.synchronize()
+    assert launch_counts()["gdict_bytes"] == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n", [(1, 60000), (11, 60000), (801, 60000),
+                                 (801, 4682), (1, 74899), (200, 74899),
+                                 (5000, 300)])
+def test_cuda_gdict_stacks_equal_plain(cuda, monkeypatch, m, n):
+    """GDICT on stacks of the edge rows over again: one row, the main
+    path's 11, the advisor's widest 801 (clusters of 8 and of 1 behind
+    many rows), global tables for 1 and 200 rows, 5,000 short rows."""
+    cols, widths = gdict_edge_stack(n, m)
+    reps = -(-m // len(cols))
+    cols = np.tile(cols, (reps, 1))[:m]
+    widths = np.tile(widths, reps)[:m]
+    want = cb.gdict_bytes_plain(torch.as_tensor(cols),
+                                torch.as_tensor(widths))
+    c = torch.as_tensor(cols, device=cuda)
+    w = torch.as_tensor(widths, device=cuda)
+    no_sort(monkeypatch)
+    got = cb.gdict_bytes(c, w)
+    again = cb.gdict_bytes(c, w)
+    assert torch.equal(got.cpu(), want) and torch.equal(again, got)

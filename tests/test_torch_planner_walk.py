@@ -12,6 +12,11 @@ with `fused_score` and takes the greedy's decisions in float64.  Here:
   RVs within the `fused_score` tolerances of
   test_torch_planner_score.py (mean rtol 1e-5; std rtol 1e-4, atol 1e-6),
   with one walk per plan;
+* the walk's feasibility verdict (each target's p from its final RV in
+  float32, every float64(p) >= q_feas) per fraction equals the JAX
+  package's numpy and jax engines' `_feasible_vec` on the TPC-H test
+  schema, under the plan's greedy and the all-sampled one (whose q_feas
+  differs from the q it walks under);
 * hand-built graphs pin where the greedy is float64: p >= q against the
   float64 q (trap a), the children's cost summed in float64 in child
   order (b), compared in float64 with the target's (c), the first argmin
@@ -19,10 +24,11 @@ with `fused_score` and takes the greedy's decisions in float64.  Here:
   a child (e), SAMPLED nodes holding the float64 SampleCF RV (f), a
   duplicate target skipped (g); and ties (the first candidate wins), a
   child shared by two candidates, a child sampled by an earlier record.
-  The reference takes each record's cm / cs / p from `fused_score` and
-  everything else from scalar float64 NumPy; the walk must equal it
-  exactly, on these graphs and on two random ones (600 and 12,000
-  nodes).
+  The reference takes each record's cm / cs / p from `fused_score`, the
+  targets' p from `prob_within` and everything else from scalar float64
+  NumPy; the walk must equal it exactly, on these graphs and on two
+  random ones (600 and 12,000 nodes); a target whose p lands exactly on
+  q_feas is feasible, one float64 step below it not.
 
 test_torch_cuda_kernels.py holds the walk kernel bit-equal to this plain
 version on the card.
@@ -86,13 +92,14 @@ def test_pack_round_trips_the_graph(schema, targets):
     scost = np.zeros((n + 1, nf))
     scost[:n] = eng._scost_matrix(g, F_GRID)
     samp = np.arange(4.0).reshape(2, 2) + 1.0
-    wg, off, child = eng._pack(g, scost, samp, samp * 0.5)
+    wg, off, child = eng._pack(g, scost, samp, samp * 0.5, dup)
     assert len(g.recs) == len(dup) == wg.tid.numel()
     assert wg.tid.tolist() == [r.tid for r in g.recs]
     assert wg.kind.tolist() == [r.kind for r in g.recs]
     assert wg.cand_off.tolist() == off.tolist()
     assert torch.equal(wg.child, torch.as_tensor(child, dtype=torch.int32))
     assert wg.max_cands == max(len(r.cands) for r in g.recs)
+    assert wg.targets.tolist() == [g.node_id[t] for t in dup]
     np.testing.assert_array_equal(wg.scost.numpy(), scost)
     assert (wg.scost[n] == 0).all()
     cs_dm, cs_msq, cs_vt = eng._cs_fac
@@ -206,6 +213,7 @@ def test_walk_equals_float64_reference_on_the_tpch_graph(schema, targets,
                      for c in (0, 1)])
     spec = {"n": n, "nf": len(F_GRID), "scost": scost[:n],
             "samp_mean": smean, "samp_std": sstd,
+            "targets": [g.node_id[t] for t in targets],
             "recs": [(r.tid, r.kind,
                       [(r.child_row(w)[:r.nchild[w]].tolist(),
                         tuple(float(v) for v in (
@@ -215,10 +223,36 @@ def test_walk_equals_float64_reference_on_the_tpch_graph(schema, targets,
                              r.cx_msq[w - r.ncs, 0]))))
                        for w in range(len(r.cands))])
                      for r in g.recs]}
-    wg, _, _ = eng._pack(g, scost, smean, sstd)
+    wg, _, _ = eng._pack(g, scost, smean, sstd, targets)
     got = ps.planner_walk(wg, E, q)
     assert_walk_equals(got, reference_walk(spec, E, q))
     assert (got.win >= 0).any() or q > 1      # deductions were taken
+
+
+@pytest.mark.parametrize("e,q", [(0.5, 0.9), (0.2, 0.9), (0.1, 0.9)],
+                         ids=["all feasible", "mixed", "none feasible"])
+@pytest.mark.parametrize("all_sampled", [False, True])
+@pytest.mark.parametrize("backend", ["jax", "numpy"])
+def test_walk_feasibility_matches_reference(ref_schema, schema, ref_targets,
+                                            targets, e, q, all_sampled,
+                                            backend):
+    """The per-fraction feasibility the walk judges (under FORCE_ALL_Q for
+    the "All" baseline, against the caller's q) equals the JAX package's
+    engines' and the port's own host route's."""
+    from repro.core.estimation_graph import FORCE_ALL_Q as REF_FORCE
+    from repro.core.planner_engine import PlannerEngine as RefEngine
+    from repro_torch.core.estimation_graph import FORCE_ALL_Q
+    ref = RefEngine(ref_schema.tables, backend=backend, record=False)
+    st = ref._run(ref_targets, e, REF_FORCE if all_sampled else q, F_GRID)
+    want = ref._feasible_vec(st, e, q)
+    eng = PlannerEngine(schema.tables, device=CPU)
+    got = eng._run(targets, e, FORCE_ALL_Q if all_sampled else q, q_feas=q)
+    assert got.feasible is not None            # the walk's own verdict
+    np.testing.assert_array_equal(got.feasible, want)
+    host = PlannerEngine(schema.tables)
+    np.testing.assert_array_equal(
+        host._feasible_vec(host._run(targets, e, FORCE_ALL_Q if all_sampled
+                                     else q), e, q), want)
 
 
 def test_numpy_backend_does_not_walk(schema, targets, monkeypatch):
@@ -232,10 +266,12 @@ def test_numpy_backend_does_not_walk(schema, targets, monkeypatch):
 # hand-built graphs: lines 6-11 in float64 NumPy
 # ---------------------------------------------------------------------------
 
-def reference_walk(spec, e, q):
+def reference_walk(spec, e, q, q_feas=None):
     """Each record's cm / cs / p from `fused_score` on its stacked
     children; the decisions, sums and states in scalar float64 NumPy, one
-    fraction at a time."""
+    fraction at a time; then each target's p from `prob_within` on its
+    final RV rounded to float32, and feasible where every float64(p) >=
+    q_feas (q by default)."""
     n, nf, recs = spec["n"], spec["nf"], spec["recs"]
     k = max([1] + [len(ch) for _, _, cands in recs for ch, _ in cands])
     scost = np.zeros((n + 1, nf))
@@ -302,10 +338,18 @@ def reference_walk(spec, e, q):
                 mean[t, f], std[t, f] = smean[kc, f], sstd[kc, f]
                 total[f] += scost[t, f]
                 win[r, f] = ps.WALK_FALLBACK
-    return state, mean, std, win, total
+    tg = spec.get("targets", [r[0] for r in recs])
+    p = ps.prob_within(torch.from_numpy(mean[tg].astype(np.float32)),
+                       torch.from_numpy(std[tg].astype(np.float32)),
+                       e).numpy().reshape(len(tg), nf)
+    q_feas = q if q_feas is None else q_feas
+    feasible = np.array([all(float(v) >= q_feas for v in p[:, f])
+                         for f in range(nf)])
+    return state, mean, std, win, total, p, feasible
 
 
 def assert_walk_equals(got, want):
+    assert len(got) == len(want) == len(ps.WalkResult._fields)
     for name, a, b in zip(ps.WalkResult._fields, got, want):
         np.testing.assert_array_equal(a.numpy(), b, err_msg=name)
 
@@ -377,9 +421,50 @@ def test_walk_compares_p_with_float64_q(above):
     assert int(got.win[1, 0]) == (ps.WALK_FALLBACK if above else 0)
 
 
+@pytest.mark.parametrize("spec", [WALK_SUMS, WALK_TIES, WALK_TRAP_A],
+                         ids=["float64-sums", "ties", "trap-a"])
+@pytest.mark.parametrize("q_feas", [None, 0.5, 0.99])
+def test_walk_feasibility_on_hand_graphs(spec, q_feas):
+    """p and feasible against the reference, q_feas = q and apart from
+    it, with each graph's targets and with its first and last alone."""
+    e = TRAP_A_E if spec is WALK_TRAP_A else E
+    for tg in (None, [spec["recs"][0][0], spec["recs"][-1][0]]):
+        sp = spec if tg is None else {**spec, "targets": tg}
+        got = ps.planner_walk(walk_graph(sp), e, Q, q_feas)
+        assert_walk_equals(got, reference_walk(sp, e, Q, q_feas))
+        assert got.p.shape == (len(sp.get("targets", sp["recs"])),
+                               sp["nf"])
+
+
+@pytest.mark.parametrize("step", [-1, 0, 1])
+def test_walk_feasibility_where_p_lands_on_q(step):
+    """Trap a's node 1, deduced at the trap's q with p its candidate's
+    score: feasible against q_feas = p and the float64 below it, not
+    against the float64 above; judged apart from the greedy's q."""
+    p = trap_a_score()
+    q_feas = float(np.nextafter(np.float64(p), 2.0 * step)) if step else p
+    sp = {**WALK_TRAP_A, "targets": [1]}
+    got = ps.planner_walk(walk_graph(sp), TRAP_A_E, p, q_feas)
+    assert int(got.win[1, 0]) == 0 and float(got.p[0, 0]) == p
+    assert got.feasible.tolist() == [step <= 0]
+    assert_walk_equals(got, reference_walk(sp, TRAP_A_E, p, q_feas))
+
+
+def test_walk_without_targets_is_feasible():
+    got = ps.planner_walk(walk_graph({**WALK_TIES, "targets": []}), E, Q)
+    assert got.p.shape == (0, WALK_TIES["nf"])
+    assert got.feasible.tolist() == [True] * WALK_TIES["nf"]
+
+
 def test_walk_rejects_bad_inputs():
     g = walk_graph(WALK_TIES)
     with pytest.raises(ValueError, match="float32"):
         ps.planner_walk(dataclasses.replace(g, dm=g.dm.double()), E, Q)
     with pytest.raises(ValueError, match="inconsistent"):
         ps.planner_walk(dataclasses.replace(g, kind=g.kind[:-1]), E, Q)
+    with pytest.raises(ValueError, match="int32"):
+        ps.planner_walk(dataclasses.replace(g, targets=g.targets.long()), E,
+                        Q)
+    with pytest.raises(ValueError, match="inconsistent"):
+        ps.planner_walk(dataclasses.replace(g, targets=g.targets[:, None]),
+                        E, Q)

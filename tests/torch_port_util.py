@@ -84,7 +84,8 @@ def assert_same_steps_up_to_ping_pong(got_steps, want_steps) -> None:
 def walk_graph(spec: dict, device="cpu"):
     """A `planner_score.WalkGraph` from a plain spec: n nodes (the EXACT pad
     is node n), nf fractions, records [(target, kind, [(children, (dm, vt,
-    mq)), ...]), ...] in order, scost (n, nf), samp_mean / samp_std (2, nf)."""
+    mq)), ...]), ...] in order, scost (n, nf), samp_mean / samp_std (2, nf);
+    the plan's targets are spec["targets"], by default the records'."""
     import torch
     from repro_torch.kernels import planner_score as ps
     n, nf, recs = spec["n"], spec["nf"], spec["recs"]
@@ -112,6 +113,7 @@ def walk_graph(spec: dict, device="cpu"):
         t(fac[:, 0], np.float32), t(fac[:, 1], np.float32),
         t(fac[:, 2], np.float32), t(scost, np.float64),
         t(spec["samp_mean"], np.float64), t(spec["samp_std"], np.float64),
+        t(spec.get("targets", [r[0] for r in recs]), np.int32),
         max_cands=max([0] + [len(cands) for _, _, cands in recs]))
 
 
@@ -283,4 +285,39 @@ def ns_edge_stack(n: int, signed: bool):
     rows.append(np.full(n, 255, dtype=np.int64))
     cols = np.stack(rows).astype(np.int64)
     widths = np.array(list(range(1, 9)) + [8], dtype=np.int64)
+    return cols, widths
+
+
+# ---------------------------------------------------------------------------
+# GDICT's edge inputs (shared with the card tests): row lengths at the
+# kernel's size classes +-1 -- a table in one block's shared memory up to
+# 4,681 values, split over a cluster up to 74,898 (one block's share up to
+# 9,362), in global memory beyond -- and the main path's 60,000
+# ---------------------------------------------------------------------------
+
+GDICT_EDGE_NS = (1, 2, 3, 4680, 4681, 4682, 9361, 9362, 9363, 60000, 74897,
+                 74898, 74899)
+
+
+def gdict_edge_stack(n: int, seed: int):
+    """(cols, widths) of rows whose distinct values the GDICT hash set must
+    count exactly: all equal; three distinct; all distinct; INT64_MIN (the
+    empty-slot marker) among the int64 extremes, and the same row without
+    it; all INT64_MIN; negatives; values that differ only in their high 32
+    bits, or only in their low 32 bits; a small domain; the full range."""
+    rng = np.random.default_rng(seed)
+    ext = rng.choice([I64_MIN, I64_MAX, 0, -1, 1], size=n)
+    ext[0] = I64_MIN
+    rows = [np.full(n, 5),
+            rng.choice([7, 1 << 20, 1 << 40], size=n),
+            rng.permutation(n) * 7 + 3,
+            ext, np.where(ext == I64_MIN, I64_MIN + 1, ext),
+            np.full(n, I64_MIN),
+            rng.integers(-(1 << 40), 0, size=n),
+            rng.integers(0, max(2, n // 2), size=n) << 32,
+            (5 << 32) | rng.integers(0, max(2, n // 2), size=n),
+            rng.integers(0, 5, size=n),
+            rng.integers(I64_MIN, I64_MAX, size=n, endpoint=True)]
+    cols = np.stack(rows).astype(np.int64)
+    widths = np.resize(np.array([1, 2, 4, 8, 3], dtype=np.int64), len(rows))
     return cols, widths
