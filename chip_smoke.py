@@ -5,7 +5,7 @@ serving and LM training.
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught), run in the order
-1, 2, 3, 3b, 3c, 4, 5, 4b, 6, 4c:
+1, 2, 3, 3b, 3c, 3d, 4, 5, 4b, 6, 4c:
   1. print the card (nvidia-smi name, power limit) and build the eighteen
      hand-written kernels from the sources under src/repro_torch/kernels/
      (four libraries, one nvcc per source, all started together);
@@ -46,6 +46,20 @@ Phases (any failure exits non-zero; nothing is caught), run in the order
      (workload compression, paper Section 7), budget 25 %;
   3c. staged_recommend (Example 1) with the five codecs on phase 3's
      workload, torch/cuda against numpy;
+  3d. the online AdvisorSession on phase 3's data and budget, each round
+     held to a fresh torch/cuda DesignAdvisor.recommend on the workload
+     after it (config, cost, used bytes, base cost, plan counts, pool and
+     candidate counts identical; 3d-ii also the error bound), its launches,
+     cache and replay counters, walk layout, seconds and peak memory
+     printed: 3d-i phase 3's workload (a cold round; 8 statements added, 2
+     removed, 2 reweighted; a reweight-only round, which must launch no
+     kernel; snapshot -> bytes -> restore, then a round), also on the
+     numpy backend (same plan, same configuration or an equal-cost tie);
+     3d-ii 3b's 10,000 statements with its options (a cold round; 200
+     added, 100 removed, 50 reweighted; a reweight-only round, which
+     launches nothing on the reweight fast path).  A re-planned round makes
+     one planner_walk launch, an unchanged plan none; the codec kernels
+     launch only for SampleCF cache misses;
   4. hold each advisor kernel against its plain version again on the
      largest inputs phases 3 and 3b gave it (GDICT, on no advisor path:
      every column of the SF1 lineitem sample at f = 0.01, per call and in
@@ -1069,6 +1083,184 @@ def main() -> int:
         return judge.build_engine().config_cost(config)
     judge_config("phase 3c", rec_st, rec_sn, staged_price)
 
+    # ---- phase 3d: the online session at SF1 ---------------------------
+    # each round of a session held to a fresh torch/cuda recommend on the
+    # workload after it; only the session rounds count as 3d's launches
+    launches3d = {k: 0 for k in launches3}
+    session_walks = []
+
+    def session_round(label, what, sess, wl_after, opts_, budget_,
+                      check=None):
+        st0 = sess.stats
+        walk_graphs = []
+
+        def recording(g, *a):
+            walk_graphs.append(g)
+            return walk(g, *a)
+        ps.planner_walk = recording
+        try:
+            rec_s, wall_s, counts = measured(f"{label} session", lambda:
+                                             sess.recommend(budget_))
+        finally:
+            ps.planner_walk = walk
+        peak_s = torch.cuda.max_memory_allocated(dev)
+        st1 = sess.stats
+        rec_f, wall_f, counts_f = measured(
+            f"{label} fresh", lambda: pt.DesignAdvisor(wl_after, opts_)
+            .recommend(budget_))
+        peak_f = torch.cuda.max_memory_allocated(dev)
+        fields = ["config", "cost", "used_bytes", "base_cost", "n_sampled",
+                  "n_deduced", "estimation_cost_pages", "pool_size",
+                  "candidate_count"]
+        if opts_.compression_budget is not None:
+            fields.append("compression_error_bound")
+        for name in fields:
+            if getattr(rec_s, name) != getattr(rec_f, name):
+                fail(f"{label}: the session's {name} "
+                     f"{getattr(rec_s, name)!r} differs from a fresh "
+                     f"recommend's {getattr(rec_f, name)!r}")
+
+        def grew(key):
+            return st1.get(key, 0) - st0.get(key, 0)
+        # a compressed session's inner session may be new this round: its
+        # counters start from zero
+        rebuilt = grew("compression_rebuilds") > 0
+        if rebuilt:
+            st0 = {k: v for k, v in st0.items() if k.startswith("compr")}
+        replanned = grew("replay_misses") > 0
+        misses = grew("samplecf_cache_misses")
+        if counts["planner_walk"] != int(replanned) or \
+                counts["fused_score"] or counts["prob_within"]:
+            fail(f"{label}: planner launches {counts} for a "
+                 f"{'re-planned' if replanned else 'replayed'} plan")
+        codec = sum(counts[n] for n in CODECS)
+        if (codec > 0) != (misses > 0):
+            fail(f"{label}: {codec} codec launches for {misses} SampleCF "
+                 "cache misses")
+        if check is not None:
+            check(counts, st0, st1)
+        for k in launches3d:
+            launches3d[k] += counts[k]
+        route = (ps.walk_in_shared_memory(walk_graphs[0]) if walk_graphs
+                 else None)
+        session_walks.extend(walk_graphs)
+        print(f"{label} ({what}): session {wall_s:.3f} s, fresh "
+              f"{wall_f:.3f} s; identical ({', '.join(fields)}); cost "
+              f"{rec_s.cost!r}, plan f={rec_s.estimation_plan.f} sampled="
+              f"{rec_s.n_sampled} deduced={rec_s.n_deduced}, "
+              f"{len(rec_s.steps)} steps; session launches "
+              f"{json.dumps(counts)}; fresh launches {json.dumps(counts_f)}; "
+              f"samplecf hits +{grew('samplecf_cache_hits')} misses "
+              f"+{misses}; replay hits +{grew('replay_hits')} misses "
+              f"+{grew('replay_misses')}; universe "
+              f"{st1.get('universe_nodes')} nodes; walk in shared memory "
+              f"{route}; peak device memory session {peak_s} B, fresh "
+              f"{peak_f} B")
+        return rec_s, wall_s, st1
+
+    def no_launch(label):
+        def check(counts, st0, st1):
+            if any(counts.values()):
+                fail(f"{label}: a reweight-only round launched {counts}")
+        return check
+
+    # 3d-i: phase 3's workload and options, and the numpy backend beside
+    names = [s.name for s in wl.statements]
+    extra = [dataclasses.replace(s, name=f"sess_{s.name}") for s in
+             pt.make_scaled_workload(schema, 8, seed=7).statements]
+    deltas_i = [
+        ("structural delta: 8 added, 2 removed, 2 reweighted",
+         pt.WorkloadDelta(added=tuple(extra), removed=(names[1], names[3]),
+                          reweighted=((names[0], 3.0), (names[2], 0.5)))),
+        ("reweight-only delta",
+         pt.WorkloadDelta(reweighted=((names[4], 2.0), (names[5], 0.25)))),
+    ]
+    opts_n = pt.AdvisorOptions(backend="numpy")
+    sess = pt.AdvisorSession(wl, opts)
+    sess_n = pt.AdvisorSession(wl, opts_n)
+    wl_i = wl
+    rounds = [("cold", None, None)] + [(w, d, None) for w, d in deltas_i] + \
+        [("snapshot -> to_bytes -> from_bytes -> restore", None, "restore")]
+    for i, (what, delta, step) in enumerate(rounds, 1):
+        label = f"phase 3d-i round {i}"
+        check = None
+        if delta is not None:
+            sess.apply(delta)
+            sess_n.apply(delta)
+            wl_i = wl_i.apply_delta(delta)
+            if not delta.added and not delta.removed:
+                check = no_launch(label)
+        if step == "restore":
+            blob = sess.snapshot().to_bytes()
+            sess = pt.AdvisorSession.restore(
+                pt.SessionSnapshot.from_bytes(blob))
+            blob_n = sess_n.snapshot().to_bytes()
+            sess_n = pt.AdvisorSession.restore(
+                pt.SessionSnapshot.from_bytes(blob_n))
+            what += f" ({len(blob)} B)"
+
+            def check(counts, st0, st1, label=label):
+                if counts["planner_walk"] != 1:
+                    fail(f"{label}: a restored session must walk once")
+        rec_s, _, _ = session_round(label, what, sess, wl_i, opts, budget,
+                                    check)
+        t0 = time.perf_counter()
+        rec_sn = sess_n.recommend(budget)
+        wall_sn = time.perf_counter() - t0
+        print(f"{label} numpy session: {wall_sn:.3f} s; cost "
+              f"{rec_sn.cost!r}, plan f={rec_sn.estimation_plan.f} sampled="
+              f"{rec_sn.n_sampled} deduced={rec_sn.n_deduced}")
+        compare_recs(label, rec_s, rec_sn)
+        judge_config(label, rec_s, rec_sn, sess_n.engine.config_cost)
+
+    # 3d-ii: 3b's statements and options (five codecs, compression)
+    names = [s.name for s in wl_big.statements]
+    added = [dataclasses.replace(s, name=f"sess_{s.name}") for s in
+             pt.make_scaled_workload(schema, 200, seed=1).statements]
+    rng = np.random.default_rng(0)
+    weight = {s.name: s.weight for s in wl_big.statements}
+    deltas_ii = [
+        ("structural delta: 200 added, 100 removed, 50 reweighted",
+         pt.WorkloadDelta(
+             added=tuple(added), removed=tuple(names[0:10_000:100]),
+             reweighted=tuple((n, float(w)) for n, w in zip(
+                 names[50:10_000:200], rng.uniform(0.5, 2.0, 50))))),
+        ("reweight-only delta: 50 weights scaled by 0.5-1.5",
+         pt.WorkloadDelta(reweighted=tuple(
+             (n, weight[n] * float(f)) for n, f in zip(
+                 names[7:10_000:150][:50], rng.uniform(0.5, 1.5, 50))))),
+    ]
+    sess = pt.AdvisorSession(wl_big, opts5)
+    wl_ii = wl_big
+    for i, (what, delta) in enumerate([("cold", None)] + deltas_ii, 1):
+        label = f"phase 3d-ii round {i}"
+        if delta is not None:
+            sess.apply(delta)
+            wl_ii = wl_ii.apply_delta(delta)
+        reweight_only = delta is not None and not delta.added and \
+            not delta.removed
+
+        def check(counts, st0, st1, label=label,
+                  reweight_only=reweight_only):
+            fast = st1["compression_reweights"] > st0["compression_reweights"]
+            if reweight_only:
+                print(f"{label}: served on the "
+                      f"{'reweight fast path' if fast else 'rebuild path'} "
+                      f"(compression_reweights {st1['compression_reweights']}"
+                      f", compression_rebuilds "
+                      f"{st1['compression_rebuilds']})")
+            if fast and any(counts.values()):
+                fail(f"{label}: the reweight fast path launched {counts}")
+        session_round(label, what, sess, wl_ii, opts5, budget, check)
+    del sess, sess_n
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name in ("ns_bytes", "ldict_bytes", "prefix_bytes", "rle_bytes",
+                 "planner_walk"):
+        if launches3d[name] <= 0:
+            fail(f"kernel {name} was not launched in phase 3d")
+    print(f"launches in phase 3d's session rounds: {json.dumps(launches3d)}")
+
     # ---- phase 4: kernels at the main paths' inputs -------------------
     # the second run of each path is traced: LDICT's device time over its
     # launches beside the measured run's SampleCF seconds
@@ -1179,8 +1371,8 @@ def main() -> int:
         return nc_ * nf_ * (6 * k_ + 40 + 2)
 
     launches = {k: launches3[k] + launches3b[k] + launches3c[k]
-                for k in launches3}
-    print(f"launches on the measured paths (3 + 3b + 3c): "
+                + launches3d[k] for k in launches3}
+    print(f"launches on the measured paths (3 + 3b + 3c + 3d's sessions): "
           f"{json.dumps(launches)}")
     records = []
     codec_src = "src/repro_torch/kernels/csrc/codec_bytes.cu"
@@ -1281,7 +1473,7 @@ def main() -> int:
         "shape": list(GDICT_GLOBAL), "ms": ms, "device_ms": dev_ms,
         "bound_ms": bytes_ms, "scratch_bytes": plan.scratch_bytes}
     # the timing launches above count too; the record keeps the measured
-    # paths' counts (phases 3, 3b and 3c)
+    # paths' counts (phases 3, 3b, 3c and 3d's session rounds)
     rec_ld = next(r for r in records if r["name"] == "ldict_bytes")
     rec_ld["device_ms_by_phase"] = ldict_dev
     rec_ld["largest_by_phase"] = {}

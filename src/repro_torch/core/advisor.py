@@ -69,6 +69,11 @@ class AdvisorOptions:
     # advise on <= ~N weighted representatives (workload compression);
     # None disables, and budget >= n_statements is an exact bypass
     compression_budget: Optional[int] = None
+    # bounds on a long-lived AdvisorSession's recomputable state (None =
+    # unbounded); results stay bit-identical under any of them
+    samplecf_cache_entries: Optional[int] = None  # LRU (NodeKey, f) cache
+    max_planner_nodes: Optional[int] = None       # node-universe epoch bound
+    max_replay_entries: Optional[int] = None      # replay-store bound
 
     def __post_init__(self):
         # validates the pair, and raises for CUDA on a host without it
@@ -92,6 +97,28 @@ def select_candidates(costed: Sequence[cand.Candidate],
         sel = cand.select_skyline(costed)
         return cand.skyline_representatives(sel, options.max_skyline_points)
     return cand.select_topk(costed, options.topk)
+
+
+def pool_with_merged(pool: Dict[Tuple, IndexDef],
+                     merged_all: Sequence[IndexDef]
+                     ) -> Dict[Tuple, IndexDef]:
+    """Append merged candidates to the selection pool (Figure 1: Merging
+    sits between candidate selection and enumeration); shared by the
+    one-shot advisor and the online session so the two cannot drift."""
+    for idx in merged_all:
+        pool.setdefault(idx.key, idx)
+    return pool
+
+
+def enumerate_pool(sizes: SizeProvider, options: AdvisorOptions,
+                   pool: Dict[Tuple, IndexDef], base: Configuration,
+                   budget_bytes: float,
+                   engine: CostEngine) -> EnumerationResult:
+    """§6.2 greedy enumeration over the selected pool; shared by the
+    one-shot advisor and the online session (their bit-exact parity
+    depends on running the same code here)."""
+    return greedy_enumerate(engine, sizes, list(pool.values()), base,
+                            budget_bytes, variant=options.enumeration)
 
 
 @dataclasses.dataclass
@@ -207,7 +234,8 @@ class DesignAdvisor:
         targets = list(tkey_to_defs)
         if not targets:
             return 0.0, None, 0, 0
-        planner = EstimationPlanner(self.schema.tables, device=self.device)
+        planner = EstimationPlanner(self.schema.tables, device=self.device,
+                                    record=False)
         if self.opt.use_deduction:
             plan = planner.plan(targets, self.opt.e, self.opt.q)
         else:
@@ -248,17 +276,14 @@ class DesignAdvisor:
             n_cand += len(costed)
             for c in select_candidates(costed, self.opt):
                 pool.setdefault(c.index.key, c.index)
-        for idx in merged_all:
-            pool.setdefault(idx.key, idx)
-        return pool, n_cand
+        return pool_with_merged(pool, merged_all), n_cand
 
     def enumerate_pool(self, pool: Dict[Tuple, IndexDef],
                        base: Configuration, budget_bytes: float,
                        engine: CostEngine) -> EnumerationResult:
         """§6.2 greedy enumeration over the selected pool."""
-        return greedy_enumerate(engine, self.sizes, list(pool.values()),
-                                base, budget_bytes,
-                                variant=self.opt.enumeration)
+        return enumerate_pool(self.sizes, self.opt, pool, base,
+                              budget_bytes, engine)
 
     def _recommend_full(self, budget_bytes: float) -> Recommendation:
         """The uncompressed pipeline (every statement advised directly)."""
@@ -354,7 +379,8 @@ def staged_recommend(workload: Workload, budget_bytes: float,
     targets = [NodeKey(i.table, i.cols, i.compression) for i in variants
                if i.compression is not None]
     if targets:
-        planner = EstimationPlanner(adv.schema.tables, device=adv.device)
+        planner = EstimationPlanner(adv.schema.tables, device=adv.device,
+                                    record=False)
         plan = planner.plan(targets, opt.e, opt.q)
         engine = EstimationEngine(adv.schema.tables, adv.samples,
                                   device=adv.device)

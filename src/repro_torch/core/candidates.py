@@ -74,10 +74,15 @@ def expand_with_compression(indexes: Sequence[IndexDef],
 
 def cost_candidates(query: Query, cands: Sequence[IndexDef],
                     base: Configuration, sizes: SizeProvider,
-                    engine: "CostEngine") -> List[Candidate]:
+                    engine: "CostEngine",
+                    precomputed=None) -> List[Candidate]:
     """Cost each single-index configuration for `query`: the whole
-    candidate list is scored in one vectorized `CostEngine` pass."""
-    costs = engine.candidate_query_costs(query, base, cands)
+    candidate list is scored in one vectorized `CostEngine` pass.
+    `precomputed` (an array aligned with `cands`, prefetched by the caller)
+    short-circuits the engine call; the caller owns the contract that it
+    holds exactly the values the engine would return."""
+    costs = (precomputed if precomputed is not None
+             else engine.candidate_query_costs(query, base, cands))
     out = []
     for k, idx in enumerate(cands):
         if idx.clustered:

@@ -31,8 +31,16 @@ float32 unless TF32 is switched on).  The cost matrices themselves stay
 on the host, as in the reference, and each scoring call copies its
 slices to the device in one transfer.
 
-Not ported yet: statement deltas (online sessions), chunked costing and
-the fleet's cross-tenant stacked costing.
+Online sessions keep one engine across workload deltas (`apply_delta`,
+`sync_sizes`): removed statements' rows are dropped, reweights touch only
+the weight vectors, added statements append one row across every
+registered column, and columns whose registered size changed are refilled.
+Rows stay in the workload's statement order, so the matrices equal a
+fresh engine's on the resulting workload, and the device scorers, which
+gather the candidates' columns by id, get the same operands.
+
+Not ported yet: chunked costing and the fleet's cross-tenant stacked
+costing.
 """
 from __future__ import annotations
 
@@ -100,7 +108,10 @@ class _TableBlock:
         self._q_selm = np.ones((nq, ncols_t))
         for qi, q in enumerate(self.queries):
             self._fill_struct_row(qi, q)
+        self._u_row = {u.name: ui for ui, u in enumerate(self.updates)}
         self._ids: Dict[Tuple, int] = {}       # IndexDef.key -> column id
+        self._defs: List[IndexDef] = []
+        self._col_sets: List[Optional[frozenset]] = []  # None for clustered
         self.n = 0
         self._cap = 0
         self.cov = np.empty((nq, 0))
@@ -110,7 +121,9 @@ class _TableBlock:
         self.upd = np.empty((nu, 0))
         self.size = np.empty(0)
         self.beta = np.empty(0)
+        self.alpha = np.empty(0)
         self.nrows_idx = np.empty(0)
+        self.col_klen = np.empty(0)
 
     def _grow(self, need: int) -> None:
         if need <= self._cap:
@@ -132,7 +145,8 @@ class _TableBlock:
         self.ridr, self.scanc = g2(self.ridr, nq), g2(self.scanc, nq)
         self.upd = g2(self.upd, nu)
         self.size, self.beta = g1(self.size), g1(self.beta)
-        self.nrows_idx = g1(self.nrows_idx)
+        self.alpha, self.nrows_idx = g1(self.alpha), g1(self.nrows_idx)
+        self.col_klen = g1(self.col_klen)
         self._cap = cap
 
     def _sel(self, p: Predicate) -> float:
@@ -169,20 +183,26 @@ class _TableBlock:
         j = self.n
         self._grow(j + 1)
         self._ids[idx.key] = j
+        self._defs.append(idx)
+        self._col_sets.append(None if idx.clustered else frozenset(idx.cols))
         self.n += 1
         self._fill_column(j, idx, sizes)
         return j
 
     def _fill_column(self, j: int, idx: IndexDef,
                      sizes: SizeProvider) -> None:
-        """Compute column `j` from the provider's current sizes."""
+        """(Re)compute column `j` from the provider's current sizes: at
+        registration, and when a later estimation round changed the
+        registered size of an already-registered access path."""
         t = self.table
         size = float(sizes.size(idx))
         nrows_idx = float(sizes.nrows(idx))
         nq = len(self.queries)
         self.size[j] = size
         self.beta[j] = cm.beta_coef_of(idx.compression)
+        self.alpha[j] = cm.alpha_coef_of(idx.compression)
         self.nrows_idx[j] = nrows_idx
+        self.col_klen[j] = float(len(idx.cols))
 
         if idx.clustered:
             # clustered layout: the full scan path
@@ -253,6 +273,185 @@ class _TableBlock:
                 rows = rows * self._sel(idx.predicate)
             self.upd[:, j] = cm.update_cost(size, nrows_idx, rows,
                                             idx.compression)
+
+    def refresh_sizes(self, sizes: SizeProvider) -> int:
+        """Refill every column whose provider size changed; returns how
+        many columns were recomputed."""
+        changed = 0
+        for j, idx in enumerate(self._defs):
+            if float(sizes.size(idx)) != self.size[j]:
+                self._fill_column(j, idx, sizes)
+                changed += 1
+        return changed
+
+    # -- statement mutation (online sessions) ----------------------------
+    def _query_row(self, q: Query) -> Tuple[np.ndarray, np.ndarray,
+                                            np.ndarray, np.ndarray]:
+        """(cov, seek, ridr, scanc) entries of one new query row for ALL
+        registered columns: the transpose of `_fill_column`'s per-query
+        pass, with the same elementwise cost-model calls, so an appended
+        row is bit-identical to a fresh block's row."""
+        cap, n = self._cap, self.n
+        cov = np.full(cap, _INF)
+        seek = np.full(cap, _INF)
+        ridr = np.zeros(cap)
+        scanc = np.full(cap, _INF)
+        if n == 0:
+            return cov, seek, ridr, scanc
+        ncq = float(len(q.all_cols()))
+        qset = frozenset(q.all_cols())
+        filt = {p.col: p for p in q.filters}
+        sel = np.ones(n)
+        applicable = np.ones(n, dtype=bool)
+        covers = np.zeros(n, dtype=bool)
+        cl = np.zeros(n, dtype=bool)
+        for j, idx in enumerate(self._defs):
+            if idx.clustered:
+                cl[j] = True
+                continue
+            if idx.predicate is not None and not _partial_applicable(idx, q):
+                applicable[j] = False
+                continue
+            covers[j] = qset <= self._col_sets[j]
+            s, matched = 1.0, False
+            for c in idx.cols:
+                p = filt.get(c)
+                if p is None:
+                    break
+                s *= self._sel(p)
+                matched = True
+            sel[j] = s if matched else 1.0
+        t = self.table
+        ids = np.nonzero(cl)[0]
+        if ids.size:
+            scanc[ids] = cm.scan_cost(self.size[ids], t.nrows, ncq,
+                                      beta_coef=self.beta[ids])
+        sec = ~cl
+        ids = np.nonzero(sec & applicable & covers & (sel < 1.0))[0]
+        if ids.size:
+            cov[ids] = cm.seek_cost(self.size[ids], self.nrows_idx[ids],
+                                    sel[ids], ncq, beta_coef=self.beta[ids])
+        ids = np.nonzero(sec & applicable & covers & (sel >= 1.0))[0]
+        if ids.size:
+            cov[ids] = cm.scan_cost(self.size[ids], self.nrows_idx[ids],
+                                    ncq, beta_coef=self.beta[ids])
+        ids = np.nonzero(sec & applicable & ~covers & (sel < 1.0))[0]
+        if ids.size:
+            seek[ids] = cm.seek_cost(self.size[ids], self.nrows_idx[ids],
+                                     sel[ids], self.col_klen[ids],
+                                     beta_coef=self.beta[ids])
+            ridr[ids] = self.nrows_idx[ids] * sel[ids]
+        return cov, seek, ridr, scanc
+
+    def _update_row(self, u: BulkInsert) -> np.ndarray:
+        row = np.zeros(self._cap)
+        n = self.n
+        if n == 0:
+            return row
+        rows_w = np.full(n, float(u.nrows))
+        for j, idx in enumerate(self._defs):
+            if idx.predicate is not None:
+                rows_w[j] = rows_w[j] * self._sel(idx.predicate)
+        row[:n] = cm.update_cost(self.size[:n], self.nrows_idx[:n], rows_w,
+                                 alpha_coef=self.alpha[:n])
+        return row
+
+    def add_statement(self, s) -> None:
+        """Append one statement row across all registered columns."""
+        self.add_statements([s])
+
+    def add_statements(self, stmts: Sequence) -> None:
+        """Append a batch of statement rows with ONE concatenate per
+        matrix.  A new row is a pure function of the registered columns
+        (rows never read other rows), so a batch equals appending the
+        statements one at a time."""
+        qs = [s for s in stmts if isinstance(s, Query)]
+        us = [s for s in stmts if not isinstance(s, Query)]
+        if qs:
+            rows = [self._query_row(q) for q in qs]
+            base = len(self.queries)
+            nc = len(self._col_pos)
+            for i, q in enumerate(qs):
+                self.queries.append(q)
+                self._q_row[q.name] = base + i
+                self._q_cols_set.append(frozenset(q.all_cols()))
+                self._q_filt.append({p.col: p for p in q.filters})
+            self.q_w = np.append(self.q_w, [float(q.weight) for q in qs])
+            self.ncols_used = np.append(
+                self.ncols_used, [float(len(q.all_cols())) for q in qs])
+            self._q_has = np.concatenate(
+                [self._q_has, np.zeros((len(qs), nc), dtype=bool)], axis=0)
+            self._q_hasf = np.concatenate(
+                [self._q_hasf, np.zeros((len(qs), nc), dtype=bool)], axis=0)
+            self._q_selm = np.concatenate(
+                [self._q_selm, np.ones((len(qs), nc))], axis=0)
+            for i, q in enumerate(qs):
+                self._fill_struct_row(base + i, q)
+            self.cov = np.concatenate(
+                [self.cov, np.stack([r[0] for r in rows])], axis=0)
+            self.seek = np.concatenate(
+                [self.seek, np.stack([r[1] for r in rows])], axis=0)
+            self.ridr = np.concatenate(
+                [self.ridr, np.stack([r[2] for r in rows])], axis=0)
+            self.scanc = np.concatenate(
+                [self.scanc, np.stack([r[3] for r in rows])], axis=0)
+        if us:
+            rows_u = [self._update_row(u) for u in us]
+            base = len(self.updates)
+            for i, u in enumerate(us):
+                self.updates.append(u)
+                self._u_row[u.name] = base + i
+            self.u_w = np.append(self.u_w, [float(u.weight) for u in us])
+            self.u_rows = np.append(self.u_rows,
+                                    [float(u.nrows) for u in us])
+            self.upd = np.concatenate([self.upd, np.stack(rows_u)], axis=0)
+
+    def remove_statements(self, names) -> int:
+        """Drop the rows of the named statements (no recomputation; the
+        surviving rows keep their values and relative order, as a fresh
+        block on the shrunk workload has them)."""
+        removed = 0
+        qkeep = [i for i, q in enumerate(self.queries)
+                 if q.name not in names]
+        if len(qkeep) != len(self.queries):
+            removed += len(self.queries) - len(qkeep)
+            ii = np.array(qkeep, dtype=np.int64)
+            self.queries = [self.queries[i] for i in qkeep]
+            self.q_w = self.q_w[ii]
+            self.ncols_used = self.ncols_used[ii]
+            self._q_cols_set = [self._q_cols_set[i] for i in qkeep]
+            self._q_filt = [self._q_filt[i] for i in qkeep]
+            self._q_row = {q.name: qi for qi, q in enumerate(self.queries)}
+            self._q_has, self._q_hasf = self._q_has[ii], self._q_hasf[ii]
+            self._q_selm = self._q_selm[ii]
+            self.cov, self.seek = self.cov[ii], self.seek[ii]
+            self.ridr, self.scanc = self.ridr[ii], self.scanc[ii]
+        ukeep = [i for i, u in enumerate(self.updates)
+                 if u.name not in names]
+        if len(ukeep) != len(self.updates):
+            removed += len(self.updates) - len(ukeep)
+            ii = np.array(ukeep, dtype=np.int64)
+            self.updates = [self.updates[i] for i in ukeep]
+            self.u_w = self.u_w[ii]
+            self.u_rows = self.u_rows[ii]
+            self._u_row = {u.name: ui for ui, u in enumerate(self.updates)}
+            self.upd = self.upd[ii]
+        return removed
+
+    def reweight(self, name: str, w: float) -> bool:
+        qi = self._q_row.get(name)
+        if qi is not None:
+            self.queries[qi] = dataclasses.replace(self.queries[qi],
+                                                   weight=w)
+            self.q_w[qi] = w
+            return True
+        ui = self._u_row.get(name)
+        if ui is not None:
+            self.updates[ui] = dataclasses.replace(self.updates[ui],
+                                                   weight=w)
+            self.u_w[ui] = w
+            return True
+        return False
 
     # -- evaluation ------------------------------------------------------
     def rid(self, ids, c: int) -> np.ndarray:
@@ -368,6 +567,14 @@ class CostEngine:
             us = [s for s in workload.statements
                   if isinstance(s, BulkInsert) and s.table == name]
             self.blocks[name] = _TableBlock(table, qs, us)
+        self.rows_added = 0       # statement rows appended incrementally
+        self.rows_removed = 0     # statement rows dropped incrementally
+        self.cols_refreshed = 0   # columns refilled after size changes
+
+    def stats(self) -> Dict[str, int]:
+        return {"rows_added": self.rows_added,
+                "rows_removed": self.rows_removed,
+                "cols_refreshed": self.cols_refreshed}
 
     # -- registration ----------------------------------------------------
     def register(self, idxs: Iterable[IndexDef]) -> np.ndarray:
@@ -382,6 +589,36 @@ class CostEngine:
         if not blk.has(idx):
             blk.add(idx, self.sizes)
         return blk.id_of(idx)
+
+    # -- incremental maintenance (online sessions) -----------------------
+    def apply_delta(self, delta) -> None:
+        """Apply a `workload.WorkloadDelta`: removed statements' rows are
+        dropped, reweights touch only the weight vectors, and each added
+        statement appends one fully-evaluated row per registered access
+        path; no existing matrix entry is recomputed."""
+        removed = set(delta.removed)
+        if removed:
+            for blk in self.blocks.values():
+                self.rows_removed += blk.remove_statements(removed)
+        for name, w in delta.reweighted:
+            if not any(blk.reweight(name, float(w))
+                       for blk in self.blocks.values()):
+                raise KeyError(f"cannot reweight unknown statement {name!r}")
+        by_table: Dict[str, list] = {}
+        for s in delta.added:
+            by_table.setdefault(s.table, []).append(s)
+        for table, stmts in by_table.items():
+            self.blocks[table].add_statements(stmts)
+            self.rows_added += len(stmts)
+
+    def sync_sizes(self) -> int:
+        """Refill columns whose registered size changed since they were
+        computed; returns the number of refreshed columns."""
+        refreshed = 0
+        for blk in self.blocks.values():
+            refreshed += blk.refresh_sizes(self.sizes)
+        self.cols_refreshed += refreshed
+        return refreshed
 
     # -- configuration costing -------------------------------------------
     def split(self, config: Configuration, table: str

@@ -14,9 +14,10 @@ Every cost function is ufunc-safe: the numeric arguments may be scalars or
 NumPy arrays of any broadcastable shape, and the result has the broadcast
 shape.  The batched cost engine (repro_torch.core.cost_engine) relies on this to
 score an entire candidate pool per greedy step in a handful of vectorized
-ops.  `compression` stays a scalar method name (or None); RID lookups,
-whose base layouts mix methods, take precomputed per-element `beta_coef`
-arrays instead.
+ops.  `compression` stays a scalar method name (or None); callers whose
+elements mix methods (RID lookups into mixed base layouts, a statement row
+appended across every registered index) pass precomputed per-element
+`alpha_coef` / `beta_coef` arrays instead.
 """
 from __future__ import annotations
 
@@ -67,9 +68,11 @@ def beta_coef_of(compression: Optional[str]) -> float:
 
 
 def scan_cost(size_bytes: ArrayLike, nrows: ArrayLike, ncols_used: ArrayLike,
-              compression: Optional[str] = None) -> ArrayLike:
+              compression: Optional[str] = None, *,
+              beta_coef: Optional[ArrayLike] = None) -> ArrayLike:
     """Sequential scan of `size_bytes` touching `nrows` tuples."""
-    beta_coef = beta_coef_of(compression)
+    if beta_coef is None:
+        beta_coef = beta_coef_of(compression)
     io = T_IO_SEQ * pages_of(size_bytes)
     cpu = CPU_ROW * nrows + beta_coef * nrows * ncols_used   # A.2
     return io + cpu
@@ -77,9 +80,11 @@ def scan_cost(size_bytes: ArrayLike, nrows: ArrayLike, ncols_used: ArrayLike,
 
 def seek_cost(size_bytes: ArrayLike, nrows_index: ArrayLike,
               selectivity: ArrayLike, ncols_used: ArrayLike,
-              compression: Optional[str] = None) -> ArrayLike:
+              compression: Optional[str] = None, *,
+              beta_coef: Optional[ArrayLike] = None) -> ArrayLike:
     """Range seek reading a `selectivity` fraction of the index."""
-    beta_coef = beta_coef_of(compression)
+    if beta_coef is None:
+        beta_coef = beta_coef_of(compression)
     rows = nrows_index * selectivity
     io = SEEK_OVERHEAD + T_IO_SEQ * pages_of(size_bytes * selectivity)
     cpu = CPU_ROW * rows + beta_coef * rows * ncols_used
@@ -99,9 +104,11 @@ def rid_lookup_cost(nrows: ArrayLike, base_size_bytes: ArrayLike, *,
 
 def update_cost(index_size_bytes: ArrayLike, index_nrows: ArrayLike,
                 rows_written: ArrayLike,
-                compression: Optional[str] = None) -> ArrayLike:
+                compression: Optional[str] = None, *,
+                alpha_coef: Optional[ArrayLike] = None) -> ArrayLike:
     """Bulk-insert maintenance cost for ONE index (A.1)."""
-    alpha_coef = alpha_coef_of(compression)
+    if alpha_coef is None:
+        alpha_coef = alpha_coef_of(compression)
     frac_written = np.where(
         np.asarray(index_nrows) <= 0, 1.0,
         np.minimum(rows_written / np.maximum(index_nrows, 1e-300), 1.0))

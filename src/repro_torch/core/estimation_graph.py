@@ -8,15 +8,17 @@ subject to: P(|relative error| within e) >= q for every target.
 The paper's greedy algorithm (§5.2 pseudocode) runs on the batched
 `planner_engine.PlannerEngine`, which scores every sampling fraction in one
 pass over a shared deduction graph; plans are then executed with the
-batched SampleCF `EstimationEngine`.  The JAX package's frozen scalar
-greedy and the exponential Optimal recursion (Appendix D) are not ported.
+batched SampleCF `EstimationEngine` (`execute_cached` estimates only the
+(NodeKey, f) misses of an online session's cache).  The JAX package's
+frozen scalar greedy and the exponential Optimal recursion (Appendix D)
+are not ported.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
 import functools
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, MutableMapping, Optional, Sequence, Tuple
 
 from . import deduction as ded
 from . import errors as err
@@ -147,11 +149,19 @@ class EstimationPlanner:
     `planner_engine.PlannerEngine`.  `device` selects the engine's scoring
     backend: None scores in float64 NumPy (bit-identical to the JAX
     package's numpy backend), a torch device with the float32
-    planner-score kernels."""
+    planner-score kernels.  `record`, `max_nodes`, `max_replay` and
+    `faults` go to the engine: an online session's planner replays
+    decisions across rounds within those bounds (see `planner_engine`)."""
 
-    def __init__(self, tables: Dict[str, Table], device=None):
+    def __init__(self, tables: Dict[str, Table], device=None,
+                 record: bool = False, max_nodes: Optional[int] = None,
+                 max_replay: Optional[int] = None, faults=None):
         self.tables = tables
         self.device = device
+        self.record = record
+        self.max_nodes = max_nodes
+        self.max_replay = max_replay
+        self.faults = faults
         self._engine = None
 
     @property
@@ -159,7 +169,10 @@ class EstimationPlanner:
         """The batched planner engine (built lazily, shared graph cache)."""
         if self._engine is None:
             from .planner_engine import PlannerEngine
-            self._engine = PlannerEngine(self.tables, device=self.device)
+            self._engine = PlannerEngine(
+                self.tables, device=self.device, record=self.record,
+                max_nodes=self.max_nodes, max_replay=self.max_replay,
+                faults=self.faults)
         return self._engine
 
     def plan(self, targets: Sequence[NodeKey], e: float, q: float) -> Plan:
@@ -184,6 +197,33 @@ class EstimationPlanner:
                    if n.state is State.SAMPLED]
         pre = engine.estimate_batch(sampled, plan.f)
         return self._resolve_plan(plan, pre.__getitem__)
+
+    def execute_cached(self, plan: Plan,
+                       cache: MutableMapping[Tuple[NodeKey, float],
+                                             SizeEstimate],
+                       engine: EstimationEngine
+                       ) -> Dict[NodeKey, SizeEstimate]:
+        """`execute` with SAMPLED estimates cached by (NodeKey, f), the
+        online session's path: an estimate is a pure function of (node,
+        f) over the engine's order-independent samples, so only the cache
+        misses are estimated, in one batched call.  The plan resolves from
+        a LOCAL snapshot of this call's estimates, never back through
+        `cache`: a bounded cache (`samplecf.EstimateCache`) may evict an
+        entry this plan still needs while inserting."""
+        local: Dict[NodeKey, SizeEstimate] = {}
+        missing = []
+        for k, n in plan.nodes.items():
+            if n.state is not State.SAMPLED:
+                continue
+            est = cache.get((k, plan.f))
+            if est is None:
+                missing.append(k)
+            else:
+                local[k] = est
+        if missing:
+            for k, est in engine.estimate_batch(missing, plan.f).items():
+                local[k] = cache[(k, plan.f)] = est
+        return self._resolve_plan(plan, local.__getitem__)
 
     def _resolve_plan(self, plan: Plan, sampled_est
                       ) -> Dict[NodeKey, SizeEstimate]:

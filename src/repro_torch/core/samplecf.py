@@ -10,17 +10,55 @@ index built on the sample, before compression (paper §5.1).
 
 `SampleManager` draws each (table, f) sample from the same seed-derived
 NumPy stream as the JAX package's, so both packages size the same rows.
+`schema_fingerprint` digests what every estimate depends on (the same
+digest as the JAX package's), and `EstimateCache` is the online session's
+bounded (NodeKey, f) -> `SizeEstimate` cache.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import zlib
-from typing import Dict, Tuple
+from collections import OrderedDict
+from typing import Dict, Iterator, MutableMapping, Tuple
 
 import numpy as np
 
 from . import compression, distinct, errors
 from .relation import IndexDef, Table, build_index_data, uncompressed_pages
+
+
+def table_fingerprint(table: Table) -> str:
+    """Content digest of a table: name, row count, column defs and the raw
+    int64 column buffers.  Tables are immutable once built, so the digest
+    is cached in the table's stats cache."""
+    key = ("content_fingerprint",)
+    fp = table._stats_cache.get(key)
+    if fp is None:
+        h = hashlib.sha256()
+        h.update(table.name.encode("utf-8"))
+        h.update(str(table.nrows).encode("ascii"))
+        for c in table.columns:
+            h.update(f"|{c.name}:{c.width}".encode("utf-8"))
+            h.update(np.ascontiguousarray(table.values[c.name]).tobytes())
+        fp = table._stats_cache[key] = h.hexdigest()
+    return fp
+
+
+def schema_fingerprint(schema, sample_seed: int) -> str:
+    """Digest of everything SampleCF estimates depend on: every table's
+    content, the foreign keys and the sampling seed.  Two workloads with
+    equal fingerprints draw byte-identical samples for any (table, f), and
+    so give byte-identical `SizeEstimate`s for any (NodeKey, f): the
+    condition for sharing one `SampleManager` and one estimate cache."""
+    h = hashlib.sha256()
+    h.update(str(int(sample_seed)).encode("ascii"))
+    for name in sorted(schema.tables):
+        h.update(table_fingerprint(schema.tables[name]).encode("ascii"))
+    for fk in schema.foreign_keys:
+        h.update(f"|{fk.fact_table}.{fk.fk_col}->"
+                 f"{fk.dim_table}.{fk.dim_key}".encode("utf-8"))
+    return h.hexdigest()
 
 
 @dataclasses.dataclass
@@ -30,6 +68,73 @@ class SizeEstimate:
     method: str            # "samplecf" | "deduction:..." | "exact"
     cost_pages: float      # estimation cost charged (paper §5.1)
     cf: float              # estimated compression fraction
+
+
+class EstimateCache(MutableMapping):
+    """Bounded LRU (NodeKey, f) -> `SizeEstimate` mapping.
+
+    A drop-in for the plain dict an `AdvisorSession` caches its SampleCF
+    estimates in, capped at `maxsize` entries with least-recently-USED
+    eviction (`get` and `__getitem__` refresh recency; `__contains__` and
+    `items` are pure peeks).  Eviction cannot change a result: every entry
+    is a pure function of (schema content, sample seed, NodeKey, f), so an
+    evicted entry is recomputed bit-identically on the next miss.
+    """
+
+    def __init__(self, maxsize: int):
+        if maxsize < 1:
+            raise ValueError("EstimateCache maxsize must be >= 1")
+        self.maxsize = int(maxsize)
+        self._d: "OrderedDict" = OrderedDict()
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+
+    def __getitem__(self, key):
+        v = self._d[key]           # KeyError propagates on a miss
+        self._d.move_to_end(key)
+        self.hits += 1
+        return v
+
+    def get(self, key, default=None):
+        try:
+            v = self._d[key]
+        except KeyError:
+            self.misses += 1
+            return default
+        self._d.move_to_end(key)
+        self.hits += 1
+        return v
+
+    def __setitem__(self, key, value) -> None:
+        self._d[key] = value
+        self._d.move_to_end(key)
+        while len(self._d) > self.maxsize:
+            self._d.popitem(last=False)
+            self.evictions += 1
+
+    def __delitem__(self, key) -> None:
+        del self._d[key]
+
+    def __contains__(self, key) -> bool:
+        # pure membership: no recency touch, no counter
+        return key in self._d
+
+    def __iter__(self) -> Iterator:
+        return iter(self._d)
+
+    def __len__(self) -> int:
+        return len(self._d)
+
+    def items(self):
+        # a pure peek too: snapshotting the cache must neither count hits
+        # nor reorder it mid-iteration
+        return list(self._d.items())
+
+    def stats(self) -> Dict[str, int]:
+        return {"entries": len(self._d), "maxsize": self.maxsize,
+                "hits": self.hits, "misses": self.misses,
+                "evictions": self.evictions}
 
 
 class SampleManager:

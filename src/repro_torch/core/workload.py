@@ -6,13 +6,14 @@ SELECT-intensive or INSERT-intensive exactly as in the paper's experiments.
 
 `make_tpch_like` and `make_scaled_workload` draw from the same NumPy
 generator in the same order as the JAX package's, so equal arguments give
-equal data and statements.  Workload deltas (online sessions) are not
-ported yet.
+equal data and statements.  A `WorkloadDelta` (the online session's unit
+of change) turns a workload into the one a fresh advisor would be given:
+removals drop, reweights apply in place, additions append.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple, Union
+from typing import Dict, List, Tuple, Union
 
 import numpy as np
 
@@ -45,6 +46,25 @@ class BulkInsert:
 Statement = Union[Query, BulkInsert]
 
 
+@dataclasses.dataclass(frozen=True)
+class WorkloadDelta:
+    """One batch of workload mutations (the online-session delta unit).
+
+    Statement *names* are the stable ids: `added` appends new statements
+    (their names must be fresh), `removed` drops statements by name, and
+    `reweighted` replaces the weight of existing statements in place.
+    Survivors keep their relative order and additions go to the end --
+    exactly how `Workload.apply_delta` builds the resulting workload a
+    fresh advisor would be given.
+    """
+    added: Tuple[Statement, ...] = ()
+    removed: Tuple[str, ...] = ()
+    reweighted: Tuple[Tuple[str, float], ...] = ()
+
+    def __bool__(self) -> bool:
+        return bool(self.added or self.removed or self.reweighted)
+
+
 @dataclasses.dataclass
 class Workload:
     schema: Schema
@@ -55,6 +75,51 @@ class Workload:
 
     def updates(self) -> List[BulkInsert]:
         return [s for s in self.statements if isinstance(s, BulkInsert)]
+
+    # -- delta API (stable statement ids = names) -----------------------
+    def by_name(self) -> Dict[str, Statement]:
+        out: Dict[str, Statement] = {}
+        for s in self.statements:
+            if s.name in out:
+                raise ValueError(f"duplicate statement name {s.name!r}")
+            out[s.name] = s
+        return out
+
+    def apply_delta(self, delta: WorkloadDelta) -> "Workload":
+        """The resulting workload after `delta` (functional; `self` is
+        untouched).  Everything is validated before anything is built, so
+        a bad delta raises KeyError or ValueError and changes nothing."""
+        have = self.by_name()
+        for name in delta.removed:
+            if name not in have:
+                raise KeyError(f"cannot remove unknown statement {name!r}")
+        removed = set(delta.removed)
+        reweight: Dict[str, float] = {}
+        for name, w in delta.reweighted:
+            if name not in have:
+                raise KeyError(f"cannot reweight unknown statement {name!r}")
+            if name in removed:
+                raise ValueError(f"statement {name!r} both removed and "
+                                 "reweighted in one delta")
+            reweight[name] = float(w)
+        seen_add = set()
+        for s in delta.added:
+            if s.name in have or s.name in seen_add:
+                raise ValueError(f"added statement name {s.name!r} is not "
+                                 "fresh")
+            seen_add.add(s.name)
+            if s.table not in self.schema.tables:
+                raise KeyError(f"added statement {s.name!r} references "
+                               f"unknown table {s.table!r}")
+        stmts: List[Statement] = []
+        for s in self.statements:
+            if s.name in removed:
+                continue
+            w = reweight.get(s.name)
+            stmts.append(s if w is None
+                         else dataclasses.replace(s, weight=w))
+        stmts.extend(delta.added)
+        return Workload(schema=self.schema, statements=stmts)
 
 
 # ---------------------------------------------------------------------------

@@ -53,8 +53,10 @@ With the budget disabled (`None`, or >= the statement count)
 `compress_workload` returns None and the advisor runs the uncompressed
 pipeline unchanged.
 
-Not ported yet: `ClusterIndex.apply_delta`, which mirrors a
-`WorkloadDelta` of an online session; it comes with the session slice.
+`ClusterIndex.apply_delta` mirrors an online session's `WorkloadDelta`,
+so the outer compressed `AdvisorSession` keeps cluster membership in
+O(delta) and derives the compressed workload a fresh `compress_workload`
+would.
 """
 from __future__ import annotations
 
@@ -293,6 +295,15 @@ class ClusterIndex:
     def reweight(self, name: str, weight: float) -> None:
         fine, _ = self._by_name[name]
         self._fine[fine][name].weight = float(weight)
+
+    def apply_delta(self, delta) -> None:
+        """Mirror a validated `workload.WorkloadDelta`."""
+        for name in delta.removed:
+            self.remove(name)
+        for name, w in delta.reweighted:
+            self.reweight(name, w)
+        for s in delta.added:
+            self.add(s)
 
     # -- derivation ------------------------------------------------------
     def _fine_weight(self, members: Dict[str, _Member]) -> float:

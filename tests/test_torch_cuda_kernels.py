@@ -31,7 +31,10 @@ test_torch_codec_page_edges.py holds to the JAX package on the CPU).
 GDICT's hash set bit-equal on its edge rows in each of its three layouts
 (a block's shared memory, a cluster's, global memory), one launch a call
 and no sort; the walk's feasibility (p and feasible) bit-equal to
-`prob_within` on the walk's own final RVs and to the plain walk.
+`prob_within` on the walk's own final RVs and to the plain walk.  An
+online `AdvisorSession` on the card recommends `==` a fresh cuda
+`DesignAdvisor` after each round, with one walk per re-planned round and
+no launch on a reweight-only round.
 """
 import numpy as np
 import pytest
@@ -879,3 +882,45 @@ def test_cuda_gdict_stacks_equal_plain(cuda, monkeypatch, m, n):
     got = cb.gdict_bytes(c, w)
     again = cb.gdict_bytes(c, w)
     assert torch.equal(got.cpu(), want) and torch.equal(again, got)
+
+
+@pytest.mark.cuda
+def test_cuda_session_rounds_equal_fresh_recommend(cuda):
+    """A small session's three rounds on the card (cold, a structural
+    delta, a reweight-only delta) each `==` a fresh cuda recommend; one
+    planner_walk launch per re-planned round, none on the reweight-only
+    round, and no per-record fused_score or prob_within launch."""
+    import dataclasses
+    from repro_torch import core as pt
+    schema = pt.make_tpch_like(scale=0.15, z=0, seed=0)
+    wl = pt.make_scaled_workload(schema, n_statements=40, seed=2)
+    extra = [dataclasses.replace(s, name=f"d{i:03d}") for i, s in
+             enumerate(pt.make_scaled_workload(schema, n_statements=4,
+                                               seed=9).statements)]
+    names = [s.name for s in wl.statements]
+    opt = pt.AdvisorOptions(backend="torch", device="cuda", methods=(
+        "NS", "GDICT", "LDICT", "PREFIX", "RLE"))
+    budget = 0.3 * sum(pt.SizeProvider(schema).size(i) for i in
+                       pt.base_configuration(schema).indexes)
+    sess = pt.AdvisorSession(wl, opt)
+    rounds = [(None, 1),
+              (pt.WorkloadDelta(added=tuple(extra), removed=(names[5],),
+                                reweighted=((names[0], 3.0),)), 1),
+              (pt.WorkloadDelta(reweighted=((names[1], 0.5),)), 0)]
+    for delta, walks in rounds:
+        if delta is not None:
+            sess.apply(delta)
+            wl = wl.apply_delta(delta)
+        before = launch_counts()
+        got = sess.recommend(budget)
+        after = launch_counts()
+        d = {k: after[k] - before[k] for k in after}
+        assert d["planner_walk"] == walks
+        assert d["fused_score"] == d["prob_within"] == 0
+        if not walks:
+            assert not any(d.values())
+        want = pt.DesignAdvisor(wl, opt).recommend(budget)
+        for name in ("config", "cost", "used_bytes", "base_cost",
+                     "n_sampled", "n_deduced", "estimation_cost_pages",
+                     "pool_size", "candidate_count"):
+            assert getattr(got, name) == getattr(want, name), name
