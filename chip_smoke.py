@@ -1261,6 +1261,415 @@ def main() -> int:
             fail(f"kernel {name} was not launched in phase 3d")
     print(f"launches in phase 3d's session rounds: {json.dumps(launches3d)}")
 
+    # ---- phase 3e: the fleet and its durable store at SF1 ---------------
+    # every tenant on phase 3's schema, options and budget (one share
+    # group); only the fleet's drains count as 3e's launches
+    from repro_torch.serve import advisor_service as fleet_mod
+    launches3e = {k: 0 for k in launches3}
+    fleet_fields = ("config", "cost", "used_bytes", "base_cost", "n_sampled",
+                    "n_deduced", "estimation_cost_pages", "pool_size",
+                    "candidate_count")
+    fleet_counters = ("prefetch_batches", "prefetch_targets",
+                      "prefetch_hits", "prefetch_failures",
+                      "cost_prefetch_batches", "cost_prefetch_jobs",
+                      "sampling_calls", "shared_cache_entries")
+
+    def tenant_workload(i, n, seed):
+        w = pt.make_scaled_workload(schema, n, seed=seed)
+        return dataclasses.replace(w, statements=[
+            dataclasses.replace(s, name=f"t{i}_{s.name}")
+            for s in w.statements])
+
+    def tenant_delta(rng_, i, rnd, w):
+        """2 statements added, the 2 oldest removed, 3 reweighted by
+        factors in 0.5-1.5."""
+        names_ = [s.name for s in w.statements]
+        weight_ = {s.name: s.weight for s in w.statements}
+        added_ = tuple(
+            dataclasses.replace(s, name=f"t{i}_r{rnd}_{j}")
+            for j, s in enumerate(pt.make_scaled_workload(
+                schema, 2, seed=1000 + 10 * rnd + i).statements))
+        keep = names_[2:]
+        picks = rng_.choice(len(keep), size=3, replace=False)
+        factors = rng_.uniform(0.5, 1.5, size=3)
+        return pt.WorkloadDelta(
+            added=added_, removed=tuple(names_[:2]),
+            reweighted=tuple((keep[k], weight_[keep[k]] * float(f))
+                             for k, f in zip(picks, factors)))
+
+    def fresh_identical(label, rec, w):
+        """A fresh torch/cuda recommend on `w` gives `rec`'s fields;
+        returns its seconds."""
+        t0 = time.perf_counter()
+        want = pt.DesignAdvisor(w, opts).recommend(budget)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        for name in fleet_fields:
+            if getattr(rec, name) != getattr(want, name):
+                fail(f"{label}: the fleet's {name} {getattr(rec, name)!r} "
+                     f"differs from a fresh recommend's "
+                     f"{getattr(want, name)!r}")
+        return secs
+
+    def fleet_drain(label, fleet_, n_recommends):
+        """Drain the fleet with the launch counters zeroed before and read
+        after; checks the planner's launches; returns (wall s, launches)."""
+        _, wall, counts = measured(label, fleet_.run_until_drained)
+        if counts["fused_score"] or counts["prob_within"] or \
+                counts["planner_walk"] > n_recommends:
+            fail(f"{label}: planner launches {counts} for {n_recommends} "
+                 "recommends")
+        for k in launches3e:
+            launches3e[k] += counts[k]
+        return wall, counts
+
+    def watch_prefetch_errors(fleet_):
+        """Every error the fleet's two prefetches attach to a ticket, in
+        order, once each (a ticket's `prefetch_error` keeps only the last;
+        a caught prefetch error lets the tenant recompute on its own)."""
+        errors = []
+        for name in ("_prefetch", "_cost_prefetch"):
+            def watched(orig=getattr(fleet_, name), name=name):
+                orig()
+                for req in fleet_.slots:
+                    e = req.ticket.prefetch_error if req else None
+                    if e is not None and all(e is not x for _, x in errors):
+                        errors.append((name, e))
+            setattr(fleet_, name, watched)
+        return errors
+
+    def dir_bytes(path):
+        return sum(p.stat().st_size for p in Path(path).rglob("*")
+                   if p.is_file())
+
+    # 3e-i: 16 tenants, no store; a delta and a recommend a tenant a round
+    t0 = time.perf_counter()
+    fp = pt.samplecf.schema_fingerprint(schema, opts.sample_seed)
+    print(f"phase 3e: schema_fingerprint at SF1 {time.perf_counter() - t0:.3f}"
+          f" s (host; cached on the schema's tables, so once for the 16 "
+          f"tenants that share it) {fp[:16]}")
+    wl_3e = {f"t{i}": tenant_workload(i, 12, 100 + i) for i in range(16)}
+    fleet = fleet_mod.AdvisorFleetService(fleet_mod.FleetConfig(slots=16))
+    errors_3e = watch_prefetch_errors(fleet)
+    t0 = time.perf_counter()
+    for tid, w in wl_3e.items():
+        fleet.register_tenant(tid, w, opts)
+    print(f"phase 3e-i: 16 tenants registered in "
+          f"{time.perf_counter() - t0:.3f} s, {fleet.stats['groups']} share "
+          "group")
+    # the share group's prefetch batches: targets, device memory allocated
+    # before each, the peak just after it (is the union batch the round's
+    # peak?)
+    prefetches = []
+    group_engine = next(iter(fleet.groups.values())).engine
+    group_batch = group_engine.estimate_batch
+
+    def watched_batch(targets, f):
+        before = torch.cuda.memory_allocated(dev)
+        got = group_batch(targets, f)
+        torch.cuda.synchronize()
+        prefetches.append((len(targets), before,
+                           torch.cuda.max_memory_allocated(dev)))
+        return got
+    group_engine.estimate_batch = watched_batch
+    # the first stacked cost batch, held bitwise to per-job costing: the
+    # jobs' (engine, query, base, candidates) recorded as they are gathered
+    job_sources = []
+    stacked = {}
+    parity_s = [0.0]
+    orig_job_arrays = pt.CostEngine.cost_job_arrays
+    orig_batched = fleet_mod.batched_candidate_costs
+
+    def recording_job_arrays(self, query, base_, cands):
+        job_sources.append((self, query, base_, list(cands)))
+        return orig_job_arrays(self, query, base_, cands)
+
+    def checking_batched(jobs, device=None):
+        costs = orig_batched(jobs, device=device)
+        sources_, job_sources[:] = list(job_sources), []
+        if not stacked:
+            t0 = time.perf_counter()
+            if device is None or len(sources_) != len(jobs):
+                fail(f"phase 3e-i: a stacked batch of {len(jobs)} jobs on "
+                     f"{device} from {len(sources_)} recorded jobs")
+            for k, (eng, q, base_, cands) in enumerate(sources_):
+                want = eng.candidate_query_costs(q, base_, cands)
+                got = np.ascontiguousarray(costs[k, :len(want)])
+                if not np.array_equal(got.view(np.int64),
+                                      want.view(np.int64)):
+                    fail(f"phase 3e-i: stacked job {k} ({q.name}) differs "
+                         "from its per-job candidate_query_costs on the "
+                         "card")
+            stacked.update(jobs=len(jobs), width=int(costs.shape[1]),
+                           secs=time.perf_counter() - t0)
+            parity_s[0] += stacked["secs"]
+        return costs
+    pt.CostEngine.cost_job_arrays = recording_job_arrays
+    fleet_mod.batched_candidate_costs = checking_batched
+    rng = np.random.default_rng(0)
+    mirror = dict(wl_3e)
+    try:
+        for rnd in range(3):
+            label = f"phase 3e-i round {rnd + 1}"
+            tks = {}
+            for i, tid in enumerate(mirror):
+                d = tenant_delta(rng, i, rnd, mirror[tid])
+                fleet.submit_delta(tid, d)
+                mirror[tid] = mirror[tid].apply_delta(d)
+                tks[tid] = fleet.submit_recommend(tid, budget)
+            st0 = fleet.stats
+            parity_s[0] = 0.0
+            prefetches.clear()
+            wall, counts = fleet_drain(label, fleet, len(tks))
+            peak = torch.cuda.max_memory_allocated(dev)
+            wall -= parity_s[0]
+            st1 = fleet.stats
+            fresh_s = sum(fresh_identical(f"{label} {tid}", tk.result(0),
+                                          mirror[tid])
+                          for tid, tk in tks.items())
+            grew = {k: st1[k] - st0[k] for k in fleet_counters}
+            # no fault is injected here: one union SampleCF batch and one
+            # stacked cost batch a round, neither failing
+            if grew["prefetch_failures"] or errors_3e or \
+                    grew["prefetch_batches"] != 1 or \
+                    grew["cost_prefetch_batches"] != 1:
+                fail(f"{label}: prefetch counters {json.dumps(grew)}, "
+                     f"errors {errors_3e!r}")
+            print(f"{label}: fleet {wall:.3f} s (synchronised, the bitwise "
+                  f"check excluded) for 16 deltas + 16 recommends in "
+                  f"{st1['steps'] - st0['steps']} steps; 16 fresh recommends "
+                  f"{fresh_s:.3f} s; all 16 identical "
+                  f"({', '.join(fleet_fields)}); this round "
+                  f"{json.dumps(grew)}; launches {json.dumps(counts)}; "
+                  f"prefetch batches (targets, B allocated before, peak B "
+                  f"after) {prefetches}, the round's peak {peak} B")
+    finally:
+        pt.CostEngine.cost_job_arrays = orig_job_arrays
+        fleet_mod.batched_candidate_costs = orig_batched
+    st = fleet.stats
+    consumed = sum(t.session.cost_prefetch_consumed
+                   for t in fleet.tenants.values())
+    if not 0 < st["cost_prefetch_jobs"] == consumed:
+        fail(f"phase 3e-i: cost_prefetch_jobs {st['cost_prefetch_jobs']}, "
+             f"consumed by the tenants' recommends {consumed}")
+    if st["prefetch_batches"] <= 0 or not stacked:
+        fail("phase 3e-i: no prefetch batch or no stacked cost batch")
+    print(f"phase 3e-i: stacked cost batch of {stacked['jobs']} jobs x "
+          f"{stacked['width']} candidates bit-equal to per-job "
+          f"candidate_query_costs on the card ({stacked['secs']:.3f} s); "
+          f"cost_prefetch_jobs {st['cost_prefetch_jobs']} == consumed "
+          f"{consumed}; fleet counters "
+          f"{json.dumps({k: st[k] for k in fleet_counters})}")
+    del fleet, tks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3e-ii: 4 tenants on a durable store under faults, then a restart
+    import shutil
+    import tempfile
+    # the rates of the JAX package's benchmarks/fault_recovery.py; the
+    # disk sites and the prefetch also fire at their second check
+    faults = pt.FaultInjector(seed=14, specs={
+        "apply_delta": 0.08, "estimation": 0.05, "costing": 0.05,
+        "prefetch": pt.FaultSpec(rate=0.25, at=(1,)),
+        "planner_replay": 0.05,
+        "disk_write": pt.FaultSpec(rate=0.05, at=(1,)),
+        "fsync": pt.FaultSpec(rate=0.05, at=(1,))})
+    fc2 = fleet_mod.FleetConfig(slots=4, retry_backoff=(1, 2, 4),
+                                quarantine_after=3)
+    tids2 = [f"t{i}" for i in range(4)]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_3e_") as tmp:
+        tmp = Path(tmp)
+        root = tmp / "store"
+        print(f"phase 3e-ii: store under {tmp}, "
+              f"{shutil.disk_usage(tmp).free} B free")
+        store = pt.DurableStore(root, group_commit=1, compact_after=3)
+        compactions = []
+        orig_compact = store.maybe_compact
+
+        def timed_compact(tid, *a, **kw):
+            t0 = time.perf_counter()
+            ran = orig_compact(tid, *a, **kw)
+            if ran:
+                compactions.append((tid, time.perf_counter() - t0))
+            return ran
+        store.maybe_compact = timed_compact
+        fleet2 = fleet_mod.AdvisorFleetService(fc2, faults=faults,
+                                               store=store)
+        errors_3e2 = watch_prefetch_errors(fleet2)
+        mirror2 = {tid: wl_3e[tid] for tid in tids2}
+        for tid in tids2:
+            t0 = time.perf_counter()
+            fleet2.register_tenant(tid, mirror2[tid], opts)
+            secs = time.perf_counter() - t0
+            size = (root / "snap" / f"{tid}.snap").stat().st_size
+            print(f"phase 3e-ii: register {tid} {secs:.3f} s, snapshot "
+                  f"{size} B")
+        peak_dir = dir_bytes(root)
+        rng2 = np.random.default_rng(1)
+        unresolved = 0
+        for rnd in range(4):
+            label = f"phase 3e-ii round {rnd + 1}"
+            for tid, t in fleet2.tenants.items():
+                if t.quarantined_at is not None:
+                    fleet2.readmit_tenant(tid)
+            dks, rks, deltas = {}, {}, {}
+            for i, tid in enumerate(tids2):
+                deltas[tid] = tenant_delta(rng2, i, rnd, mirror2[tid])
+                dks[tid] = fleet2.submit_delta(tid, deltas[tid])
+                rks[tid] = fleet2.submit_recommend(tid, budget)
+            n_cp = len(compactions)
+            wall, counts = fleet_drain(label, fleet2, len(rks))
+            fresh_s, outcomes = 0.0, []
+            for tid in tids2:
+                if dks[tid].exception(0) is None:
+                    mirror2[tid] = mirror2[tid].apply_delta(deltas[tid])
+                err = rks[tid].exception(0)
+                if err is None:
+                    fresh_s += fresh_identical(f"{label} {tid}",
+                                               rks[tid].result(0),
+                                               mirror2[tid])
+                    outcomes.append(f"{tid} identical")
+                elif isinstance(err, (pt.FaultError,
+                                      fleet_mod.TenantQuarantined)):
+                    unresolved += 1
+                    outcomes.append(f"{tid} {type(err).__name__}")
+                else:
+                    fail(f"{label}: {tid}'s recommend raised {err!r}")
+            peak_dir = max(peak_dir, dir_bytes(root))
+            s2 = fleet2.stats
+            delta_out = [type(dks[t].exception(0)).__name__
+                         if dks[t].exception(0) else "ok" for t in tids2]
+            cps = [f"{t} {s:.3f} s" for t, s in compactions[n_cp:]]
+            print(f"{label}: fleet {wall:.3f} s, fresh {fresh_s:.3f} s; "
+                  f"{', '.join(outcomes)}; delta outcomes {delta_out}; "
+                  f"retries {s2['retries']}, quarantines "
+                  f"{s2['quarantines']}, failures {s2['failures']}; "
+                  f"compactions {cps}; fault counters "
+                  f"{json.dumps(faults.stats())}; launches "
+                  f"{json.dumps(counts)}")
+        fired = faults.stats()["fired"]
+        for site in ("disk_write", "fsync", "prefetch"):
+            if fired[site] <= 0:
+                fail(f"phase 3e-ii: the {site} fault never fired")
+        # a prefetch may fail here only by an injected fault
+        stray = [(n, e) for n, e in errors_3e2
+                 if not isinstance(e, pt.FaultError)]
+        if stray:
+            fail(f"phase 3e-ii: prefetch errors that are no injected "
+                 f"fault: {stray!r}")
+        if fleet2.stats["prefetch_failures"] != len(errors_3e2):
+            fail(f"phase 3e-ii: {len(errors_3e2)} prefetch errors on tickets"
+                 f", prefetch_failures {fleet2.stats['prefetch_failures']}")
+        snaps = {tid: (root / "snap" / f"{tid}.snap").stat().st_size
+                 for tid in tids2}
+        print(f"phase 3e-ii: store counters {json.dumps(store.stats())}; "
+              f"snapshot bytes {json.dumps(snaps)}; {unresolved} "
+              "recommends unresolved (fault or quarantine); prefetch "
+              f"failures {fleet2.stats['prefetch_failures']}, all injected "
+              f"faults: {[(n, str(e)) for n, e in errors_3e2]}")
+        # process death: close the store, drop the fleet, recover copies
+        store.close()
+        del fleet2, store, dks, rks
+        gc.collect()
+        torch.cuda.empty_cache()
+        recover_s = {}
+        orig_store_rec = pt.DurableStore._recover_tenant
+        orig_fleet_rec = fleet_mod.AdvisorFleetService._recover_tenant
+
+        def timed_store_rec(self, snap_path):
+            t0 = time.perf_counter()
+            rt = orig_store_rec(self, snap_path)
+            recover_s[rt.tenant_id] = [time.perf_counter() - t0]
+            return rt
+
+        def timed_fleet_rec(self, rt):
+            t0 = time.perf_counter()
+            orig_fleet_rec(self, rt)
+            recover_s[rt.tenant_id].append(time.perf_counter() - t0)
+        pt.DurableStore._recover_tenant = timed_store_rec
+        fleet_mod.AdvisorFleetService._recover_tenant = timed_fleet_rec
+        try:
+            for copy in ("A", "B"):
+                label = f"phase 3e-ii copy {copy}"
+                path = tmp / copy
+                t0 = time.perf_counter()
+                shutil.copytree(root, path)
+                copy_s = time.perf_counter() - t0
+                peak_dir = max(peak_dir, dir_bytes(root) + dir_bytes(path))
+                victim = None
+                if copy == "B":
+                    bounds = {tid: pt.DurableStore(path)
+                              .wal_record_boundaries(tid) for tid in tids2}
+                    victim = next((tid for tid in ["t1"] + tids2
+                                   if len(bounds[tid]) >= 3), None)
+                    if victim is None:
+                        n_rec = {t: len(b) - 1 for t, b in bounds.items()}
+                        fail(f"{label}: no WAL holds two records {n_rec}")
+                    wal = path / "wal" / f"{victim}.wal"
+                    data = bytearray(wal.read_bytes())
+                    hdr = pt.durability._HEADER.size
+                    at = hdr + (bounds[victim][1] - hdr) // 2
+                    data[at] ^= 1
+                    wal.write_bytes(bytes(data))
+                    print(f"{label}: flipped bit 0 of byte {at} (inside the "
+                          f"payload of the first of {len(bounds[victim]) - 1}"
+                          f" records) of {victim}'s WAL")
+                recover_s.clear()
+                t0 = time.perf_counter()
+                fr = fleet_mod.AdvisorFleetService.recover(path, fc2)
+                rec_wall = time.perf_counter() - t0
+                peak_dir = max(peak_dir, dir_bytes(root) + dir_bytes(path))
+                for tid in tids2:
+                    t = fr.tenants[tid]
+                    if tid == victim:
+                        if t.quarantined_at is None or \
+                                tid not in fr.recovery_errors:
+                            fail(f"{label}: {tid} with a flipped bit "
+                                 "recovered unquarantined")
+                        continue
+                    if t.quarantined_at is not None:
+                        fail(f"{label}: {tid} recovered quarantined: "
+                             f"{fr.recovery_errors.get(tid)!r}")
+                    if [(s.name, s.weight) for s in
+                            t.session.workload.statements] != \
+                            [(s.name, s.weight) for s in
+                             mirror2[tid].statements]:
+                        fail(f"{label}: {tid}'s recovered statements differ "
+                             "from its mirror's")
+                if sorted(fr.recovery_errors) != ([victim] if victim else []):
+                    fail(f"{label}: recovery errors "
+                         f"{sorted(fr.recovery_errors)}")
+                healthy = [tid for tid in tids2 if tid != victim]
+                tks = {tid: fr.submit_recommend(tid, budget)
+                       for tid in healthy}
+                wall, counts = fleet_drain(label, fr, len(tks))
+                fresh_s = sum(fresh_identical(f"{label} {tid}",
+                                              tk.result(0), mirror2[tid])
+                              for tid, tk in tks.items())
+                per_tenant = {t: [round(x, 3) for x in v]
+                              for t, v in recover_s.items()}
+                print(f"{label}: copied in {copy_s:.3f} s; recover "
+                      f"{rec_wall:.3f} s (per tenant, store scan / session "
+                      f"restore and replay: {per_tenant}); quarantined "
+                      f"{victim}; next recommends of {healthy} identical to "
+                      f"fresh runs: fleet {wall:.3f} s, fresh "
+                      f"{fresh_s:.3f} s; launches {json.dumps(counts)}")
+                del fr, tks
+                gc.collect()
+                shutil.rmtree(path)
+        finally:
+            pt.DurableStore._recover_tenant = orig_store_rec
+            fleet_mod.AdvisorFleetService._recover_tenant = orig_fleet_rec
+        print(f"phase 3e-ii: the directory's peak {peak_dir} B (the store "
+              "and one recovered copy)")
+    for name in ("ns_bytes", "ldict_bytes", "planner_walk"):
+        if launches3e[name] <= 0:
+            fail(f"kernel {name} was not launched in phase 3e")
+    if launches3e["fused_score"] or launches3e["prob_within"]:
+        fail(f"phase 3e: planner launches {launches3e}")
+    print(f"launches in phase 3e's fleet drains: {json.dumps(launches3e)}")
+
     # ---- phase 4: kernels at the main paths' inputs -------------------
     # the second run of each path is traced: LDICT's device time over its
     # launches beside the measured run's SampleCF seconds
@@ -1371,9 +1780,13 @@ def main() -> int:
         return nc_ * nf_ * (6 * k_ + 40 + 2)
 
     launches = {k: launches3[k] + launches3b[k] + launches3c[k]
-                + launches3d[k] for k in launches3}
-    print(f"launches on the measured paths (3 + 3b + 3c + 3d's sessions): "
-          f"{json.dumps(launches)}")
+                + launches3d[k] + launches3e[k] for k in launches3}
+    print(f"launches on the measured paths (3 + 3b + 3c + 3d's sessions + "
+          f"3e's fleet drains): {json.dumps(launches)}")
+    print("advisor launches by phase: " + json.dumps({
+        name: {"3": launches3[name], "3b": launches3b[name],
+               "3c": launches3c[name], "3d": launches3d[name],
+               "3e": launches3e[name]} for name in ADVISOR_KERNELS}))
     records = []
     codec_src = "src/repro_torch/kernels/csrc/codec_bytes.cu"
     planner_src = "src/repro_torch/kernels/csrc/planner_score.cu"
@@ -1473,7 +1886,8 @@ def main() -> int:
         "shape": list(GDICT_GLOBAL), "ms": ms, "device_ms": dev_ms,
         "bound_ms": bytes_ms, "scratch_bytes": plan.scratch_bytes}
     # the timing launches above count too; the record keeps the measured
-    # paths' counts (phases 3, 3b, 3c and 3d's session rounds)
+    # paths' counts (phases 3, 3b, 3c, 3d's session rounds and 3e's fleet
+    # drains)
     rec_ld = next(r for r in records if r["name"] == "ldict_bytes")
     rec_ld["device_ms_by_phase"] = ldict_dev
     rec_ld["largest_by_phase"] = {}

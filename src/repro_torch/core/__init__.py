@@ -5,13 +5,15 @@
 # the compression-aware what-if cost model (App. A), workload compression
 # for large workloads (§7), the staged baseline of Example 1 and the online
 # advisor session (AdvisorSession: workload deltas, snapshots, seeded fault
-# injection) -- with its array work on a torch device and hand-written CUDA
-# kernels (repro_torch.kernels).
+# injection) and its durable store (DurableStore: per-tenant write-ahead
+# log and atomic snapshots) -- with its array work on a torch device and
+# hand-written CUDA kernels (repro_torch.kernels).
 from .advisor import AdvisorOptions, DesignAdvisor, Recommendation, \
     staged_recommend
 from .backend import BACKENDS, resolve_device
 from .compression import DEFAULT_ADVISOR_METHODS, METHODS
 from .cost_engine import CostEngine
+from .durability import DurableStore, LogCorrupt, RecoveredTenant
 from .estimation_engine import EstimationEngine, batched_sample_cf
 from .estimation_graph import EstimationPlanner, NodeKey, Plan, State
 from .faults import FaultError, FaultInjector, FaultSpec
@@ -33,6 +35,7 @@ __all__ = [
     "AdvisorSession", "SessionSnapshot", "SnapshotCorrupt",
     "BACKENDS", "resolve_device",
     "DEFAULT_ADVISOR_METHODS", "METHODS", "CostEngine",
+    "DurableStore", "LogCorrupt", "RecoveredTenant",
     "EstimationEngine", "batched_sample_cf",
     "EstimationPlanner", "NodeKey", "Plan", "State", "PlannerEngine",
     "FaultError", "FaultInjector", "FaultSpec",

@@ -39,8 +39,13 @@ Rows stay in the workload's statement order, so the matrices equal a
 fresh engine's on the resulting workload, and the device scorers, which
 gather the candidates' columns by id, get the same operands.
 
-Not ported yet: chunked costing and the fleet's cross-tenant stacked
-costing.
+The fleet's cost phase scores many tenants' (query, candidates) jobs in
+one stacked pass (`cost_job_arrays` + `batched_candidate_costs`): per
+element the arithmetic of `candidate_query_costs` for a secondary-free
+base, so a job scored in a fleet batch equals the per-job call bitwise
+on each backend.
+
+Not ported yet: chunked costing.
 """
 from __future__ import annotations
 
@@ -519,6 +524,19 @@ def _score_replace_torch(scanc_c, cov, seek, ridr, size_c, beta_c,
     return q_w @ new_q
 
 
+def _own_path_torch(cov, seek, ridr, size_c, beta_c, ncq, is_sec):
+    """A candidate's own path under the current clustered layout: its
+    covering or seek + RID cost where it is secondary, inf where it is
+    clustered.  Elementwise over broadcast shapes: (m,) candidates with
+    scalar layout terms per job, or (J, m) with (J, 1) across jobs, so
+    per-job and stacked costing share one float32 op sequence."""
+    npag = _pages_f32(size_c)
+    rid = (cm.T_IO_RAND * torch.minimum(ridr, npag)
+           + cm.CPU_ROW * ridr + beta_c * ridr * ncq)
+    return torch.where(is_sec != 0, torch.minimum(cov, seek + rid),
+                       torch.full_like(cov, _INF))
+
+
 def _cand_costs_torch(scan_l, cov_s, seek_s, ridr_s, size_l, beta_l,
                       cov_k, seek_k, ridr_k, size_c, beta_c, ncq, is_sec):
     """Per-query candidate costing (one query row, m candidates).  Each
@@ -535,12 +553,20 @@ def _cand_costs_torch(scan_l, cov_s, seek_s, ridr_s, size_l, beta_l,
                                   seek_s[:, None] + rid_sl).amin(dim=0)
     else:
         base_path = torch.full_like(scan_l, _INF)
-    npag_c = _pages_f32(size_c)
-    rid_k = (cm.T_IO_RAND * torch.minimum(ridr_k, npag_c)
-             + cm.CPU_ROW * ridr_k + beta_c * ridr_k * ncq)       # (m,)
-    own = torch.where(is_sec != 0, torch.minimum(cov_k, seek_k + rid_k),
-                      torch.full_like(cov_k, _INF))
+    own = _own_path_torch(cov_k, seek_k, ridr_k, size_c, beta_c, ncq,
+                          is_sec)
     return torch.minimum(torch.minimum(scan_l, base_path), own)
+
+
+def _cand_costs_stacked_torch(scan_l, cov, seek, ridr, size_c, beta_c, ncq,
+                              is_sec):
+    """Cross-job stacked twin of `_cand_costs_torch` for secondary-free
+    bases: (J, m) candidate rows, (J, 1) per-job layout terms.  The own
+    path comes from the same `_own_path_torch`; the minimum with the
+    empty base path (inf) is left out, which is exact for every value of
+    scan_l."""
+    return torch.minimum(scan_l, _own_path_torch(cov, seek, ridr, size_c,
+                                                 beta_c, ncq, is_sec))
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -707,6 +733,33 @@ class CostEngine:
             out[k] = c
         return out
 
+    def cost_job_arrays(self, query: Query, base: Configuration,
+                        cands: Sequence[IndexDef]) -> Dict[str, object]:
+        """Gather one (query, base, candidates) costing job as flat
+        per-candidate arrays for cross-job stacking (the fleet's cost
+        phase).  Requires a secondary-free `base` (the advisor's
+        `base_configuration`), which makes the job purely elementwise;
+        `batched_candidate_costs` then scores many jobs at once with
+        exactly the per-job `candidate_query_costs` arithmetic."""
+        table = query.table
+        blk = self.blocks[table]
+        self.register(cands)
+        c_id, sec_ids = self.split(base, table)
+        if sec_ids:
+            raise ValueError("cost_job_arrays requires a secondary-free "
+                             "base configuration")
+        qi = blk.query_row(query)
+        ids = np.array([blk.id_of(i) for i in cands], dtype=np.int64)
+        is_sec = np.array([not i.clustered for i in cands])
+        cl_ids = np.where(is_sec, c_id, ids)  # layout each k runs under
+        return {
+            "scan_l": blk.scanc[qi, cl_ids], "cov": blk.cov[qi, ids],
+            "seek": blk.seek[qi, ids], "ridr": blk.ridr[qi, ids],
+            "size_c": float(blk.size[c_id]),
+            "beta_c": float(blk.beta[c_id]),
+            "ncq": float(blk.ncols_used[qi]), "is_sec": is_sec,
+        }
+
     # -- greedy-step scoring ---------------------------------------------
     def score_add_secondary(self, table: str, c_id: int, cur_q: np.ndarray,
                             cand_ids: Sequence[int]
@@ -769,3 +822,51 @@ class CostEngine:
         else:
             upd_c = np.zeros(len(cids))
         return q_tot, upd_c
+
+
+# ---------------------------------------------------------------------------
+# Cross-tenant stacked candidate costing (the fleet's cost phase)
+# ---------------------------------------------------------------------------
+
+def batched_candidate_costs(jobs: Sequence[Dict[str, object]],
+                            device: Optional[torch.device] = None
+                            ) -> np.ndarray:
+    """Score many `CostEngine.cost_job_arrays` jobs in one stacked
+    (job x candidate) pass.
+
+    Per element this is exactly the `candidate_query_costs` arithmetic for
+    a secondary-free base: with no device the same float64 NumPy ufunc
+    sequence, with a torch device the float32 op sequence of
+    `_cand_costs_torch` (`_cand_costs_stacked_torch`, the stacked arrays
+    copied to the device in one transfer and the result read back in
+    one).  So a job scored in a fleet batch equals the per-job call
+    bitwise.  Returns a (len(jobs), max_m) float64 array; row i's first
+    len(jobs[i]["cov"]) entries are live, the pad tail is meaningless.
+    """
+    J = len(jobs)
+    m = max((len(j["cov"]) for j in jobs), default=0)
+    if not J or not m:
+        return np.zeros((J, m))
+
+    def stack(key, fill):
+        out = np.full((J, m), fill)
+        for i, j in enumerate(jobs):
+            out[i, :len(j[key])] = j[key]
+        return out
+
+    scan_l = stack("scan_l", 0.0)
+    cov = stack("cov", np.inf)
+    seek = stack("seek", np.inf)
+    ridr = stack("ridr", 0.0)
+    is_sec = stack("is_sec", False)
+    size_c = np.array([j["size_c"] for j in jobs])[:, None]
+    beta_c = np.array([j["beta_c"] for j in jobs])[:, None]
+    ncq = np.array([j["ncq"] for j in jobs])[:, None]
+    if device is not None:
+        return _host(_cand_costs_stacked_torch(*to_device(
+            [scan_l, cov, seek, ridr, size_c, beta_c, ncq, is_sec],
+            np.float32, device)))
+    rid = cm.rid_lookup_cost(ridr, size_c, ncols_used=ncq,
+                             beta_coef=beta_c)
+    own = np.where(is_sec, np.minimum(cov, seek + rid), np.inf)
+    return np.minimum(scan_l, own)

@@ -22,10 +22,10 @@ Sites (where the stack calls `check()` / `fires()`):
   identically.
 * ``apply_delta``    -- top of `AdvisorSession.apply`, before any state is
   touched (so a faulted delta is cleanly retryable).
-* ``prefetch``, ``disk_write``, ``fsync``, ``bit_flip`` -- the fleet's
-  prefetch and the durable store's write path.  They stay registered so
-  every site keeps its stream, but nothing in this package fires them
-  yet.
+* ``prefetch``       -- `AdvisorFleetService._prefetch`, before each
+  union-batched SampleCF call.
+* ``disk_write``, ``fsync``, ``bit_flip`` -- `DurableStore.log_delta`: a
+  torn append, a failed group commit, a silently flipped payload bit.
 
 Site streams are seeded independently per site -- (seed, crc32(site)) --
 so enabling one site never shifts another's draws.

@@ -34,7 +34,9 @@ and no sort; the walk's feasibility (p and feasible) bit-equal to
 `prob_within` on the walk's own final RVs and to the plain walk.  An
 online `AdvisorSession` on the card recommends `==` a fresh cuda
 `DesignAdvisor` after each round, with one walk per re-planned round and
-no launch on a reweight-only round.
+no launch on a reweight-only round; a fleet of three tenants on the card
+recommends `==` fresh cuda runs, and its stacked cost phase is bit-equal
+to per-job costing on the card.
 """
 import numpy as np
 import pytest
@@ -924,3 +926,91 @@ def test_cuda_session_rounds_equal_fresh_recommend(cuda):
                      "n_sampled", "n_deduced", "estimation_cost_pages",
                      "pool_size", "candidate_count"):
             assert getattr(got, name) == getattr(want, name), name
+
+
+@pytest.mark.cuda
+def test_cuda_fleet_rounds_equal_fresh_recommend(cuda):
+    """A 3-tenant fleet on the card over two rounds of one delta and one
+    recommend a tenant: every recommendation `==` a fresh cuda
+    recommend; the shared prefetch launches the codec kernels, each
+    re-planned tenant walks, and the stacked cost phase feeds every
+    recommend (no per-record fused_score or prob_within launch)."""
+    import dataclasses
+    from repro_torch import core as pt
+    from repro_torch.serve.advisor_service import (AdvisorFleetService,
+                                                   FleetConfig)
+    schema = pt.make_tpch_like(scale=0.1, z=0, seed=0)
+    opt = pt.AdvisorOptions(backend="torch", device="cuda")
+    fleet = AdvisorFleetService(FleetConfig(slots=3))
+    wls = {}
+    for i in range(3):
+        tid = f"t{i}"
+        wl = pt.make_scaled_workload(schema, n_statements=12, seed=60 + i)
+        wls[tid] = dataclasses.replace(wl, statements=[
+            dataclasses.replace(s, name=f"{tid}_{s.name}")
+            for s in wl.statements])
+        fleet.register_tenant(tid, wls[tid], opt)
+    assert fleet.tenants["t0"].group.engine.device == cuda
+    fleet_launches = {}
+    for rnd in range(2):
+        before = launch_counts()
+        tks = {}
+        for i, tid in enumerate(wls):
+            extra = pt.make_scaled_workload(schema, n_statements=2,
+                                            seed=500 + 10 * rnd + i)
+            d = pt.WorkloadDelta(added=tuple(
+                dataclasses.replace(s, name=f"{tid}_r{rnd}_{s.name}")
+                for s in extra.statements))
+            fleet.submit_delta(tid, d)
+            wls[tid] = wls[tid].apply_delta(d)
+            tks[tid] = fleet.submit_recommend(tid, 2e6)
+        fleet.run_until_drained()
+        after = launch_counts()
+        d = {k: after[k] - before[k] for k in after}
+        for k, v in d.items():
+            fleet_launches[k] = fleet_launches.get(k, 0) + v
+        assert 1 <= d["planner_walk"] <= 3
+        assert d["fused_score"] == d["prob_within"] == 0
+        for tid, tk in tks.items():
+            got = tk.result()
+            assert tk.prefetch_error is None, (rnd, tid, tk.prefetch_error)
+            want = pt.DesignAdvisor(wls[tid], opt).recommend(2e6)
+            for name in ("config", "cost", "used_bytes", "base_cost",
+                         "n_sampled", "n_deduced", "estimation_cost_pages",
+                         "pool_size", "candidate_count"):
+                assert getattr(got, name) == getattr(want, name), (rnd, tid)
+    assert fleet_launches["ns_bytes"] > 0
+    assert fleet_launches["ldict_bytes"] > 0
+    st = fleet.stats
+    consumed = sum(t.session.cost_prefetch_consumed
+                   for t in fleet.tenants.values())
+    assert consumed == st["cost_prefetch_jobs"] > 0
+    assert st["prefetch_batches"] > 0
+    # no fault is injected: no prefetch fails, one stacked cost batch a round
+    assert st["prefetch_failures"] == 0
+    assert st["cost_prefetch_batches"] == 2
+
+
+@pytest.mark.cuda
+def test_cuda_stacked_costs_bitwise_equal_per_job(cuda):
+    """`batched_candidate_costs` on the card: every row bit-equal to the
+    job's per-job `candidate_query_costs` on the card (the same float32
+    op sequence; a (J, m) broadcast against the per-job (m,) call)."""
+    from repro_torch import core as pt
+    from repro_torch.core import candidates as cand
+    from repro_torch.core.cost_engine import batched_candidate_costs
+    schema = pt.make_tpch_like(scale=0.2, z=0, seed=0)
+    wl = pt.make_tpch_workload(schema, insert_weight=0.1)
+    adv = pt.DesignAdvisor(wl, pt.AdvisorOptions(backend="numpy"))
+    base = pt.base_configuration(schema)
+    eng = pt.CostEngine(wl, adv.sizes, device=cuda)
+    jobs, per_job = [], []
+    for q in wl.queries():
+        raw = cand.syntactically_relevant(q, schema.tables[q.table])
+        raw = cand.expand_with_compression(raw, ("NS", "LDICT"))
+        adv.estimate_sizes(raw)
+        jobs.append(eng.cost_job_arrays(q, base, raw))
+        per_job.append(eng.candidate_query_costs(q, base, raw))
+    costs = batched_candidate_costs(jobs, device=cuda)
+    for i, want in enumerate(per_job):
+        np.testing.assert_array_equal(costs[i, :len(want)], want)
