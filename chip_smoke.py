@@ -5,7 +5,7 @@ serving and LM training.
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught), run in the order
-1, 2, 3, 3b, 3c, 3d, 4, 5, 4b, 6, 4c:
+1, 2, 3, 3b, 3c, 3d, 3e, 4, 5, 4b, 6, 4c, 6f:
   1. print the card (nvidia-smi name, power limit) and build the eighteen
      hand-written kernels from the sources under src/repro_torch/kernels/
      (four libraries, one nvcc per source, all started together);
@@ -117,7 +117,31 @@ Phases (any failure exits non-zero; nothing is caught), run in the order
      tensors beside their summed bytes bound, 201 single calls and 201
      one-call multiplies; the wire's whole step of quantize (one grouped
      launch per bucket) beside its summed bytes bound and 201 single
-     calls; the single dequantize call's host microseconds by part.
+     calls; the single dequantize call's host microseconds by part;
+  6f. the training checkpoint at 6c's configuration (TinyLlama-1.1B,
+     batch 4 x seq 2048, 10 GB: q8 moments and the q8 wire), every earlier
+     trainer freed, the launch counters zeroed just before and read just
+     after: T0 trains 6 steps without a checkpoint; T1 trains 3 with a
+     checkpoint directory (only the end-of-run save, keep_last_k 1) and is
+     dropped; its losses and parameters against T0's first 3 are the
+     determinism baseline (bitwise, or the spread printed); T2, a new
+     Trainer on the directory, starts at step 3 with every parameter,
+     moment and step tensor bit-equal to T1's at its save, and its 3 steps
+     give T0's last 3 losses and final parameters (bitwise when the
+     baseline is, else within its spread); a q8+zlib save of T2's
+     parameters (one grouped quantize launch per group_capacity()
+     tensors) restored into a fresh model on the card (as many grouped
+     dequantize launches), each tensor bit-equal to the plain dequantize
+     of the plain quantize; phase 6e's depth-2 model after one q8 step:
+     its q8+zlib checkpoint from the card byte-identical to its CPU
+     copy's; a byte flipped in the smallest leaf file makes restore raise
+     a checksum IOError; the training launcher twice on one directory (4
+     steps, then 2 from step 4).  Prints each save's seconds (snapshot to
+     host, encode, write + fsync), each restore's, raw and stored bytes,
+     threads, os.cpu_count(), the disk's free bytes, zlib's one-thread
+     rates on one layer's mlp.wi at levels 1 and 6, peak device memory of
+     T1 and T2 and the phase's seconds; fails with less than 3x the
+     state's raw bytes free.
 
 Prints the per-phase wall times, launch counts, kernel times beside their
 bounds, peak device memory, a JSON line of kernel records, the card line,
@@ -215,6 +239,13 @@ KERNEL_FAMILIES = (
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_PARAM_ATOL = 1e-5
 TRAIN_FAR_SHARE = 1e-3
+# phase 6f: T1 runs the first CKPT_STEPS[0] steps and saves, T2 resumes
+# for CKPT_STEPS[1] more; checkpoint_every beyond the run (only the
+# end-of-run save fires); the disk must hold this many times the state's
+# raw bytes (the old checkpoint and the new .tmp at once, with room)
+CKPT_STEPS = (3, 3)
+CKPT_EVERY = 1_000_000
+DISK_FACTOR = 3
 FUSED_EXEMPT = ("fused_score is on no advisor path: the planner walks each "
                 "plan in one planner_walk launch; the per-record kernel "
                 "scores each record of planner_walk_plain, and is held "
@@ -266,6 +297,312 @@ def bit_equal(a, b) -> bool:
     if as_int is not None:
         a, b = a.contiguous().view(as_int), b.contiguous().view(as_int)
     return bool(torch.equal(a, b))
+
+
+def host_copy(params, opt_state=None):
+    """{checkpoint key: [CPU copies]} of a model's parameters and, where
+    given, its optimizer state."""
+    from repro_torch.models.interop import checkpoint_leaves
+    return {k: [t.detach().to("cpu", copy=True) for t in ts]
+            for k, (_, ts) in checkpoint_leaves(params, opt_state).items()}
+
+
+def state_gap(a, b):
+    """(tensors not bit-equal, largest absolute difference) between two
+    `host_copy` results of the same keys."""
+    import torch
+    if list(a) != list(b):
+        fail(f"phase 6f: the states hold different leaves: {list(a)[:4]} "
+             f"against {list(b)[:4]}")
+    unequal, gap = 0, 0.0
+    for k in a:
+        for x, y in zip(a[k], b[k]):
+            if not bit_equal(x, y):
+                unequal += 1
+                gap = max(gap, float((x.to(torch.float64) -
+                                      y.to(torch.float64)).abs().max()))
+    return unequal, gap
+
+
+def dir_bytes(path):
+    return sum(p.stat().st_size for p in Path(path).rglob("*")
+               if p.is_file())
+
+
+def phase_6f(lm, dev):
+    """Save, kill and resume TinyLlama-1.1B training at phase 6c's
+    configuration (10 GB budget: q8 moments and the q8 wire), held to an
+    uninterrupted run; a q8 save and restore through the grouped kernels;
+    a card-written q8 checkpoint byte-identical to the CPU's; a damaged
+    leaf; the launcher resuming.  The launch counters are zeroed just
+    before and read just after; returns them."""
+    import os
+    import shutil
+    import tempfile
+    import zlib
+
+    import torch
+    from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.kernels import (launch_counts, quantize_blockwise as qb,
+                                     reset_launch_counts)
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import model as MD
+    from repro_torch.models.interop import checkpoint_leaves
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import step as train_step
+    from repro_torch.train.loop import TrainConfig, Trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 6f: device memory still allocated from earlier phases "
+          f"{torch.cuda.memory_allocated(dev)} B")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t_phase = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_6f_"))
+    try:
+        def config(steps, ckdir=None):
+            return TrainConfig(
+                steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR,
+                hbm_budget_bytes=TRAIN_BUDGETS[1], seed=0, log_every=1,
+                checkpoint_dir=ckdir, checkpoint_every=CKPT_EVERY,
+                keep_last_k=1)
+
+        def save_line(label, mgr):
+            s = mgr.last_save
+            return (f"phase 6f: {label}: {mgr.save_seconds + s['snapshot_s']:.3f}"
+                    f" s (snapshot to host {s['snapshot_s']:.3f}, encode "
+                    f"{s['encode_s']:.3f}, write + fsync {s['write_s']:.3f})"
+                    f"; raw {s['raw_bytes']} B, stored {s['stored_bytes']} B,"
+                    f" ratio {s['stored_bytes'] / s['raw_bytes']:.4f}; "
+                    f"{mgr.threads} threads")
+
+        # T0: the uninterrupted run, its state at step 3 and at the end
+        t0_ = Trainer(lm, config(CKPT_STEPS[0] + CKPT_STEPS[1]), device=dev)
+        if t0_.opt_cfg.state_codec != "q8":
+            fail("phase 6f: the 10 GB plan does not compress the moments")
+        raw_state = sum(t.numel() * t.element_size() for _, ts in
+                        checkpoint_leaves(t0_.params,
+                                          t0_.opt_state).values()
+                        for t in ts)
+        free = shutil.disk_usage(root).free
+        print(f"phase 6f: checkpoint directory {root}: {free} B free before "
+              f"the phase; the state holds {raw_state} B raw; "
+              f"os.cpu_count() {os.cpu_count()}")
+        if free < DISK_FACTOR * raw_state:
+            fail(f"phase 6f: {free} B free under {root}, less than "
+                 f"{DISK_FACTOR} x the state's {raw_state} raw bytes (a "
+                 "save holds the old checkpoint and the new .tmp at once)")
+        # host zlib rates on the state's largest float32 leaf, one thread
+        sample = t0_.params.layers[0]["mlp"]["wi"].detach().cpu().numpy()
+        rates = {}
+        for level in (1, 6):
+            t_ = time.perf_counter()
+            z = zlib.compress(sample, level)
+            took = time.perf_counter() - t_
+            t_ = time.perf_counter()
+            zlib.decompress(z)
+            rates[level] = (sample.nbytes / took / 1e6, len(z) / sample.nbytes,
+                            sample.nbytes / (time.perf_counter() - t_) / 1e6)
+        print("phase 6f: zlib on one layer's mlp.wi at init (" +
+              f"{sample.nbytes} B float32), one thread: " + "; ".join(
+                  f"level {lv}: compress {r[0]:.1f} MB/s, ratio {r[1]:.4f}, "
+                  f"decompress {r[2]:.1f} MB/s" for lv, r in rates.items()))
+        del sample, z
+        t0_.run(CKPT_STEPS[0])
+        at3 = host_copy(t0_.params)
+        t0_.run(CKPT_STEPS[1])
+        whole_end = host_copy(t0_.params)
+        whole = [h["loss"] for h in t0_.history]
+        del t0_
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # T1: the same run with a checkpoint directory, stopped after 3
+        ck_a = root / "run"
+        torch.cuda.reset_peak_memory_stats(dev)
+        t1 = Trainer(lm, config(CKPT_STEPS[0], str(ck_a)), device=dev)
+        t1.run()
+        torch.cuda.synchronize()
+        peak1 = torch.cuda.max_memory_allocated(dev)
+        print(save_line(f"T1's save at step {t1.step}", t1.ckpt))
+        saved = host_copy(t1.params, t1.opt_state)
+        first = [h["loss"] for h in t1.history]
+        del t1
+        gc.collect()
+        torch.cuda.empty_cache()
+        loss_spread = max(abs(a - b) for a, b in zip(first, whole))
+        n_unequal, param_spread = state_gap(
+            {k: v for k, v in saved.items() if k.startswith("params/")},
+            at3)
+        bitwise = first == whole[:CKPT_STEPS[0]] and n_unequal == 0
+        print(f"phase 6f: determinism baseline: T1's losses {first} against "
+              f"T0's first {CKPT_STEPS[0]} {whole[:CKPT_STEPS[0]]}: "
+              + ("bitwise equal, parameters too" if bitwise else
+                 f"apart by up to {loss_spread!r} (losses) and "
+                 f"{param_spread!r} ({n_unequal} parameter tensors differ)"))
+
+        # T2: a new trainer on the same directory resumes at step 3
+        torch.cuda.reset_peak_memory_stats(dev)
+        t_ = time.perf_counter()
+        t2 = Trainer(lm, config(CKPT_STEPS[1], str(ck_a)), device=dev)
+        built = time.perf_counter() - t_
+        if t2.step != CKPT_STEPS[0]:
+            fail(f"phase 6f: T2 starts at step {t2.step}, not "
+                 f"{CKPT_STEPS[0]}")
+        n_bad, gap = state_gap(host_copy(t2.params, t2.opt_state), saved)
+        if n_bad:
+            fail(f"phase 6f: {n_bad} restored tensors differ from T1's at its"
+                 f" save, by up to {gap}")
+        print(f"phase 6f: T2 restored step {t2.step}: every one of "
+              f"{sum(len(v) for v in saved.values())} parameter, moment and "
+              f"step tensors bit-equal to T1's at its save; restore "
+              f"{t2.ckpt.restore_seconds:.3f} s (the trainer built in "
+              f"{built:.3f} s)")
+        del saved
+        t2.run()
+        torch.cuda.synchronize()
+        peak2 = torch.cuda.max_memory_allocated(dev)
+        print(save_line(f"T2's save at step {t2.step}", t2.ckpt))
+        resumed = [h["loss"] for h in t2.history]
+        n_bad, gap = state_gap(host_copy(t2.params), whole_end)
+        loss_gap = max(abs(a - b) for a, b in
+                       zip(resumed, whole[CKPT_STEPS[0]:]))
+        if bitwise:
+            if resumed != whole[CKPT_STEPS[0]:] or n_bad:
+                fail(f"phase 6f: resumed losses {resumed} against T0's "
+                     f"{whole[CKPT_STEPS[0]:]}; {n_bad} final parameter "
+                     f"tensors differ (by up to {gap}) with a bitwise "
+                     "determinism baseline")
+        elif loss_gap > loss_spread or gap > param_spread:
+            fail(f"phase 6f: resumed losses {resumed} against T0's "
+                 f"{whole[CKPT_STEPS[0]:]} (apart by {loss_gap!r}), final "
+                 f"parameters apart by {gap!r}: beyond the baseline's "
+                 f"{loss_spread!r} and {param_spread!r}")
+        print(f"phase 6f: T2's losses {resumed} against T0's "
+              f"{whole[CKPT_STEPS[0]:]}: "
+              + ("bitwise equal, and its final parameters bit-equal to "
+                 "T0's" if bitwise else
+                 f"apart by {loss_gap!r}, final parameters by {gap!r} "
+                 f"({n_bad} tensors), within the baseline's spread")
+              + f"; peak device memory T1 {peak1} B, T2 {peak2} B")
+        del at3, whole_end
+
+        # a q8 save of T2's parameters and its restore into a fresh model
+        mgr_q8 = CheckpointManager(CheckpointConfig(
+            str(root / "q8"), keep_last_k=1, params_codec="q8+zlib"))
+        names = [n for n, _ in t2.params.named_parameters()]
+        want_launches = -(-len(names) // qb.group_capacity())
+        before = launch_counts()
+        mgr_q8.save(t2.step, t2.params)
+        q_launches = (launch_counts()["quantize_blockwise"] -
+                      before["quantize_blockwise"])
+        fresh = MD.init_params(torch.Generator(dev).manual_seed(1), lm,
+                               device=dev)
+        before = launch_counts()
+        mgr_q8.restore_into(fresh)
+        torch.cuda.synchronize()
+        dq_launches = (launch_counts()["dequantize_blockwise"] -
+                       before["dequantize_blockwise"])
+        print(save_line("q8+zlib save of T2's parameters", mgr_q8))
+        print(f"phase 6f: q8+zlib restore into a fresh CUDA model "
+              f"{mgr_q8.restore_seconds:.3f} s; {q_launches} quantize_blockwise"
+              f" and {dq_launches} dequantize_blockwise launches for "
+              f"{len(names)} tensors (group capacity {qb.group_capacity()})")
+        if q_launches != want_launches or dq_launches != want_launches:
+            fail(f"phase 6f: the q8 save made {q_launches} quantize and its "
+                 f"restore {dq_launches} dequantize launches, not "
+                 f"{want_launches} each")
+        for (name, p_), f_ in zip(t2.params.named_parameters(),
+                                  fresh.parameters()):
+            want = qb.dequantize_blockwise_plain(
+                *qb.quantize_blockwise_plain(p_))
+            if not bit_equal(f_.detach(), want):
+                fail(f"phase 6f: the q8 restore of {name} != plain "
+                     "dequantize(quantize(p)) on the card")
+        del fresh, want, t2
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the q8 checkpoint of phase 6e's model: the card's bytes are the
+        # CPU's
+        lm2 = dataclasses.replace(lm, name=f"{LM_ARCH}-depth2", n_layers=2)
+        opt2 = AdamWConfig(lr=TRAIN_LR, state_codec="q8")
+        p_card = MD.init_params(torch.Generator(dev).manual_seed(0), lm2,
+                                device=dev)
+        st_card = adamw_init(p_card, opt2)
+        step2 = train_step.make_train_step(lm2, opt2, remat=True,
+                                           grad_compression="q8",
+                                           attn_impl="chunked")
+        step2(p_card, st_card, batch_at(DataConfig(
+            vocab=lm.vocab, batch=1, seq=TRAIN_SEQ, seed=0), 0, dev))
+        p_cpu = MD.init_params(torch.Generator().manual_seed(0), lm2,
+                               device="cpu")
+        p_cpu.load_state_dict(p_card.state_dict())
+        st_cpu = {"step": st_card["step"].cpu(),
+                  "moments": {n: {k: v.cpu() for k, v in m.items()}
+                              for n, m in st_card["moments"].items()}}
+        for where, p_, st_ in (("card", p_card, st_card),
+                               ("cpu", p_cpu, st_cpu)):
+            CheckpointManager(CheckpointConfig(
+                str(root / f"depth2_{where}"),
+                params_codec="q8+zlib")).save(1, p_, st_)
+        card_dir, cpu_dir = (root / f"depth2_{w}" / "step_00000001"
+                             for w in ("card", "cpu"))
+        files = sorted(p.name for p in card_dir.iterdir())
+        if files != sorted(p.name for p in cpu_dir.iterdir()):
+            fail("phase 6f: the card's and the CPU's depth-2 q8 checkpoints "
+                 "hold different files")
+        differ = [f for f in files if (card_dir / f).read_bytes() !=
+                  (cpu_dir / f).read_bytes()]
+        if differ:
+            fail(f"phase 6f: the depth-2 q8 checkpoint from the card differs "
+                 f"from the CPU's in {differ}")
+        print(f"phase 6f: depth-2 width-{lm2.d_model} model after one q8 "
+              f"step on the card: its q8+zlib checkpoint ({len(files)} files,"
+              f" {dir_bytes(card_dir)} B) byte-identical to the one written "
+              f"from its CPU copy")
+        del p_card, p_cpu, st_card, st_cpu, step2
+
+        # a damaged leaf: the smallest file of the run's checkpoint
+        last = ck_a / f"step_{CKPT_STEPS[0] + CKPT_STEPS[1]:08d}"
+        leaf = min(last.glob("leaf_*.bin"), key=lambda p: p.stat().st_size)
+        raw = bytearray(leaf.read_bytes())
+        raw[len(raw) // 2] ^= 0x01
+        leaf.write_bytes(bytes(raw))
+        t_ = time.perf_counter()
+        try:
+            CheckpointManager(CheckpointConfig(str(ck_a))).restore()
+        except IOError as e:
+            if "checksum" not in str(e):
+                raise
+            print(f"phase 6f: a byte flipped in {leaf.name} ({len(raw)} B): "
+                  f"restore raised after {time.perf_counter() - t_:.3f} s: "
+                  f"{e}")
+        else:
+            fail(f"phase 6f: restore read {leaf} with a flipped byte")
+
+        # the launcher, twice on one directory
+        argv = ["--arch", LM_ARCH, "--checkpoint-dir", str(root / "launch")]
+        ta = launcher.main(argv + ["--steps", "4"])
+        tb = launcher.main(argv + ["--steps", "2"])
+        if (ta.step, tb.history[0]["step"], tb.step) != (4, 4, 6):
+            fail(f"phase 6f: the launcher ran to step {ta.step}, then from "
+                 f"{tb.history[0]['step']} to {tb.step}, not 4, 4 to 6")
+        print(f"phase 6f: the launcher ({ta.cfg.name}, {ta.device}) ran steps"
+              f" 0-3, then resumed at step 4 and ended at step 6")
+        del ta, tb
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    print(f"phase 6f: {time.perf_counter() - t_phase:.3f} s; launches "
+          f"{json.dumps(counts)}")
+    for k in ("quantize_blockwise", "dequantize_blockwise"):
+        if counts[k] == 0:
+            fail(f"phase 6f: no {k} launch")
+    return counts
 
 
 def main() -> int:
@@ -1337,10 +1674,6 @@ def main() -> int:
                         errors.append((name, e))
             setattr(fleet_, name, watched)
         return errors
-
-    def dir_bytes(path):
-        return sum(p.stat().st_size for p in Path(path).rglob("*")
-                   if p.is_file())
 
     # 3e-i: 16 tenants, no store; a delta and a recommend a tenant a round
     t0 = time.perf_counter()
@@ -2696,7 +3029,7 @@ def main() -> int:
           f"({qw_bound / qw_dev:.4f} of it in device time); the same "
           f"{len(wire_x)} tensors in single calls {qw_singles:.4f} ms of "
           f"device time")
-    del wire_x, q_buckets, q_p, s_p, x_
+    del wire_x, q_buckets, q_p, s_p, x_, q_, s_, b
 
     # where a single call's host microseconds go, at the (d_model,) norm
     # gradient: each part alone, enqueued 2,000 times (the raw launches
@@ -2735,8 +3068,13 @@ def main() -> int:
           f"{tuple(qn.shape)}, by part: " + ", ".join(
               f"{k} {v:.2f}" for k, v in host.items()))
     del wire6, by_shape, qn, sn, out_n, wire_all
+
+    # ---- phase 6f: save, kill and resume training at TinyLlama-1.1B -----
+    launches6f = phase_6f(lm, dev)
+
     dq_launches = {"6b": launches6b["dequantize_blockwise"],
-                   "6c": launches6c["dequantize_blockwise"]}
+                   "6c": launches6c["dequantize_blockwise"],
+                   "6f": launches6f["dequantize_blockwise"]}
     for c in dq_cases:
         lib = (f", one-call broadcast multiply {c['library_ms']:.4f} ms"
                if c["library_ms"] is not None else
@@ -2774,7 +3112,8 @@ def main() -> int:
     rec_q = next(r for r in records if r["name"] == "quantize_blockwise")
     rec_q["launches_by_phase"] = {
         "5": rec_q["launches"], "6b": launches6b["quantize_blockwise"],
-        "6c": launches6c["quantize_blockwise"]}
+        "6c": launches6c["quantize_blockwise"],
+        "6f": launches6f["quantize_blockwise"]}
     rec_q["launches"] = sum(rec_q["launches_by_phase"].values())
     rec_q["cases"] += q6_cases
     rec_q["wire_step"] = wire_q

@@ -1,1 +1,2 @@
-"""Launch-side constants of the port (`roofline.py`)."""
+"""Launch side of the port: the training launcher (`train`) and the H100
+constants of the roofline (`roofline.py`)."""

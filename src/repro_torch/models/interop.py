@@ -8,12 +8,14 @@ stacked along a leading axis (`params["layers"]["attn"]["wq"]` is
 NumPy arrays (for example `jax.tree.map(np.asarray, params)`), a JAX tree
 becomes the port's `UniformLM` with the same values and layouts, an AdamW
 state (float32 or q8 moments) the port's per-name state, and a
-`quantize_mlp` tree the port's quantized MLP; `params_to_numpy` goes the
-other way.  Only NumPy crosses between the packages.
+`quantize_mlp` tree the port's quantized MLP; `params_to_numpy` and
+`opt_state_to_numpy` go the other way, and `checkpoint_leaves` names the
+port's tensors by the JAX checkpoint's leaf keys.  Only NumPy crosses
+between the packages.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,26 +59,72 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig,
     return params
 
 
+def _put(tree: Dict, keys, value) -> None:
+    for key in keys[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[keys[-1]] = value
+
+
+def _jax_tree(named) -> Dict:
+    """(port name, NumPy array) pairs as a JAX-layout tree: "layers.<i>.x.y"
+    goes to tree["layers"]["x"]["y"], stacked along axis 0 in layer
+    order."""
+    out: Dict = {}
+    stacked: Dict = {}
+    for name, a in named:
+        parts = name.split(".")
+        if parts[0] == "layers":
+            stacked.setdefault(tuple(parts[2:]), []).append(a)
+        else:
+            _put(out, parts, a)
+    for keys, arrays in stacked.items():
+        _put(out, ("layers",) + keys, np.stack(arrays))
+    return out
+
+
 def params_to_numpy(params: UniformLM) -> Dict:
     """The port's parameters as a JAX-layout tree of NumPy arrays (layers
     stacked along axis 0), the inverse of `params_from_numpy`."""
-    out: Dict = {}
-    stacked: Dict = {}
+    return _jax_tree((name, p.detach().cpu().numpy())
+                     for name, p in params.named_parameters())
+
+
+def opt_state_to_numpy(state: Mapping, params: UniformLM) -> Dict:
+    """The port's AdamW state as the JAX `adamw_init` / `adamw_update`
+    state of NumPy arrays ("step" int32, "moments" a tree like the
+    parameters' with {"m", "v"} or {"m_q", "m_s", "v_q", "v_s"} leaves,
+    layers stacked along axis 0), the inverse of `opt_state_from_numpy`."""
+    moments = state["moments"]
+    return {"step": np.asarray(int(state["step"]), np.int32),
+            "moments": _jax_tree(
+                (f"{name}.{k}", t.detach().cpu().numpy())
+                for name, _ in params.named_parameters()
+                for k, t in moments[name].items())}
+
+
+def checkpoint_leaves(params: UniformLM, opt_state: Optional[Mapping] = None
+                      ) -> Dict[str, Tuple[bool, List[torch.Tensor]]]:
+    """The leaves of the JAX tree {"params": ..., "opt_state": ...} under
+    the keys the JAX checkpoint gives them ("params/layers/attn/wq",
+    "opt_state/moments/embed/m", "opt_state/step"), each as (stacked, the
+    port's tensors that make it): one tensor, or, stacked, one per layer
+    in layer order (the JAX leaf stacks them along axis 0)."""
+    out: Dict[str, Tuple[bool, List[torch.Tensor]]] = {}
+
+    def add(key: str, stacked: bool, t: torch.Tensor) -> None:
+        out.setdefault(key, (stacked, []))[1].append(t)
+
+    moments = None if opt_state is None else opt_state["moments"]
     for name, p in params.named_parameters():
         parts = name.split(".")
-        a = p.detach().cpu().numpy()
-        if parts[0] == "layers":
-            stacked.setdefault(tuple(parts[2:]), []).append(a)
-            continue
-        node = out
-        for key in parts[:-1]:
-            node = node.setdefault(key, {})
-        node[parts[-1]] = a
-    for keys, arrays in stacked.items():
-        node = out.setdefault("layers", {})
-        for key in keys[:-1]:
-            node = node.setdefault(key, {})
-        node[keys[-1]] = np.stack(arrays)
+        stacked = parts[0] == "layers"
+        path = "/".join(["layers"] + parts[2:] if stacked else parts)
+        add(f"params/{path}", stacked, p)
+        if moments is not None:
+            for k, t in moments[name].items():
+                add(f"opt_state/moments/{path}/{k}", stacked, t)
+    if opt_state is not None:
+        add("opt_state/step", False, opt_state["step"])
     return out
 
 

@@ -1,5 +1,7 @@
-"""Training loop.
+"""Fault-tolerant training loop.
 
+* checkpoint/restart: atomic compressed checkpoints (repro_torch.checkpoint),
+  auto-resume from the latest on construction;
 * straggler mitigation: per-step wall-time EMA; a step slower than
   `straggler_factor` x EMA is logged and counted -- the hook where a
   multi-host deployment would trigger re-sharding away from the slow host
@@ -8,12 +10,10 @@
   design advisor's LayoutPlan (the paper's technique driving the trainer).
 
 Counterpart of the JAX package's `train/loop.py` on one card (the plan is
-made for `n_chips = 1`).  Checkpointing waits for a decision on the
-checkpoint format: the JAX checkpoint stores integer leaves as
-`raw+zstd`, and the card's machine has no `zstandard` (ROADMAP.md Queue A
-item 11, `checkpoint/manager.py`), so a `checkpoint_dir` raises and
-`restore` is not here; `reshard` (elastic scaling) waits for the
-distribution slice (item 13).
+made for `n_chips = 1`).  Checkpoints take the port's default codecs
+(zlib; `checkpoint.manager`), and a trainer resumes from a checkpoint of
+the JAX package's as well.  `reshard` (elastic scaling) waits for the
+distribution slice (ROADMAP.md Queue A item 13).
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
+from ..checkpoint.manager import CheckpointConfig, CheckpointManager
 from ..data.pipeline import DataConfig, batch_at
 from ..design.advisor import plan_layout
 from ..device import resolve_device
@@ -38,7 +39,9 @@ class TrainConfig:
     batch: int = 8
     seq: int = 64
     lr: float = 3e-4
-    checkpoint_dir: Optional[str] = None   # anything but None raises
+    checkpoint_every: int = 50
+    checkpoint_dir: Optional[str] = None
+    keep_last_k: int = 2
     straggler_factor: float = 3.0
     # one H100's device memory; the JAX package's default is 16e9 (a TPU
     # v5e chip's HBM)
@@ -52,11 +55,6 @@ class Trainer:
     def __init__(self, cfg: ModelConfig, tc: TrainConfig,
                  on_straggler: Optional[Callable[[int, float], None]] = None,
                  device="cuda"):
-        if tc.checkpoint_dir is not None:
-            raise NotImplementedError(
-                "checkpointing is not ported yet (ROADMAP.md Queue A, item "
-                "11: checkpoint/manager.py; the JAX checkpoint format needs "
-                "zstandard, which the card's machine does not have)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.tc = tc
@@ -92,6 +90,24 @@ class Trainer:
         self.opt_state = adamw_init(self.params, self.opt_cfg)
         self.step = 0
 
+        self.ckpt: Optional[CheckpointManager] = None
+        if tc.checkpoint_dir:
+            self.ckpt = CheckpointManager(CheckpointConfig(
+                directory=tc.checkpoint_dir, keep_last_k=tc.keep_last_k))
+            if self.ckpt.latest_step() is not None:
+                self.restore()
+
+    # ------------------------------------------------------------------
+    def restore(self) -> None:
+        """Load the latest checkpoint into the parameters and optimizer
+        state, in place, and continue from its step."""
+        if self.ckpt is None:
+            raise ValueError("restore() needs TrainConfig.checkpoint_dir")
+        step, _, _, _ = self.ckpt.restore_into(self.params, self.opt_state)
+        self.step = step
+        print(f"[trainer] resumed from step {step}")
+
+    # ------------------------------------------------------------------
     def run(self, steps: Optional[int] = None) -> Dict[str, Any]:
         steps = steps if steps is not None else self.tc.steps
         ema = None
@@ -120,6 +136,14 @@ class Trainer:
                 print(f"[trainer] step {self.step:5d} loss {loss:.4f} "
                       f"({dt*1e3:.0f} ms)")
             self.step += 1
+            if (self.ckpt is not None and
+                    self.step % self.tc.checkpoint_every == 0):
+                self.ckpt.save(self.step, self.params, self.opt_state,
+                               extra={"loss": loss})
+        if self.ckpt is not None:
+            self.ckpt.save(self.step, self.params, self.opt_state,
+                           extra={"loss": self.history[-1]["loss"]})
+            self.ckpt.wait()
         return {"final_loss": self.history[-1]["loss"],
                 "first_loss": self.history[0]["loss"],
                 "stragglers": list(self.straggler_events)}

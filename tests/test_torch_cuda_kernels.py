@@ -36,7 +36,9 @@ online `AdvisorSession` on the card recommends `==` a fresh cuda
 `DesignAdvisor` after each round, with one walk per re-planned round and
 no launch on a reweight-only round; a fleet of three tenants on the card
 recommends `==` fresh cuda runs, and its stacked cost phase is bit-equal
-to per-job costing on the card.
+to per-job costing on the card.  A q8 checkpoint written from the card is
+byte-identical to its CPU copy's, and its restore on the card equals the
+plain dequantize of the plain quantize.
 """
 import numpy as np
 import pytest
@@ -831,6 +833,60 @@ def test_cuda_adamw_q8_one_launch_each_way_per_parameter(cuda):
             q_p, s_p = qb.quantize_blockwise_plain(t)
             assert torch.equal(q_p, mom[f"{name}_q"])
             assert torch.equal(s_p, mom[f"{name}_s"])
+
+
+@pytest.mark.cuda
+def test_cuda_q8_checkpoint_equals_the_cpu_copys(cuda, tmp_path):
+    """A q8+zlib checkpoint of a small model and its q8 AdamW state written
+    from the card is byte-identical to the one written from its CPU copy
+    (one grouped quantize launch), and a restore into templates on the
+    card equals the plain dequantize of the plain quantize (one grouped
+    dequantize launch)."""
+    from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
+    from repro_torch.models import model as MD
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    cfg = ModelConfig("odd", "dense", 2, 96, 4, 2, 200, 300, d_head=24)
+    params = MD.init_params(torch.Generator(cuda).manual_seed(0), cfg, cuda)
+    ocfg = AdamWConfig(lr=1e-2, state_codec="q8")
+    state = adamw_init(params, ocfg)
+    gen = torch.Generator(cuda).manual_seed(1)
+    adamw_update(params, {n: torch.randn(p.shape, generator=gen, device=cuda)
+                          for n, p in params.named_parameters()}, state, ocfg)
+    cpu = MD.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    cpu.load_state_dict(params.state_dict())
+    cpu_state = {"step": state["step"].cpu(),
+                 "moments": {n: {k: v.cpu() for k, v in m.items()}
+                             for n, m in state["moments"].items()}}
+    n_params = len(list(params.parameters()))
+    before = launch_counts()
+    for where, p, st in (("card", params, state), ("cpu", cpu, cpu_state)):
+        CheckpointManager(CheckpointConfig(str(tmp_path / where),
+                                           params_codec="q8+zlib")).save(
+            1, p, st)
+    assert launch_counts()["quantize_blockwise"] == \
+        before["quantize_blockwise"] + -(-n_params // qb.group_capacity())
+    card, host = (tmp_path / w / "step_00000001" for w in ("card", "cpu"))
+    names = sorted(f.name for f in card.iterdir())
+    assert names == sorted(f.name for f in host.iterdir())
+    for name in names:
+        assert (card / name).read_bytes() == (host / name).read_bytes(), name
+    fresh = MD.init_params(torch.Generator(cuda).manual_seed(2), cfg, cuda)
+    fresh_state = adamw_init(fresh, ocfg)
+    before = launch_counts()
+    CheckpointManager(CheckpointConfig(str(tmp_path / "cpu"))).restore_into(
+        fresh, fresh_state)
+    torch.cuda.synchronize()
+    assert launch_counts()["dequantize_blockwise"] == \
+        before["dequantize_blockwise"] + -(-n_params // qb.group_capacity())
+    for (name, p), f in zip(params.named_parameters(), fresh.parameters()):
+        want = qb.dequantize_blockwise_plain(*qb.quantize_blockwise_plain(p))
+        assert torch.equal(f.view(torch.int32), want.view(torch.int32)), name
+    for name, m in state["moments"].items():
+        for k, t in m.items():
+            assert torch.equal(fresh_state["moments"][name][k], t), (name, k)
+    assert fresh_state["step"].device == cuda
+    assert int(fresh_state["step"]) == 1
 
 
 def no_sort(monkeypatch):

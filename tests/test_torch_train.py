@@ -417,12 +417,6 @@ def test_trainer_straggler_hook():
     assert t.straggler_events == events == [2, 3, 4, 5]
 
 
-def test_trainer_checkpoint_dir_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="zstandard"):
-        TLOOP.Trainer(port_cfg(TINY), TLOOP.TrainConfig(
-            checkpoint_dir=str(tmp_path)), device="cpu")
-
-
 def test_training_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("the CPU-only behaviour; the card runs chip_smoke.py")
