@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one GPU, end to end: the advisor, LM
-serving and LM training.
+serving and LM training, and every model family.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught), run in the order
-1, 2, 3, 3b, 3c, 3d, 3e, 4, 5, 4b, 6, 4c, 6f:
+1, 2, 3, 3b, 3c, 3d, 3e, 4, 5, 4b, 6, 4c, 6f, 7:
   1. print the card (nvidia-smi name, power limit) and build the eighteen
      hand-written kernels from the sources under src/repro_torch/kernels/
      (four libraries, one nvcc per source, all started together);
@@ -141,7 +141,28 @@ Phases (any failure exits non-zero; nothing is caught), run in the order
      threads, os.cpu_count(), the disk's free bytes, zlib's one-thread
      rates on one layer's mlp.wi at levels 1 and 6, peak device memory of
      T1 and T2 and the phase's seconds; fails with less than 3x the
-     state's raw bytes free.
+     state's raw bytes free;
+  7. the remaining model families (`phase_7`, module level like 6f), in
+     float32 with weights from init_params (seed 0), every earlier model
+     freed: 7a granite-moe-3b-a800m at full size (32 layers, 40 experts
+     top-8) serving phase 5's 8 requests (ServeEngine(batch_slots=4,
+     max_len=256), float32 KV): generated tokens/s, peak device memory, a
+     second run's tokens equal, the kept share of the expert assignments
+     per decode call (a forward pre-hook per MoE layer); 7b rwkv6-7b at
+     full size, freed 7a first: the same run, request 0 alone equal to
+     the crowd's, the engine's logits against `forward` within
+     LOGITS_ATOL, `forward`'s seconds over 4 x 64 tokens; 7c
+     granite-moe-3b-a800m, rwkv6-7b, pixtral-12b and musicgen-medium at
+     full width and depth 2, card against CPU (a copy of the card's
+     weights): `forward` over a `batch_at` batch (the stub frontends'
+     embeddings in float32) and 8 `decode_step`s with `active` masks and
+     a `reset_slot`, logits and serving state within rtol and atol
+     FAMILY_TOL, the MoE routing (expert picks, keep masks) equal but
+     for near-ties within ROUTE_GAP (counted and printed, gaps too); 7d
+     jamba-1.5-large-398b's smoke configuration the same way, and its
+     Mamba block alone at d_model 8192 (a 64-token prefill at B = 4,
+     then 8 decode steps from the carried conv and ssm state), card
+     against CPU; prints the phase's seconds.
 
 Prints the per-phase wall times, launch counts, kernel times beside their
 bounds, peak device memory, a JSON line of kernel records, the card line,
@@ -246,6 +267,26 @@ TRAIN_FAR_SHARE = 1e-3
 CKPT_STEPS = (3, 3)
 CKPT_EVERY = 1_000_000
 DISK_FACTOR = 3
+# phase 7: the remaining model families.  7a and 7b serve the two that
+# fit one card in float32 at full size; 7c holds the card to the CPU at
+# full width and depth 2 (phase 6e's method) in float32 at the CPU tests'
+# tolerances; 7d the hybrid at its smoke size and its Mamba block alone at
+# Jamba's width
+MOE_ARCH, RWKV_ARCH, HYBRID_ARCH = ("granite-moe-3b-a800m", "rwkv6-7b",
+                                    "jamba-1.5-large-398b")
+WIDE_ARCHS = (MOE_ARCH, RWKV_ARCH, "pixtral-12b", "musicgen-medium")
+FAMILY_TOL = 1e-4                # 7c / 7d card vs CPU, rtol and atol
+# a card-vs-CPU routing difference is a near-tie, not a fault, only where
+# the CPU's router logits of the two experts are this close
+ROUTE_GAP = 1e-5
+# an RWKV head whose WKV output's variance is below this at its group norm
+# (100x the norm's eps) sits where the norm amplifies float32 rounding 10x
+# and more (up to 1 / sqrt(eps)); the first token's output is rank one, so
+# such heads occur there (PERF.md §6, PR 24)
+GN_VAR = 1e-3
+FAMILY_BATCH, FAMILY_SEQ, FAMILY_DECODES = 4, 16, 8
+FWD_SEQ = 64                     # 7b: forward timed over 4 x 64 tokens
+MAMBA_BATCH, MAMBA_PREFILL = 4, 64
 FUSED_EXEMPT = ("fused_score is on no advisor path: the planner walks each "
                 "plan in one planner_walk launch; the per-record kernel "
                 "scores each record of planner_walk_plain, and is held "
@@ -603,6 +644,451 @@ def phase_6f(lm, dev):
         if counts[k] == 0:
             fail(f"phase 6f: no {k} launch")
     return counts
+
+
+def serve_requests(params, cfg, prompts, uids, dev, kv="f32"):
+    """Phase 5's engine run: one request submitted per engine step, then
+    drained (batch LM_SLOTS, max_len LM_MAX_LEN, LM_NEW tokens each)."""
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+    eng = ServeEngine(cfg, params, EngineConfig(
+        batch_slots=LM_SLOTS, max_len=LM_MAX_LEN, kv_dtype=kv), device=dev)
+    for uid in uids:
+        eng.submit(Request(uid=uid, prompt=list(prompts[uid]),
+                           max_new_tokens=LM_NEW))
+        eng.step()
+    eng.run_until_drained()
+    return eng
+
+
+def engine_vs_forward(params, cfg, prompt, dev):
+    """One request through a float32-KV engine, each step's logits of its
+    slot recorded, and `forward` over the tokens the engine was fed:
+    (the tokens, the engine's logits, forward's), logits (steps, vocab)."""
+    import torch
+    from repro_torch.models import model as MD
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+    eng = ServeEngine(cfg, params, EngineConfig(
+        batch_slots=LM_SLOTS, max_len=LM_MAX_LEN, kv_dtype="f32"),
+        device=dev)
+    seen = []
+    decode = eng._decode
+
+    def recording(p, st, t, a):
+        logits, st = decode(p, st, t, a)
+        seen.append(logits[0, 0].clone())
+        return logits, st
+    eng._decode = recording
+    eng.submit(Request(uid=0, prompt=list(prompt), max_new_tokens=LM_NEW))
+    eng.run_until_drained()
+    fed = list(prompt) + eng.finished[0].out_tokens[:-1]
+    full = MD.forward(params, cfg, torch.tensor([fed], device=dev))[0]
+    stepwise = torch.stack(seen)
+    if stepwise.shape != full.shape:
+        fail(f"{tuple(stepwise.shape)} engine logits against forward's "
+             f"{tuple(full.shape)}")
+    return fed, stepwise, full
+
+
+def moe_inputs(params):
+    """Forward pre-hooks on every MoE layer of `params` that keep each
+    call's input; returns (the list they fill, the hook handles)."""
+    from repro_torch.models.layers import MoE
+    seen = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: seen.append((mod, args[0].detach().clone())))
+        for m in params.modules() if isinstance(m, MoE)]
+    return seen, hooks
+
+
+def routing_gaps(label, card_seen, cpu_seen):
+    """Hold the card's MoE routing to the CPU's on the inputs each saw:
+    expert indices and keep masks equal, or an index difference where the
+    CPU's router logits of the two experts lie within ROUTE_GAP.  Returns
+    the number of such near-ties."""
+    import torch
+    from repro_torch.models.layers import moe_routing
+    if len(card_seen) != len(cpu_seen):
+        fail(f"{label}: {len(card_seen)} MoE calls on the card, "
+             f"{len(cpu_seen)} on the CPU")
+    ties, gaps, n = 0, [], 0
+    for (m_card, x_card), (m_cpu, x_cpu) in zip(card_seen, cpu_seen):
+        d = x_cpu.shape[-1]
+        _, _, idx_c, _, keep_c = moe_routing(m_card, x_card.reshape(-1, d),
+                                             m_card.moe)
+        logits, _, idx, _, keep = moe_routing(m_cpu, x_cpu.reshape(-1, d),
+                                              m_cpu.moe)
+        idx_c, keep_c = idx_c.cpu(), keep_c.cpu()
+        n += idx.numel()
+        diff = idx_c != idx
+        if not diff.any():
+            if not torch.equal(keep_c, keep):
+                fail(f"{label}: equal expert picks, different keep masks")
+            continue
+        t, j = torch.nonzero(diff, as_tuple=True)
+        gap = (logits[t, idx_c[t, j]] - logits[t, idx[t, j]]).abs()
+        gaps += gap.tolist()
+        if float(gap.max()) > ROUTE_GAP:
+            fail(f"{label}: the card routes {int(diff.sum())} assignments "
+                 f"to other experts than the CPU, router-logit gaps up to "
+                 f"{float(gap.max()):.3g} > {ROUTE_GAP}")
+        ties += int(diff.sum())
+    print(f"{label}: MoE routing card vs CPU over {len(card_seen)} layer "
+          f"calls, {n} assignments: {ties} differ"
+          + (f", router-logit gaps {sorted(gaps)}" if ties else
+             "; keep masks equal"))
+    return ties
+
+
+def watch_group_norm():
+    """Wrap the RWKV block's per-head group norm to record, per call, which
+    (batch row, position) had a head whose WKV output's variance lies below
+    GN_VAR; returns (the list of (B, S) bool CPU tensors, the undo)."""
+    from repro_torch.models import rwkv as R
+    orig = R._group_norm
+    near = []
+
+    def watched(y, scale, eps):
+        var = y.float().var(dim=-1, correction=0)          # (B, S, H)
+        near.append((var < GN_VAR).any(-1).cpu())
+        return orig(y, scale, eps)
+    R._group_norm = watched
+    return near, lambda: setattr(R, "_group_norm", orig)
+
+
+def card_vs_cpu(label, arch, cfg, p_card, p_cpu, dev):
+    """Phase 6e's method for a family: the same weights on the card and on
+    the CPU; `forward` logits over a `batch_at` batch, then FAMILY_DECODES
+    `decode_step`s with `active` masks and one `reset_slot`, logits and
+    serving state, within FAMILY_TOL.  Two exemptions, each triggered by a
+    measured property of the inputs, never by the error itself, and each
+    counted and printed: MoE routing differences at near-ties
+    (`routing_gaps`), and for RWKV the rows a group-norm head near its eps
+    has touched (GN_VAR, on either device): a forward row from that
+    position on, a decode slot's logits at that step, and its state until
+    it is reset."""
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.models import model as MD
+    stub = cfg.frontend != "tokens"
+    rwkv = cfg.mixer == "rwkv6"
+    batch = batch_at(DataConfig(cfg.vocab, FAMILY_BATCH, FAMILY_SEQ, seed=0,
+                                d_model=cfg.d_model if stub else 0), 0,
+                     device="cpu")
+    embeds = batch["embeds"].float() if stub else None
+    seen = {}
+    hooks = []
+    for where, p_ in (("card", p_card), ("cpu", p_cpu)):
+        seen[where], h = moe_inputs(p_)
+        hooks += h
+    near, unwatch = watch_group_norm() if rwkv else ([], lambda: None)
+
+    def touched(shape):
+        """The rows the recorded group-norm calls flagged, then clear."""
+        flags = torch.stack(near).any(0) if near else \
+            torch.zeros(shape, dtype=torch.bool)
+        near.clear()
+        return flags
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = {}
+        for where, p_, d_ in (("card", p_card, dev), ("cpu", p_cpu, "cpu")):
+            out[where] = MD.forward(
+                p_, cfg, batch["tokens"].to(d_),
+                None if embeds is None else embeds.to(d_)).cpu()
+        fwd_taint = touched((FAMILY_BATCH, FAMILY_SEQ)).int().cummax(
+            dim=1).values.bool()
+        steps = {"forward": (out["card"], out["cpu"],
+                             ~fwd_taint[..., None])}
+        states = {where: MD.init_serve_state(cfg, FAMILY_BATCH, 32,
+                                             torch.float32, device=d_)
+                  for where, d_ in (("card", dev), ("cpu", "cpu"))}
+        slot_taint = torch.zeros(FAMILY_BATCH, dtype=torch.bool)
+        rng = np.random.default_rng(7)
+        for step in range(FAMILY_DECODES):
+            toks = torch.from_numpy(rng.integers(
+                0, cfg.vocab, (FAMILY_BATCH, 1)).astype(np.int32))
+            active = torch.tensor([True, step % 2 == 0, step != 3,
+                                   step > 1])
+            got = {}
+            for where, p_, d_ in (("card", p_card, dev),
+                                  ("cpu", p_cpu, "cpu")):
+                logits, states[where] = MD.decode_step(
+                    p_, states[where], cfg, toks.to(d_), active.to(d_))
+                got[where] = logits.cpu()
+                if step == 4:
+                    states[where] = MD.reset_slot(states[where], cfg, 2)
+            flags = touched((FAMILY_BATCH, 1))[:, 0]
+            steps[f"decode {step}"] = (got["card"], got["cpu"],
+                                       ~(slot_taint | flags)[:, None, None])
+            slot_taint |= flags & active
+            if step == 4:
+                slot_taint[2] = False
+    unwatch()
+    for name, axis in (("kv", 1), ("rwkv", 1), ("mamba", 2)):
+        for k, v in states["cpu"].get(name, {}).items():
+            shape = [1] * v.ndim
+            shape[axis] = -1
+            steps[f"state {name}/{k}"] = (states["card"][name][k].cpu(), v,
+                                          ~slot_taint.reshape(shape))
+    seconds = time.perf_counter() - t0
+    for h in hooks:
+        h.remove()
+    ties = routing_gaps(label, seen["card"], seen["cpu"]) \
+        if cfg.moe is not None else 0
+    worst, exempt = {}, 0.0
+    for what, (a, b, held) in steps.items():
+        a, b = a.float(), b.float()
+        diff = (a - b).abs()
+        held = held.expand_as(diff)
+        worst[what] = float(diff[held].max()) if held.any() else 0.0
+        if not held.all():
+            exempt = max(exempt, float(diff[~held].max()))
+        far = ~torch.isclose(a, b, rtol=FAMILY_TOL, atol=FAMILY_TOL) & held
+        if bool(far.any()) and not ties:
+            fail(f"{label}: {what} on the card differs from the CPU by "
+                 f"{worst[what]} (rtol and atol {FAMILY_TOL})")
+    def part(prefix):
+        return max([v for k, v in worst.items() if k.startswith(prefix)]
+                   or [0.0])
+
+    gn = (f"; group-norm heads below variance {GN_VAR}: forward rows "
+          f"{int(fwd_taint.any(1).sum())} of {FAMILY_BATCH} from position "
+          f"{[int(r.nonzero()[0]) if r.any() else None for r in fwd_taint]}"
+          f", decode slots tainted at the end "
+          f"{slot_taint.nonzero().flatten().tolist()}, their max abs err "
+          f"{exempt:.3g} (not held)" if rwkv else "")
+    print(f"{label}: {arch} width {cfg.d_model}, depth {cfg.n_layers}, "
+          f"{sum(p.numel() for p in p_card.parameters())} float32 "
+          f"parameters: forward over {FAMILY_BATCH} x {FAMILY_SEQ} "
+          f"{'stub embeddings' if stub else 'tokens'} and {FAMILY_DECODES} "
+          f"decode steps with active masks and a reset_slot, card vs CPU "
+          f"in {seconds:.3f} s: max abs err forward "
+          f"{worst['forward']:.3g}, decode {part('decode'):.3g}, state "
+          f"{part('state'):.3g}"
+          + (f" (within rtol and atol {FAMILY_TOL})" if not ties else
+             f" (not held: {ties} near-tie routing differences)") + gn)
+
+
+def phase_7(dev, prompts):
+    """The remaining model families on the card: granite-moe-3b-a800m and
+    rwkv6-7b served at full size, every family's card run held to the CPU
+    at full width and depth 2, and the hybrid at its smoke size and its
+    Mamba block at Jamba's width."""
+    import copy
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import mamba as MB, model as MD
+    from repro_torch.models.layers import MoE, moe_capacity, moe_routing
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 7: device memory still allocated from earlier phases "
+          f"{torch.cuda.memory_allocated(dev)} B")
+    t_phase = time.perf_counter()
+    made = LM_REQUESTS * LM_NEW
+    prefill = sum(len(p_) - 1 for p_ in prompts)
+
+    def full_model(arch):
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        params = MD.init_params(torch.Generator(dev).manual_seed(0), cfg,
+                                device=dev)
+        torch.cuda.synchronize()
+        print(f"phase 7: {arch}: {cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, vocab {cfg.vocab}: "
+              f"{sum(p.numel() for p in params.parameters())} float32 "
+              f"parameters made on the card by init_params (seed 0) in "
+              f"{time.perf_counter() - t0:.3f} s; device memory allocated "
+              f"{torch.cuda.memory_allocated(dev)} B")
+        return cfg, params
+
+    def timed_serve(label, params, cfg):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        eng = serve_requests(params, cfg, prompts, range(LM_REQUESTS), dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if sorted(eng.finished) != list(range(LM_REQUESTS)) or any(
+                len(q.out_tokens) != LM_NEW for q in eng.finished.values()):
+            fail(f"{label}: not every request finished with its tokens")
+        print(f"{label}: ServeEngine(batch_slots={LM_SLOTS}, max_len="
+              f"{LM_MAX_LEN}, kv f32): {LM_REQUESTS} requests (phase 5's "
+              f"prompts), {LM_NEW} new each: {eng.steps} engine steps and "
+              f"{prefill} prefill steps in {wall:.3f} s; "
+              f"{made / wall:.2f} generated tokens/s "
+              f"({(made + prefill) / wall:.2f} tokens/s counting prefill); "
+              f"peak device memory "
+              f"{torch.cuda.max_memory_allocated(dev)} B")
+        return {u: q.out_tokens for u, q in eng.finished.items()}
+
+    with torch.no_grad():
+        # ---- 7a: granite-moe-3b-a800m at full size ----------------------
+        cfg, params = full_model(MOE_ARCH)
+        first = timed_serve("phase 7a", params, cfg)
+        shares, calls = [], []
+        hooks = [m.register_forward_pre_hook(
+            lambda mod, args: calls.append(moe_routing(
+                mod, args[0].reshape(-1, args[0].shape[-1]), mod.moe)[4]))
+            for m in params.modules() if isinstance(m, MoE)]
+        eng = serve_requests(params, cfg, prompts, range(LM_REQUESTS), dev)
+        for h in hooks:
+            h.remove()
+        again = {u: q.out_tokens for u, q in eng.finished.items()}
+        if again != first:
+            fail("phase 7a: two runs of the same 8 requests give different "
+                 "tokens")
+        for i in range(0, len(calls), cfg.n_layers):
+            keep = torch.stack(calls[i:i + cfg.n_layers])
+            shares.append(float(keep.float().mean()))
+        print(f"phase 7a: a second run gives the same tokens; kept share "
+              f"of the {LM_SLOTS} x {cfg.moe.top_k} expert assignments per "
+              f"decode call (capacity {moe_capacity(LM_SLOTS, cfg.moe)} "
+              f"row(s) per expert at T = "
+              f"{LM_SLOTS}, every slot routed), over the {len(shares)} calls"
+              f": mean {np.mean(shares):.4f}, min {min(shares):.4f}, max "
+              f"{max(shares):.4f}; per call "
+              f"{[round(x, 3) for x in shares]}")
+        del params, eng, calls
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- 7b: rwkv6-7b at full size -----------------------------------
+        cfg, params = full_model(RWKV_ARCH)
+        crowd = timed_serve("phase 7b", params, cfg)
+        alone = serve_requests(params, cfg, prompts, [0], dev
+                               ).finished[0].out_tokens
+        if alone != crowd[0]:
+            fail(f"phase 7b: request 0 alone gives {alone}, with the others "
+                 f"admitted mid-flight {crowd[0]}")
+        print(f"phase 7b: request 0 alone gives the same {LM_NEW} tokens as "
+              "with the others admitted mid-flight")
+        toks = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab, (LM_SLOTS, FWD_SEQ)).astype(np.int32)).to(dev)
+        for run in ("first", "second"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = MD.forward(params, cfg, toks)
+            torch.cuda.synchronize()
+            print(f"phase 7b: forward over {LM_SLOTS} x {FWD_SEQ} tokens "
+                  f"({cfg.n_layers} layers x {FWD_SEQ} scan steps), {run} "
+                  f"call: {time.perf_counter() - t0:.3f} s")
+        if not bool(torch.isfinite(logits).all()):
+            fail("phase 7b: forward gave non-finite logits")
+        fed, stepwise, full = engine_vs_forward(params, cfg, prompts[0], dev)
+        gap = (stepwise - full).abs().amax(-1)
+        # the engine turns the logits of the last prompt token and of every
+        # generated token into tokens; the prefill steps' logits before
+        # them are computed, compared and printed, not held (see PERF.md
+        # §6, PR 24: the first token's WKV output is rank one, and heads
+        # whose group norm then sits near its eps turn float32 rounding
+        # into ~0.1 of logit, a gap that decays over the next ~10 steps)
+        served = gap[len(prompts[0]) - 1:]
+        err = float(served.max())
+        if err > LOGITS_ATOL:
+            fail(f"phase 7b: the engine's logits at the {len(served)} steps "
+                 f"it samples from differ from forward by {err} > "
+                 f"{LOGITS_ATOL}")
+        print(f"phase 7b: float32: the engine's logits at the {len(served)}"
+              f" steps it samples from (the last prompt token on) agree "
+              f"with forward over the same tokens (max abs err {err:.3g} <= "
+              f"{LOGITS_ATOL}; max |logit| {float(full.abs().max()):.4g}); "
+              f"at all {len(fed)} steps, not held: max abs err "
+              f"{float(gap.max()):.4g}, by position "
+              f"{[float(f'{v:.3g}') for v in gap.tolist()]}")
+        near, unwatch = watch_group_norm()
+        MD.forward(params, cfg, torch.tensor([fed], device=dev))
+        unwatch()
+        print(f"phase 7b: forward over request 0's {len(fed)} tokens: "
+              f"group-norm heads below variance {GN_VAR} at (layer, "
+              f"positions) " + str([(i, f[0].nonzero().flatten().tolist())
+                                    for i, f in enumerate(near)
+                                    if f.any()]))
+        # the same weights in float64 (in place, 60.6 GB; the norms'
+        # variance and the WKV state stay float32, as in the JAX functions)
+        params.double()
+        exact = MD.forward(params, cfg, torch.tensor([fed], device=dev))[0]
+        st = MD.init_serve_state(cfg, 1, LM_MAX_LEN, device=dev)
+        st["rwkv"]["tm_shift"] = st["rwkv"]["tm_shift"].double()
+        st["rwkv"]["cm_shift"] = st["rwkv"]["cm_shift"].double()
+        steps = []
+        for t in fed:
+            logits, st = MD.decode_step(params, st, cfg,
+                                        torch.tensor([[t]], device=dev))
+            steps.append(logits[0, 0])
+        to64 = {name: (v.double() - exact).abs().amax(-1) for name, v in
+                (("float32 engine", stepwise), ("float32 forward", full),
+                 ("float64 decode_step", torch.stack(steps)))}
+        print("phase 7b: against forward with float64 weights, max abs err "
+              "by position (the first 8): " + "; ".join(
+                  f"{k} {[float(f'{x:.3g}') for x in v[:8].tolist()]}, "
+                  f"from position 8 on {float(v[8:].max()):.3g}"
+                  for k, v in to64.items()))
+        del params, full, stepwise, logits, exact, st, steps, to64
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- 7c: card vs CPU at full width, depth 2 ----------------------
+        for arch in WIDE_ARCHS:
+            cfg = dataclasses.replace(get_config(arch), name=f"{arch}-depth2",
+                                      n_layers=2)
+            p_card = MD.init_params(torch.Generator(dev).manual_seed(0),
+                                    cfg, device=dev)
+            p_cpu = copy.deepcopy(p_card).cpu()
+            card_vs_cpu("phase 7c", arch, cfg, p_card, p_cpu, dev)
+            del p_card, p_cpu
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        # ---- 7d: the hybrid ------------------------------------------------
+        cfg = smoke_config(HYBRID_ARCH)
+        p_card = MD.init_params(torch.Generator(dev).manual_seed(0), cfg,
+                                device=dev)
+        card_vs_cpu("phase 7d", HYBRID_ARCH, cfg, p_card,
+                    copy.deepcopy(p_card).cpu(), dev)
+        cfg = get_config(HYBRID_ARCH)
+        blk = MB.init_mamba_block(torch.Generator(dev).manual_seed(0), cfg,
+                                  device=dev)
+        blk_cpu = copy.deepcopy(blk).cpu()
+        g = torch.Generator().manual_seed(3)
+        din, ds = MB.d_inner(cfg), cfg.hybrid.d_state
+        state = {w: (torch.zeros((MAMBA_BATCH, cfg.hybrid.d_conv - 1, din),
+                                 device=d_),
+                     torch.zeros((MAMBA_BATCH, din, ds), device=d_))
+                 for w, d_ in (("card", dev), ("cpu", "cpu"))}
+        worst = 0.0
+        t0 = time.perf_counter()
+        for step, s in enumerate([MAMBA_PREFILL] + [1] * FAMILY_DECODES):
+            x = torch.randn((MAMBA_BATCH, s, cfg.d_model), generator=g)
+            out = {}
+            for w, b_, d_ in (("card", blk, dev), ("cpu", blk_cpu, "cpu")):
+                y, conv, ssm = MB.mamba_sequence(b_, x.to(d_), cfg,
+                                                 *state[w])
+                state[w] = (conv, ssm)
+                out[w] = (y.cpu(), conv.cpu(), ssm.cpu())
+            for a, b in zip(out["card"], out["cpu"]):
+                worst = max(worst, float((a - b).abs().max()))
+                if not torch.allclose(a, b, rtol=FAMILY_TOL,
+                                      atol=FAMILY_TOL):
+                    fail(f"phase 7d: the Mamba block at width {cfg.d_model}"
+                         f" differs card vs CPU by "
+                         f"{float((a - b).abs().max())} at call {step}")
+        print(f"phase 7d: {HYBRID_ARCH}'s Mamba block alone at d_model "
+              f"{cfg.d_model}, d_inner {din}, d_state {ds} "
+              f"({sum(p.numel() for p in blk.parameters())} float32 "
+              f"parameters): a {MAMBA_PREFILL}-token prefill at B = "
+              f"{MAMBA_BATCH}, then {FAMILY_DECODES} decode steps from the "
+              f"carried conv and ssm state, card vs CPU in "
+              f"{time.perf_counter() - t0:.3f} s: max abs err {worst:.3g} "
+              f"(outputs and states within rtol and atol {FAMILY_TOL})")
+        del p_card, blk, blk_cpu, state, out
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"phase 7: {time.perf_counter() - t_phase:.3f} s")
 
 
 def main() -> int:
@@ -3119,6 +3605,9 @@ def main() -> int:
     rec_q["wire_step"] = wire_q
     print(f"launches of quantize_blockwise by phase: "
           f"{json.dumps(rec_q['launches_by_phase'])}")
+
+    # ---- phase 7: the remaining model families --------------------------
+    phase_7(dev, prompts)
 
     print(json.dumps({"kernels": records}))
     print(f"card: {card}")

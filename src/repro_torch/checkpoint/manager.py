@@ -15,7 +15,8 @@ Fault-tolerance properties:
 
 Counterpart of the JAX package's `checkpoint/manager.py`, with its layout,
 manifest, leaf keys (`models.interop.checkpoint_leaves`: the layers
-stacked along axis 0 as in the JAX tree), file numbering, CRC32 and
+stacked along axis 0, and a hybrid group's blocks along axis 1, as in the
+JAX tree), file numbering, CRC32 and
 atomic rename.  The codecs are `design.codecs`' host codecs; integer and
 bfloat16 leaves are stored raw through `CheckpointConfig.raw_codec`'s
 compressor.  The defaults are the standard library's zlib (which needs
@@ -30,8 +31,9 @@ Differences:
   one grouped quantize (the kernel on the card, one launch per
   `group_capacity()` tensors); `restore_into` dequantizes them into the
   templates with grouped launches the same way.
-* `restore` returns CPU tensors; `restore_into` fills a `UniformLM` and an
-  AdamW state in place, on their device.
+* `restore` returns CPU tensors; `restore_into` fills a model
+  (`UniformLM` or `HybridLM`) and an AdamW state in place, on their
+  device.
 """
 from __future__ import annotations
 
@@ -84,17 +86,24 @@ def _is_q8(codec: str) -> bool:
     return codec.startswith("q8")
 
 
-def _stack_to_host(stacked: bool, tensors: List[torch.Tensor]
+def _stack_to_host(lead: Tuple[int, ...], tensors: List[torch.Tensor]
                    ) -> torch.Tensor:
     """A copy on the host (never a view of a live tensor, which a training
-    step updates in place), the layers stacked along axis 0."""
-    if not stacked:
+    step updates in place), the tensors stacked in row-major order along
+    the leading axes `lead`."""
+    if not lead:
         return tensors[0].detach().to("cpu", copy=True)
     t0 = tensors[0]
-    out = torch.empty((len(tensors), *t0.shape), dtype=t0.dtype)
-    for i, t in enumerate(tensors):
-        out[i].copy_(t.detach())
+    out = torch.empty((*lead, *t0.shape), dtype=t0.dtype)
+    for dst, t in zip(_rows(out, lead), tensors):
+        dst.copy_(t.detach())
     return out
+
+
+def _rows(t: torch.Tensor, lead: Tuple[int, ...]):
+    """`t`'s sub-tensors along its leading axes `lead`, in row-major order
+    (views), or `t` itself when `lead` is ()."""
+    return t.view(-1, *t.shape[len(lead):]) if lead else [t]
 
 
 def _largest_first(pool: ThreadPoolExecutor, fn, items: list, size
@@ -161,9 +170,9 @@ class CheckpointManager:
         on their device in one grouped call, the rest copied."""
         t0 = time.perf_counter()
         leaves, group = [], []
-        for key, (stacked, ts) in sorted(
+        for key, (lead, ts) in sorted(
                 checkpoint_leaves(params, opt_state).items()):
-            shape = ([len(ts)] if stacked else []) + list(ts[0].shape)
+            shape = list(lead) + list(ts[0].shape)
             codec = self._codec_for(key, ts[0])
             leaf = _Leaf(key, codec, shape, C.dtype_name(ts[0].dtype),
                          sum(t.numel() for t in ts) * ts[0].element_size(),
@@ -173,12 +182,12 @@ class CheckpointManager:
                 q = torch.empty(shape, dtype=torch.int8, device=dev)
                 s = torch.empty((*shape[:-1], -(-shape[-1] // DEFAULT_BLOCK)),
                                 dtype=torch.float32, device=dev)
-                parts = zip(q, s) if stacked else [(q, s)]
+                parts = zip(_rows(q, lead), _rows(s, lead))
                 group += [(t.detach().to(torch.float32), q_, s_)
                           for t, (q_, s_) in zip(ts, parts)]
                 leaf.data = (q, s)
             else:
-                leaf.data = _stack_to_host(stacked, ts)
+                leaf.data = _stack_to_host(lead, ts)
             leaves.append(leaf)
         quantize_blockwise_group(group)
         del group
@@ -308,7 +317,7 @@ class CheckpointManager:
     @torch.no_grad()
     def restore_into(self, params, opt_state=None,
                      step: Optional[int] = None):
-        """Fill `params` (a `UniformLM`) and `opt_state` (an AdamW state of
+        """Fill `params` (the port's model) and `opt_state` (an AdamW state of
         the same codec as the checkpoint's) in place, on their device.
         Returns (step, params, opt_state, extra).  Raises KeyError for a
         leaf the checkpoint lacks, ValueError for one whose shape does not
@@ -318,8 +327,8 @@ class CheckpointManager:
         targets = checkpoint_leaves(params, opt_state)
         got_step, d, manifest = self._manifest(step)
         metas = manifest["leaves"]
-        for key, (stacked, ts) in targets.items():
-            want = ([len(ts)] if stacked else []) + list(ts[0].shape)
+        for key, (lead, ts) in targets.items():
+            want = list(lead) + list(ts[0].shape)
             if key not in metas:
                 raise KeyError(f"checkpoint step {got_step} has no leaf "
                                f"{key}")
@@ -341,15 +350,15 @@ class CheckpointManager:
                 pool, decode, keys, lambda k: metas[k]["raw_bytes"]), keys))
             for done in as_completed(futures):
                 key, got = futures[done], done.result()
-                stacked, ts = targets[key]
+                lead, ts = targets[key]
                 if _is_q8(metas[key]["codec"]):
                     dev = ts[0].device
                     q, s = (t.to(dev) for t in got)
                     held.append((q, s))
-                    parts = zip(q, s) if stacked else [(q, s)]
+                    parts = zip(_rows(q, lead), _rows(s, lead))
                     group += [(q_, s_, t) for t, (q_, s_) in zip(ts, parts)]
                 else:
-                    for t, src in zip(ts, got if stacked else [got]):
+                    for t, src in zip(ts, _rows(got, lead)):
                         t.copy_(src)
         dequantize_blockwise_group(group)
         del held, group

@@ -3,8 +3,8 @@
 Each module exposes CONFIG (the exact published configuration) and the
 registry maps ``--arch <id>`` to it.  `smoke_config(id)` returns the reduced
 same-family variant used by CPU smoke tests.  The configurations are the
-JAX package's, copied as data; the port's model runs the dense family with
-token input (`models/model.py`).
+JAX package's, copied as data; the port's model runs all ten
+(`models/model.py`).
 """
 from __future__ import annotations
 

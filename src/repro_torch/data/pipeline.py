@@ -9,10 +9,10 @@ loss falls measurably within a few steps.
 
 Counterpart of the JAX package's `data/pipeline.py`: the same NumPy
 generator gives the same tokens and labels, returned as int32 tensors on
-the port's device (the card unless the caller asks for the CPU).  The JAX
-`sharding` argument waits for the distribution slice (ROADMAP.md Queue A
-item 13), and the stub embeddings of the vlm / audio frontends for the
-remaining model families (item 10).
+the port's device (the card unless the caller asks for the CPU), and the
+stub embeddings of the vlm / audio frontends (`d_model` > 0) with JAX's
+bfloat16 bits.  The JAX `sharding` argument waits for the distribution
+slice (ROADMAP.md Queue A item 13).
 """
 from __future__ import annotations
 
@@ -31,6 +31,7 @@ class DataConfig:
     batch: int
     seq: int
     seed: int = 0
+    d_model: int = 0        # >0 => also emit stub embeddings (vlm/audio)
 
 
 def _tokens_for(cfg: DataConfig, step: int) -> np.ndarray:
@@ -50,9 +51,19 @@ def _tokens_for(cfg: DataConfig, step: int) -> np.ndarray:
 
 def batch_at(cfg: DataConfig, step: int,
              device="cuda") -> Dict[str, torch.Tensor]:
-    """Batch for `step`: tokens and next-token labels, (batch, seq) int32."""
+    """Batch for `step`: tokens and next-token labels, (batch, seq) int32,
+    and with `cfg.d_model` > 0 stub embeddings "embeds" (batch, seq,
+    d_model) bfloat16: float32 normals * 0.02 from a generator seeded with
+    seed * 7 + step, rounded to nearest even as `jnp.asarray(...,
+    jnp.bfloat16)` rounds them."""
     dev = resolve_device(device)
     toks = _tokens_for(cfg, step)
     labels = np.concatenate([toks[:, 1:], toks[:, :1]], axis=1)
-    return {"tokens": torch.from_numpy(toks).to(dev),
-            "labels": torch.from_numpy(labels).to(dev)}
+    out = {"tokens": torch.from_numpy(toks).to(dev),
+           "labels": torch.from_numpy(labels).to(dev)}
+    if cfg.d_model:
+        rng = np.random.default_rng(cfg.seed * 7 + step)
+        emb = rng.standard_normal((cfg.batch, cfg.seq, cfg.d_model),
+                                  np.float32) * 0.02
+        out["embeds"] = torch.from_numpy(emb).to(torch.bfloat16).to(dev)
+    return out

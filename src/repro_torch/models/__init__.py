@@ -1,3 +1,4 @@
-"""The LM stack's dense family in PyTorch: `config` (the JAX package's
-model configurations), `layers`, `model` (`UniformLM`, `init_params`,
-`forward`, `decode_step`) and `interop` (carrying JAX parameters over)."""
+"""The LM stack in PyTorch: `config` (the JAX package's model
+configurations), `layers` (with MoE and `chunked_scan`), `mamba`, `rwkv`,
+`model` (`UniformLM`, `HybridLM`, `init_params`, `forward`,
+`decode_step`) and `interop` (carrying JAX parameters over)."""

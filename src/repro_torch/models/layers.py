@@ -1,6 +1,7 @@
-"""Transformer layers of the dense family: norms, RoPE, GQA attention
-(full sequence, chunked online-softmax for training, and one-token decode
-over a KV cache), SwiGLU and squared-ReLU MLPs, and the q8-weight MLP.
+"""Transformer layer library: norms, RoPE, GQA attention (full sequence,
+chunked online-softmax for training, and one-token decode over a KV
+cache), SwiGLU and squared-ReLU MLPs, the q8-weight MLP, capacity-based
+MoE, and `chunked_scan`, the time loop of the RWKV and Mamba recurrences.
 
 Counterpart of the JAX package's `models/layers.py`, under the same names.
 Parameters are keyed like the JAX pytree (`nn.ParameterDict`s, and the
@@ -9,13 +10,17 @@ heads, d_head), `wo` (heads, d_head, d)), so weights carried over from the
 JAX package need no reshaping.  Each `init_*` takes
 an explicit `torch.Generator` and a device; the arithmetic follows the
 JAX functions step for step (the same casts, the same finite mask value).
-`chunked_scan` (RWKV and Mamba) and the MoE layer are still to be ported
-(ROADMAP.md Queue A, item 10).
+Where a product takes two floating types (the MoE router's float32
+tokens by a bfloat16 router in mixed precision, or bfloat16 stub
+embeddings fed to float32 weights) JAX promotes both operands to the
+wider type; torch's products do not, so the products here go through
+`mm` / `einsum`, which promote first.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict, Tuple
+from typing import Callable, Dict, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -24,7 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels.dequant_matmul import dequant_matmul, dequant_matmul_plain
 from ..kernels.quantize_blockwise import DEFAULT_BLOCK, quantize_blockwise
-from .config import ModelConfig
+from .config import ModelConfig, MoEConfig
 
 NEG_INF = -1e9  # finite mask value: keeps bf16 softmax NaN-free
 
@@ -33,6 +38,57 @@ def _init(generator: torch.Generator, shape, scale: float = 0.02,
           device=None) -> nn.Parameter:
     return nn.Parameter(torch.randn(shape, generator=generator,
                                     dtype=torch.float32, device=device) * scale)
+
+
+def promote(*ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The tensors cast to their common type (JAX's promotion of a
+    product's operands); a tensor already of that type is returned as it
+    is."""
+    dt = functools.reduce(torch.promote_types, (t.dtype for t in ts))
+    return tuple(t.to(dt) for t in ts)
+
+
+def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    a, b = promote(a, b)
+    return a @ b
+
+
+def einsum(eq: str, *ts: torch.Tensor) -> torch.Tensor:
+    return torch.einsum(eq, *promote(*ts))
+
+
+def _scan(step_fn: Callable, carry, xs: Sequence[torch.Tensor]):
+    ys = []
+    for t in range(xs[0].shape[0]):
+        carry, y = step_fn(carry, tuple(a[t] for a in xs))
+        ys.append(y)
+    return carry, torch.stack(ys)
+
+
+def chunked_scan(step_fn: Callable, carry, xs: Sequence[torch.Tensor],
+                 chunk: int):
+    """`carry, y_t = step_fn(carry, (x_t, ...))` over time in
+    checkpointed chunks; returns (carry, ys stacked along axis 0).
+
+    xs are time-major (S, ...).  While gradients are recorded, each chunk
+    of `chunk` steps is one `torch.utils.checkpoint`: the backward pass
+    keeps only the carry at each chunk's start and recomputes the steps
+    inside it (O(S/chunk * state) memory instead of O(S * state)), the JAX
+    function's `jax.checkpoint` of each chunk.  A plain loop when S is not
+    a multiple of `chunk` (as in JAX) and when no gradient is recorded
+    (decode calls this with S = 1).
+    """
+    s = xs[0].shape[0]
+    chunk = min(chunk, s)
+    if s % chunk or not torch.is_grad_enabled():
+        return _scan(step_fn, carry, xs)
+    ys = []
+    for lo in range(0, s, chunk):
+        carry, y = checkpoint(_scan, step_fn, carry,
+                              tuple(a[lo:lo + chunk] for a in xs),
+                              use_reentrant=False)
+        ys.append(y)
+    return carry, torch.cat(ys)
 
 
 # ---------------------------------------------------------------------------
@@ -110,9 +166,9 @@ def attention_full(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     b, s, d = x.shape
     nh, nkv, hd = cfg.heads, cfg.kv_heads, cfg.d_head
     positions = torch.arange(s, device=x.device)[None, :]
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q = einsum("bsd,dhk->bshk", x, p["wq"])
+    k = einsum("bsd,dhk->bshk", x, p["wk"])
+    v = einsum("bsd,dhk->bshk", x, p["wv"])
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     k = _repeat_kv(k, nh // nkv)
@@ -123,12 +179,13 @@ def attention_full(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     scores = torch.where(causal[None, None], scores.to(torch.float32),
                          NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    ctx = torch.einsum("bhqs,bshk->bqhk", probs, v)
-    return torch.einsum("bqhk,hkd->bqd", ctx, p["wo"])
+    ctx = einsum("bhqs,bshk->bqhk", probs, v)
+    return einsum("bqhk,hkd->bqd", ctx, p["wo"])
 
 
-def _kv_step(q_blk, k_blk, v_blk, q_pos, kv_pos, m, l, acc):
-    """One online-softmax step of `attention_chunked` over one KV chunk."""
+def _kv_step(q_blk, k_blk, v_blk, q_pos, kv_pos, m, l, acc, dtype):
+    """One online-softmax step of `attention_chunked` over one KV chunk;
+    the probabilities are cast to `dtype`, the input's."""
     sc = torch.einsum("bqhk,bshk->bhqs", q_blk, k_blk) / math.sqrt(
         q_blk.shape[-1])
     mask = q_pos[:, None] >= kv_pos[None, :]
@@ -137,8 +194,8 @@ def _kv_step(q_blk, k_blk, v_blk, q_pos, kv_pos, m, l, acc):
     alpha = torch.exp(m - m_new)
     probs = torch.exp(sc - m_new[..., None])
     l_new = l * alpha + probs.sum(dim=-1)
-    acc_new = acc * alpha[..., None] + torch.einsum(
-        "bhqs,bshk->bhqk", probs.to(q_blk.dtype), v_blk).to(torch.float32)
+    acc_new = acc * alpha[..., None] + einsum(
+        "bhqs,bshk->bhqk", probs.to(dtype), v_blk).to(torch.float32)
     return m_new, l_new, acc_new
 
 
@@ -156,11 +213,11 @@ def attention_chunked(p, x: torch.Tensor, cfg: ModelConfig,
     b, s, d = x.shape
     nh, nkv, hd = cfg.heads, cfg.kv_heads, cfg.d_head
     positions = torch.arange(s, device=x.device)[None, :]
-    q = apply_rope(torch.einsum("bsd,dhk->bshk", x, p["wq"]), positions,
+    q = apply_rope(einsum("bsd,dhk->bshk", x, p["wq"]), positions,
                    cfg.rope_theta)
-    k = apply_rope(torch.einsum("bsd,dhk->bshk", x, p["wk"]), positions,
+    k = apply_rope(einsum("bsd,dhk->bshk", x, p["wk"]), positions,
                    cfg.rope_theta)
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    v = einsum("bsd,dhk->bshk", x, p["wv"])
     k = _repeat_kv(k, nh // nkv)
     v = _repeat_kv(v, nh // nkv)
 
@@ -184,11 +241,11 @@ def attention_chunked(p, x: torch.Tensor, cfg: ModelConfig,
             kv_pos = lo + torch.arange(kv_chunk, device=x.device)
             m, l, acc = checkpoint(
                 _kv_step, q_blk, k[:, lo:lo + kv_chunk],
-                v[:, lo:lo + kv_chunk], q_pos, kv_pos, m, l, acc,
+                v[:, lo:lo + kv_chunk], q_pos, kv_pos, m, l, acc, x.dtype,
                 use_reentrant=False)
         blk = (acc / torch.clamp_min(l, 1e-20)[..., None]).to(x.dtype)
         ctx.append(blk.transpose(1, 2))                # (B, q_chunk, H, Dh)
-    return torch.einsum("bqhk,hkd->bqd", torch.cat(ctx, dim=1), p["wo"])
+    return einsum("bqhk,hkd->bqd", torch.cat(ctx, dim=1), p["wo"])
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -217,11 +274,11 @@ def attention_decode(p, x: torch.Tensor, cfg: ModelConfig,
     nh, nkv, hd = cfg.heads, cfg.kv_heads, cfg.d_head
     s_max = k_cache.shape[1]
     positions = pos[:, None].to(torch.int32)                  # (B, 1)
-    q = apply_rope(torch.einsum("bsd,dhk->bshk", x, p["wq"]), positions,
+    q = apply_rope(einsum("bsd,dhk->bshk", x, p["wq"]), positions,
                    cfg.rope_theta)
-    k = apply_rope(torch.einsum("bsd,dhk->bshk", x, p["wk"]), positions,
+    k = apply_rope(einsum("bsd,dhk->bshk", x, p["wk"]), positions,
                    cfg.rope_theta)
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    v = einsum("bsd,dhk->bshk", x, p["wv"])
     rows = torch.arange(b, device=x.device)
     inside = pos < s_max
     at = torch.where(inside, pos, torch.zeros_like(pos)).long()
@@ -232,13 +289,13 @@ def attention_decode(p, x: torch.Tensor, cfg: ModelConfig,
                                     v_cache[rows, at])
     kk = _repeat_kv(k_cache.to(x.dtype), nh // nkv)
     vv = _repeat_kv(v_cache.to(x.dtype), nh // nkv)
-    scores = torch.einsum("bqhk,bshk->bhqs", q, kk) / math.sqrt(hd)
+    scores = einsum("bqhk,bshk->bhqs", q, kk) / math.sqrt(hd)
     valid = torch.arange(s_max, device=x.device)[None, :] <= pos[:, None]
     scores = torch.where(valid[:, None, None, :], scores.to(torch.float32),
                          NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    ctx = torch.einsum("bhqs,bshk->bqhk", probs, vv)
-    out = torch.einsum("bqhk,hkd->bqd", ctx, p["wo"])
+    ctx = einsum("bhqs,bshk->bqhk", probs, vv)
+    out = einsum("bqhk,hkd->bqd", ctx, p["wo"])
     return out, k_cache, v_cache
 
 
@@ -278,10 +335,10 @@ def init_mlp(generator: torch.Generator, cfg: ModelConfig,
 
 def mlp(p, x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "swiglu":
-        h = F.silu(x @ p["wg"]) * (x @ p["wi"])
+        h = F.silu(mm(x, p["wg"])) * mm(x, p["wi"])
     else:  # squared ReLU (nemotron)
-        h = torch.square(F.relu(x @ p["wi"]))
-    return h @ p["wo"]
+        h = torch.square(F.relu(mm(x, p["wi"])))
+    return mm(h, p["wo"])
 
 
 # --- quantized-weight MLP (serving): the advisor's "q8 weights" choice ----
@@ -325,3 +382,111 @@ def mlp_quantized(pq, x: torch.Tensor, kind: str,
         h = torch.square(F.relu(mm(a, pq["wi"])))
     out = mm(h.to(x.dtype), pq["wo"])
     return out.reshape(*lead, -1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MoE (capacity-based dispatch, GShard-style but scatter-based)
+# ---------------------------------------------------------------------------
+
+class MoE(nn.Module):
+    """MoE weights {router (d, E) float32, wi, wg (E, d, f), wo (E, f, d)},
+    indexable like a ParameterDict; calling the module runs `moe_mlp`."""
+
+    def __init__(self, params: Dict[str, nn.Parameter], moe: MoEConfig):
+        super().__init__()
+        for name, w in params.items():
+            self.register_parameter(name, w)
+        self.moe = moe
+
+    def __getitem__(self, name: str) -> nn.Parameter:
+        return getattr(self, name)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return moe_mlp(self, x, self.moe)
+
+
+def init_moe(generator: torch.Generator, cfg: ModelConfig,
+             device=None) -> MoE:
+    moe = cfg.moe
+    if moe is None:
+        raise ValueError(f"{cfg.name} has no MoE configuration")
+    d, f, e = cfg.d_model, moe.d_ff_expert, moe.experts
+    shapes = {"router": (d, e), "wi": (e, d, f), "wg": (e, d, f),
+              "wo": (e, f, d)}
+    return MoE({n: _init(generator, s, device=device)
+                for n, s in shapes.items()}, moe)
+
+
+def moe_capacity(tokens: int, moe: MoEConfig) -> int:
+    """Rows each expert takes in a call of `tokens` tokens:
+    max(1, ceil(T * k * cf / E)), in Python floats as in JAX."""
+    return max(int(math.ceil(tokens * moe.top_k * moe.capacity_factor
+                             / moe.experts)), 1)
+
+
+def moe_routing(p, xt: torch.Tensor, moe: MoEConfig):
+    """The router's decisions for tokens xt (T, D): (logits (T, E) float32,
+    gates (T, k) float32 renormalized over the k picks, expert_idx (T, k),
+    flat_pos (k*T,) each assignment's row in its expert, keep (k*T,)
+    whether that row is within capacity).
+
+    The top-k is a stable descending sort: on tied logits the lower expert
+    index comes first, as with `lax.top_k` (`torch.topk` promises no order
+    on ties).  Assignments are numbered slot-major (every token's first
+    pick before any second pick), so under capacity pressure the first
+    picks are kept first."""
+    e, k = moe.experts, moe.top_k
+    cap = moe_capacity(xt.shape[0], moe)
+    logits = mm(xt.to(torch.float32), p["router"])
+    if moe.n_experts_padded and moe.n_experts_padded > moe.n_experts:
+        real = torch.arange(e, device=xt.device) < moe.n_experts
+        logits = torch.where(real[None, :], logits, NEG_INF)
+    top, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    gates = torch.softmax(top[:, :k], dim=-1)
+    expert_idx = idx[:, :k]
+    flat_e = expert_idx.t().reshape(-1)                        # (k*T,)
+    pos_in_e = torch.cumsum(F.one_hot(flat_e, e), dim=0) - 1   # (k*T, E)
+    flat_pos = torch.gather(pos_in_e, 1, flat_e[:, None])[:, 0]
+    return logits, gates, expert_idx, flat_pos, flat_pos < cap
+
+
+def moe_mlp(p, x: torch.Tensor, moe: MoEConfig) -> torch.Tensor:
+    """Top-k routed MoE with expert-capacity dispatch.
+
+    x: (B, S, D).  Tokens flatten to T = B*S; each picks top_k experts; each
+    expert processes at most C = ceil(T * k * cf / E) tokens (overflow is
+    dropped, standard GShard semantics).  Dummy padded experts are masked
+    out of the router.  C counts every token of the call, so in a batched
+    decode a slot's output depends on its neighbours' routing, as in the
+    JAX function.
+
+    Dispatch writes each kept row to its (expert, row) slot, which no other
+    kept row shares, and every dropped row to a spare row past C that is
+    cut off: the JAX scatter-add of zeros for dropped rows, with no
+    accumulation.  Combine sums each token's k weighted rows in slot
+    order, with no scatter (no atomics on the card).
+    """
+    b, s, d = x.shape
+    t, e, k = b * s, moe.experts, moe.top_k
+    cap = moe_capacity(t, moe)
+    xt = x.reshape(t, d)
+    _, gates, expert_idx, flat_pos, keep = moe_routing(p, xt, moe)
+    flat_e = expert_idx.t().reshape(-1)
+    flat_gate = gates.t().reshape(-1) * keep
+
+    buf = torch.zeros((e, cap + 1, d), dtype=x.dtype, device=x.device)
+    buf[flat_e, torch.where(keep, flat_pos, cap)] = xt.repeat(k, 1)
+    buf = buf[:, :cap]
+    h = einsum("ecd,edf->ecf", buf, p["wg"])
+    hi = einsum("ecd,edf->ecf", buf, p["wi"])
+    h = F.silu(h) * hi
+    out_e = einsum("ecf,efd->ecd", h, p["wo"])                 # (E, C, D)
+
+    safe_pos = torch.where(keep, flat_pos, cap - 1)
+    gathered = out_e[flat_e, safe_pos]                         # (k*T, D)
+    weighted = (gathered * flat_gate[:, None].to(x.dtype)).to(x.dtype)
+    weighted = weighted.view(k, t, d)
+    out = weighted[0]
+    for j in range(1, k):
+        out = out + weighted[j]
+    return out.reshape(b, s, d)

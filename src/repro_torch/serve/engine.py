@@ -10,11 +10,17 @@ as given (the layout advisor's "q8 weights" choice runs through
 
 Slot isolation is the engine's core invariant: every decode -- including
 the per-token prefill of a newly admitted request -- passes an `active`
-mask to `decode_step`, so slots that are not really stepping do not
-advance their KV position.  A request therefore produces exactly the same
-tokens whether it runs alone or with requests admitted mid-flight into
-neighboring slots.  Retired slots are reset before reuse so a new occupant
-never attends over its predecessor's KV entries.
+mask to `decode_step`, so slots that are not really stepping neither
+advance their KV position nor change their recurrent (RWKV / Mamba)
+state.  A request of a model without MoE layers therefore produces
+exactly the same tokens whether it runs alone or with requests admitted
+mid-flight into neighboring slots.  MoE layers are the exception, as in
+the JAX package: every slot, inactive ones included, is routed through
+the experts, whose capacity is sized from all the slots' tokens, so a
+slot's MoE output (and its logits) can depend on what its neighbours
+hold.  Retired slots are reset before reuse so a new occupant
+never attends over its predecessor's KV entries or inherits its
+recurrent state.
 
 Counterpart of the JAX package's `serve/engine.py`.  The jitted decode is
 an eager call; the next tokens of all active slots come from one argmax
@@ -61,7 +67,7 @@ class EngineConfig:
 
 
 class ServeEngine:
-    def __init__(self, cfg: ModelConfig, params: MD.UniformLM,
+    def __init__(self, cfg: ModelConfig, params: MD.LM,
                  ec: EngineConfig, device="cuda"):
         self.device = resolve_device(device)
         held = params["embed"].device
@@ -111,9 +117,9 @@ class ServeEngine:
             req = self.queue.pop(0)
             self.slots[i] = req
             if self.slot_pos[i]:
-                # slot reuse: zero the retired occupant's position so the
-                # new prompt starts at position 0 and never attends over
-                # its predecessor's KV entries
+                # slot reuse: zero the retired occupant's position and
+                # recurrent state so the new prompt starts at position 0
+                # and never attends over its predecessor's KV entries
                 self.state = MD.reset_slot(self.state, self.cfg, i)
                 self.slot_pos[i] = 0
             for tok in req.prompt[:-1]:

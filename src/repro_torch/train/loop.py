@@ -78,8 +78,9 @@ class Trainer:
             moments, grad_comp = "f32", None
 
         self.opt_cfg = AdamWConfig(lr=tc.lr, state_codec=moments)
-        self.data_cfg = DataConfig(vocab=cfg.vocab, batch=tc.batch,
-                                   seq=tc.seq, seed=tc.seed)
+        self.data_cfg = DataConfig(
+            vocab=cfg.vocab, batch=tc.batch, seq=tc.seq, seed=tc.seed,
+            d_model=cfg.d_model if cfg.frontend != "tokens" else 0)
         self._step_fn = make_train_step(
             cfg, self.opt_cfg, remat=True, grad_compression=grad_comp,
             attn_impl="chunked" if tc.seq >= 2048 else "full")

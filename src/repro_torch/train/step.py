@@ -31,6 +31,7 @@ from ..kernels.quantize_blockwise import (DEFAULT_BLOCK,
                                           quantize_blockwise_group)
 from ..models import model as MD
 from ..models.config import ModelConfig
+from ..models.interop import jax_ndim
 from ..optim import AdamWConfig, adamw_update
 
 Batch = Dict[str, torch.Tensor]
@@ -53,10 +54,12 @@ class _LossAndGrads(nn.Module):
         self.model, self.cfg = model, cfg
         self.remat, self.attn_impl = remat, attn_impl
 
-    def forward(self, tokens, labels, wrt):
-        loss = MD.loss_fn(self.model, self.cfg, tokens, labels,
+    def forward(self, tokens, labels, embeds, wrt):
+        loss = MD.loss_fn(self.model, self.cfg, tokens, labels, embeds,
                           remat=self.remat, attn_impl=self.attn_impl)
-        return loss, torch.autograd.grad(loss, wrt)
+        # a stub frontend's embedding table is unused: zero gradient, as
+        # jax.grad gives it
+        return loss, torch.autograd.grad(loss, wrt, materialize_grads=True)
 
 
 def on_wire(g: torch.Tensor) -> bool:
@@ -112,23 +115,27 @@ def make_loss_and_grads(cfg: ModelConfig, remat: bool = True,
     the forward and backward pass of `make_train_step`'s step.
 
     Mixed precision: params are the f32 master copy; a `compute_dtype` cast
-    of every float32 parameter with ndim > 1 feeds the forward and backward
-    (norm scales stay float32), and the gradients flow through the cast
-    back to float32 (one per parameter, keyed by `named_parameters()`).
+    of every float32 parameter whose JAX leaf has ndim > 1 feeds the
+    forward and backward, as the JAX step casts its stacked tree (so the
+    layers' 1-D parameters, norm scales included, are cast too, and only
+    the final norm's scale stays float32), and the gradients flow through
+    the cast back to float32 (one per parameter, keyed by
+    `named_parameters()`).
     """
 
     def loss_and_grads(params, batch: Batch):
         names, masters = zip(*params.named_parameters())
         run = _LossAndGrads(params, cfg, remat, attn_impl)
+        args = (batch["tokens"], batch["labels"], batch.get("embeds"),
+                masters)
         with torch.enable_grad():
             if compute_dtype is None:
-                loss, grads = run(batch["tokens"], batch["labels"], masters)
+                loss, grads = run(*args)
             else:
                 cast = {f"model.{n}": p.to(compute_dtype)
                         for n, p in zip(names, masters)
-                        if p.dtype == torch.float32 and p.ndim > 1}
-                loss, grads = torch.func.functional_call(
-                    run, cast, (batch["tokens"], batch["labels"], masters))
+                        if p.dtype == torch.float32 and jax_ndim(n, p) > 1}
+                loss, grads = torch.func.functional_call(run, cast, args)
         return loss.detach(), dict(zip(names, grads))
 
     return loss_and_grads
@@ -174,7 +181,8 @@ def make_prefill_step(cfg: ModelConfig) -> Callable:
     softmax) attention so long sequences never materialize S^2 scores."""
 
     def prefill(params, batch: Batch):
-        return MD.forward(params, cfg, batch["tokens"], attn_impl="chunked")
+        return MD.forward(params, cfg, batch.get("tokens"),
+                          batch.get("embeds"), attn_impl="chunked")
 
     return prefill
 

@@ -231,13 +231,17 @@ def test_h100_plan_picks_q8_weights_for_tinyllama_serving(budget):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_model_runs_the_dense_family_only(arch):
+def test_model_builds_every_family(arch):
+    """Each smoke configuration builds on the CPU, as a `HybridLM` for the
+    hybrid and a `UniformLM` otherwise, and its parameters, as a JAX-layout
+    tree, have the names and shapes of the JAX package's `init_params`."""
     cfg = reduced_for_smoke(port_get_config(arch))
-    if cfg.family == "dense" and cfg.frontend == "tokens":
-        TM.init_params(None, cfg, device="cpu")
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
-        TM.init_params(None, cfg, device="cpu")
+    model = TM.init_params(None, cfg, device="cpu")
+    assert isinstance(model, TM.HybridLM if cfg.hybrid else TM.UniformLM)
+    got = jax.tree.map(lambda a: a.shape, interop.params_to_numpy(model))
+    want = jax.tree.map(lambda a: a.shape,
+                        JM.params_shape(reduced_for_smoke(get_config(arch))))
+    assert got == want
 
 
 def test_entry_points_default_to_cuda():

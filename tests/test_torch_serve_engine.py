@@ -5,8 +5,8 @@ tokens for the same requests, on the CPU.
 Weights come from the JAX package's `init_params` and are carried into
 the port, so both engines serve the same model.  The invariants are exact
 (token lists equal); against the JAX engine the tokens are equal with a
-float32 KV cache.  (The RWKV case of the JAX suite waits for the RWKV
-port.)
+float32 KV cache.  (The RWKV case of the JAX suite is in
+`test_torch_rwkv.py`, the other families' in `test_torch_families.py`.)
 """
 import dataclasses
 

@@ -321,3 +321,51 @@ def gdict_edge_stack(n: int, seed: int):
     cols = np.stack(rows).astype(np.int64)
     widths = np.resize(np.array([1, 2, 4, 8, 3], dtype=np.int64), len(rows))
     return cols, widths
+
+
+def port_model_config(cfg):
+    """The port's ModelConfig equal to the JAX package's `cfg`, its MoE,
+    hybrid and RWKV parts included."""
+    import dataclasses
+
+    from repro_torch.models import config as C
+    d = dataclasses.asdict(cfg)
+    for key, cls in (("moe", C.MoEConfig), ("hybrid", C.HybridConfig),
+                     ("rwkv", C.RWKVConfig)):
+        if d[key] is not None:
+            d[key] = cls(**d[key])
+    return C.ModelConfig(**d)
+
+
+def carried_lm(cfg, seed: int = 0):
+    """(the port's config, JAX `init_params(PRNGKey(seed), cfg)`, the
+    port's CPU model carrying the same weights) for a JAX ModelConfig
+    (JAX is imported here: the card-side tests import this module on a
+    machine without it)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models import model as JM
+    from repro_torch.models import interop
+    pc = port_model_config(cfg)
+    jp = JM.init_params(jax.random.PRNGKey(seed), cfg, jnp.float32)
+    tp = interop.params_from_numpy(jax.tree.map(np.asarray, jp), pc,
+                                   device="cpu")
+    return pc, jp, tp
+
+
+def midflight_tokens(engine_mod, params, cfg, midflight: bool, **kw):
+    """Request 0's tokens from an engine module's `ServeEngine` (the JAX
+    package's or the port's; `kw` goes to its constructor), alone or with
+    request 1 admitted after two steps: `tests/test_serve_engine.py`'s
+    mid-flight parity run."""
+    eng = engine_mod.ServeEngine(cfg, params, engine_mod.EngineConfig(
+        batch_slots=2, max_len=64), **kw)
+    eng.submit(engine_mod.Request(uid=0, prompt=[5, 6, 7], max_new_tokens=5))
+    if midflight:
+        eng.step()
+        eng.step()
+        eng.submit(engine_mod.Request(uid=1, prompt=[9, 8, 4],
+                                      max_new_tokens=5))
+    eng.run_until_drained()
+    return eng.finished[0].out_tokens
