@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one GPU, end to end: the advisor, LM
-serving and LM training, and every model family.
+serving and LM training, every model family, and distribution.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught), run in the order
-1, 2, 3, 3b, 3c, 3d, 3e, 4, 5, 4b, 6, 4c, 6f, 7:
+1, 2, 3, 3b, 3c, 3d, 3e, 4, 5, 4b, 6, 4c, 6f, 7, 8:
   1. print the card (nvidia-smi name, power limit) and build the eighteen
      hand-written kernels from the sources under src/repro_torch/kernels/
      (four libraries, one nvcc per source, all started together);
@@ -162,7 +162,23 @@ Phases (any failure exits non-zero; nothing is caught), run in the order
      jamba-1.5-large-398b's smoke configuration the same way, and its
      Mamba block alone at d_model 8192 (a 64-token prefill at B = 4,
      then 8 decode steps from the carried conv and ssm state), card
-     against CPU; prints the phase's seconds.
+     against CPU; prints the phase's seconds;
+  8. distribution and launch (`phase_8`, module level): 8a phase 6's
+     TinyLlama-1.1B run (80 GB plan: the q8 wire, float32 moments), 3
+     steps unsharded, then 3 from the same seed after `Trainer.reshard`
+     onto `make_smoke_mesh` (a 1x1 NCCL mesh, FSDP2; a failed group fails
+     the phase): losses, parameters and moments bit-equal (else phase
+     6e's bounds, with the gap printed), the grouped q8 launches per step
+     on each run, step seconds, device busy share (one more traced step)
+     and peak memory of both; 8b one sharded step counted on the card
+     with the dry run's `StepCounter` (torch.utils.flop_counter's
+     formulas) and a forward with `FlopCounterMode`, beside `census(...,
+     n_chips=1, tp=1)` (the forward within 15 %), and the census's
+     roofline `t_bound` beside the measured step, with the card's name
+     and power limit; 8c the dry run (`launch.dryrun.run_cell`, on the
+     host) of TinyLlama's four shapes and yi-9b's train_4k on the 16x16
+     and 2x16x16 meshes: status and argument bytes per chip, failing on
+     an error; prints the phase's seconds.
 
 Prints the per-phase wall times, launch counts, kernel times beside their
 bounds, peak device memory, a JSON line of kernel records, the card line,
@@ -1089,6 +1105,195 @@ def phase_7(dev, prompts):
         gc.collect()
         torch.cuda.empty_cache()
     print(f"phase 7: {time.perf_counter() - t_phase:.3f} s")
+
+
+def phase_8(lm, dev):
+    """Phase 8: distribution and launch.  8a the sharded training step
+    (TinyLlama-1.1B, phase 6's configuration: Trainer.reshard onto a 1x1
+    NCCL mesh, FSDP2) against the unsharded step from the same seed; 8b
+    the step's FLOPs counted on the card beside the census and the report's
+    t_bound beside the measured step; 8c the dry run.  Returns the sharded
+    run's launch counts."""
+    import torch
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.distributed.sharding import (activation_specs,
+                                                  param_specs)
+    from repro_torch.kernels import (launch_counts, quantize_blockwise as qb,
+                                     reset_launch_counts)
+    from repro_torch.launch import census as CS, dryrun as DR
+    from repro_torch.launch import roofline as RL
+    from repro_torch.launch.mesh import dist_config, make_smoke_mesh
+    from repro_torch.train import step as train_step
+    from repro_torch.train.loop import TrainConfig, Trainer
+    from torch.utils.flop_counter import FlopCounterMode
+
+    t_phase = time.perf_counter()
+    torch.set_grad_enabled(True)
+    try:
+        mesh = make_smoke_mesh(dev)
+    except Exception as e:  # noqa: BLE001: the phase fails on it
+        fail(f"phase 8a: the NCCL group or the 1x1 mesh failed: "
+             f"{type(e).__name__}: {e}")
+    dist = dist_config()
+    act = activation_specs(dist)
+    steps = 3
+
+    def run(sharded):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counts()
+        tr = Trainer(lm, TrainConfig(
+            steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR,
+            hbm_budget_bytes=TRAIN_BUDGETS[0], seed=0, log_every=1),
+            device=dev)
+        if sharded:
+            tr.reshard(mesh, param_specs(tr.params, lm, dist, mesh),
+                       {"hidden": act["hidden"], "logits": act["logits"]})
+        tr.run()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        secs = [h["seconds"] for h in tr.history]
+        return tr, counts, peak, secs
+
+    def busy(tr):
+        """Device busy share of one more step under torch.profiler."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            tr.run(1)
+        step_us = tr.history[-1]["seconds"] * 1e6
+        dev_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                     if e.device_type == DeviceType.CUDA)
+        return dev_us / step_us if dev_us > 0 else float("nan")
+
+    plain, counts_p, peak_p, secs_p = run(False)
+    want = host_copy(plain.params, plain.opt_state)
+    losses_p = [h["loss"] for h in plain.history]
+    busy_p = busy(plain)
+    plist = [p_ for _, p_ in plain.params.named_parameters()]
+    n_group = sum(-(-len(b) // qb.group_capacity())
+                  for b in train_step.wire_buckets(plist))
+    # q8 moments (not at 80 GB): one grouped launch each way per parameter
+    n_group += len(plist) if plain.opt_cfg.state_codec == "q8" else 0
+    del plain, plist
+    sharded, counts_s, peak_s, secs_s = run(True)
+    got = host_copy(sharded.params, sharded.opt_state)
+    losses_s = [h["loss"] for h in sharded.history][:steps]
+    kinds = sorted({type(p_).__name__ for p_ in sharded.params.parameters()})
+    print(f"phase 8a: Trainer({LM_ARCH}, batch {TRAIN_BATCH}, seq "
+          f"{TRAIN_SEQ}, lr {TRAIN_LR}, plan {sharded.plan.choices}) "
+          f"resharded onto mesh {tuple(mesh.mesh_dim_names)} "
+          f"{tuple(mesh.mesh.shape)} over "
+          f"{torch.distributed.get_backend()} (parameters {kinds}, "
+          f"n_chips {sharded.n_chips}); {steps} steps each")
+    print(f"phase 8a: losses sharded {losses_s}, unsharded {losses_p}")
+    for label, secs, peak, b in (("unsharded", secs_p, peak_p, busy_p),
+                                 ("sharded", secs_s, peak_s, None)):
+        step_s = sum(secs[1:steps]) / (steps - 1)
+        if b is None:
+            b = busy(sharded)
+        print(f"phase 8a: {label}: step seconds {secs[:steps]}, "
+              f"{step_s:.4f} s per step without step 0, device busy "
+              f"{b:.4f} (one more step under torch.profiler), peak device "
+              f"memory {peak} B")
+    step_s8 = sum(secs_s[1:steps]) / (steps - 1)
+    unequal, gap = state_gap(want, got)
+    if losses_s != losses_p or unequal:
+        print(f"phase 8a: NOT bit-equal: {unequal} tensors differ, by up "
+              f"to {gap}; losses {losses_s} against {losses_p}")
+        for a_, b_ in zip(losses_s, losses_p):
+            if not math.isclose(a_, b_, rel_tol=TRAIN_LOSS_RTOL):
+                fail(f"phase 8a: losses {losses_s} and {losses_p} differ "
+                     f"beyond rtol {TRAIN_LOSS_RTOL}")
+        far = total = 0
+        for k in want:
+            if not k.startswith("params/"):
+                continue
+            for x, y in zip(want[k], got[k]):
+                d = (x.double() - y.double()).abs()
+                far += int((d > TRAIN_PARAM_ATOL).sum())
+                total += d.numel()
+        if gap > 6 * TRAIN_LR or far > TRAIN_FAR_SHARE * total:
+            fail(f"phase 8a: parameters differ by up to {gap}; {far} of "
+                 f"{total} beyond {TRAIN_PARAM_ATOL}")
+    else:
+        print(f"phase 8a: losses, parameters and moments bit-equal to the "
+              f"unsharded run ({len(got)} leaves)")
+    per_step = {"quantize_blockwise": n_group, "dequantize_blockwise": n_group}
+    for counts, label in ((counts_p, "unsharded"), (counts_s, "sharded")):
+        for k, n_k in per_step.items():
+            if counts[k] != steps * n_k:
+                fail(f"phase 8a: {label}: {counts[k]} {k} launches, not "
+                     f"{steps} steps x {n_k}")
+    print(f"phase 8a: {n_group} quantize_blockwise and {n_group} "
+          f"dequantize_blockwise launches per step on each run (the q8 "
+          f"wire on the gradients' local shards, and AdamW's q8 moments "
+          f"where the plan takes them); launches in the sharded run: "
+          f"{json.dumps(counts_s)}")
+    del want, got
+
+    # 8b: the step's FLOPs on the card against the census
+    counter = DR.StepCounter()
+    with counter:
+        sharded.run(1)
+    torch.cuda.synchronize()
+    fwd = FlopCounterMode(display=False)
+    tokens = batch_at(sharded.data_cfg, 0, dev)["tokens"]
+    with fwd, torch.no_grad():
+        sharded.params(tokens, attn_impl="chunked", remat=False)
+    cen = CS.census(lm, "train", TRAIN_BATCH, TRAIN_SEQ, n_chips=1, tp=1)
+    cen_fwd = sum(CS.forward_flops(lm, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ,
+                                   False).values())
+    ratio = cen_fwd / fwd.get_total_flops()
+    rl = RL.analyze(cen.flops, cen.hbm_bytes, RL.CollectiveStats(), 1)
+    print(f"phase 8b: one sharded step counted on the card "
+          f"(StepCounter: torch.utils.flop_counter's formulas): "
+          f"{counter.flops:.6g} FLOPs, {counter.bytes:.6g} op bytes; "
+          f"census(train, batch {TRAIN_BATCH}, seq {TRAIN_SEQ}, n_chips 1, "
+          f"tp 1): {cen.flops:.6g} FLOPs, {cen.hbm_bytes:.6g} HBM bytes "
+          f"(step count / census {counter.flops / cen.flops:.4f}); "
+          f"forward: FlopCounterMode {fwd.get_total_flops():.6g}, census "
+          f"{cen_fwd:.6g}, census / counted {ratio:.4f}")
+    if abs(ratio - 1) >= 0.15:
+        fail(f"phase 8b: the census's forward FLOPs are {ratio:.4f} of "
+             f"FlopCounterMode's (the reference holds dense models within "
+             f"15 %)")
+    print(f"phase 8b: roofline of that cell on the H100's constants: "
+          f"t_compute {rl.t_compute:.6g} s, t_memory {rl.t_memory:.6g} s, "
+          f"t_bound {rl.t_bound:.6g} s ({rl.bottleneck}); measured sharded "
+          f"step {step_s8:.6g} s: {rl.t_bound / step_s8:.4f} of the "
+          f"roofline (card: {card_line()})")
+    del sharded, counter, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 8c: the dry run on the production meshes
+    t0 = time.perf_counter()
+    cells = [(LM_ARCH, sh) for sh in DR.SHAPES] + [("yi-9b", "train_4k")]
+    for arch, sh in cells:
+        for mp in (False, True):
+            rec = DR.run_cell(arch, sh, multi_pod=mp)
+            mem = rec.get("memory") or {}
+            print(f"phase 8c: dry run {arch} {sh} {rec['mesh']}: "
+                  f"{rec['status']}"
+                  + (f", argument bytes per chip {mem['argument_bytes']} "
+                     f"(params {mem['param_bytes']}, moments "
+                     f"{mem['moment_bytes']}, inputs {mem['input_bytes']})"
+                     f", {rec['roofline']['flops_per_chip']:.6g} FLOPs per "
+                     f"chip, collectives {rec['collective_counts']}, "
+                     f"{rec['count_s']} s" if rec["status"] == "ok" else
+                     f" ({rec.get('reason', '')})"))
+            if rec["status"] == "error" or (
+                    rec["status"] == "skipped" and sh != "long_500k"):
+                fail(f"phase 8c: {arch} {sh}: {rec}")
+    print(f"phase 8c: {len(cells) * 2} cells in "
+          f"{time.perf_counter() - t0:.3f} s")
+    print(f"phase 8: {time.perf_counter() - t_phase:.3f} s")
+    return counts_s
 
 
 def main() -> int:
@@ -3608,6 +3813,13 @@ def main() -> int:
 
     # ---- phase 7: the remaining model families --------------------------
     phase_7(dev, prompts)
+
+    # ---- phase 8: distribution and launch -------------------------------
+    launches8 = phase_8(lm, dev)
+    for rec in records:
+        if rec["name"] in ("quantize_blockwise", "dequantize_blockwise"):
+            rec["launches_by_phase"]["8a"] = launches8[rec["name"]]
+            rec["launches"] += launches8[rec["name"]]
 
     print(json.dumps({"kernels": records}))
     print(f"card: {card}")

@@ -3,7 +3,7 @@
 
 32L d_model=1536, 24 heads GQA kv=8 (head_dim 64), MoE 40 experts top-8
 with d_ff_expert=512, vocab=49155.  40 experts pad to 48 and vocab to
-49168 for TP=16 (function-preserving; the padding waits for the tensor-parallel slice).
+49168 for TP=16 (function-preserving; `models.config.pad_for_tp`).
 """
 from ..models.config import ModelConfig, MoEConfig
 

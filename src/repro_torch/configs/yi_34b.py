@@ -2,8 +2,7 @@
 
 60L d_model=7168, 56 heads GQA kv=8 (head_dim 128), d_ff=20480, vocab=64000.
 llama-architecture with SwiGLU.  56 q heads pad to 64 / kv to 16 for TP=16
-(function-preserving zero weights; the padding waits for the
-tensor-parallel slice).
+(function-preserving zero weights; `models.config.pad_for_tp`).
 """
 from ..models.config import ModelConfig
 

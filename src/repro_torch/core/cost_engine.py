@@ -25,11 +25,15 @@ Backends: with no device (numpy) everything is float64 NumPy, bitwise
 equal to the JAX package's numpy backend.  With a torch device the three
 greedy-step scoring functions — add-secondary, replace-clustered and
 per-query candidate costing — run as float32 torch ops on the device (the
-op sequences of the JAX package's `jax.jit` scorers; the weighted sum
-`q_w @ new_q` is a float32 `torch.matmul`, which PyTorch runs in full
-float32 unless TF32 is switched on).  The cost matrices themselves stay
-on the host, as in the reference, and each scoring call copies its
-slices to the device in one transfer.
+op sequences of the JAX package's `jax.jit` scorers).  The weighted sum
+`q_w @ new_q` is not a BLAS call: XLA's CPU dot sums a vector-matrix
+product as a chain of float32 fused multiply-adds in query order, and a
+BLAS library picks its own order per CPU branch, which moves the greedy's
+near-zero benefits across its threshold.  `_fma_chain` computes that
+chain exactly, with the same ops on the CPU and the card, so the totals
+are the JAX package's bit for bit where XLA keeps query order.  The cost
+matrices themselves stay on the host, as in the reference, and each
+scoring call copies its slices to the device in one transfer.
 
 Online sessions keep one engine across workload deltas (`apply_delta`,
 `sync_sizes`): removed statements' rows are dropped, reweights touch only
@@ -496,6 +500,64 @@ def _pages_f32(size: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(size, 0.0) / cm.PAGE_BYTES
 
 
+# float64 bit patterns: the 29 low mantissa bits that float32 drops, and
+# their value on a float32 midpoint; float32's smallest normal and largest
+# finite magnitudes
+_LOW29 = (1 << 29) - 1
+_HALF29 = 1 << 28
+_F32_MIN = 2.0 ** -126
+_F32_MAX = (2.0 - 2.0 ** -23) * 2.0 ** 127
+
+
+def _rn32_add(a: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """float32 round-to-nearest of `a + p`, exactly, in float64 ops.
+
+    `a` holds float32 values and `p` products of two float32 values (exact
+    in float64).  A float64 sum rounded again to float32 can round twice
+    the wrong way, so the float64 sum is first made round-to-odd: its
+    error `e` (TwoSum, exact) moves an inexact sum with an even last bit
+    one ulp toward the exact value.  53 >= 24 + 2 bits make the second
+    rounding correct.  Returns the float32 result held in float64."""
+    s = a + p
+    bb = s - a
+    e = torch.nan_to_num((a - (s - bb)) + (p - bb), nan=0.0, posinf=0.0,
+                         neginf=0.0)                  # 0 where s is inf
+    inexact = e != 0
+    toward_zero = (torch.signbit(e) ^ torch.signbit(s)) & inexact
+    bits = (s.view(torch.int64) - toward_zero.long()) | inexact.long()
+    return bits.view(torch.float64).float().double()
+
+
+def _fma_chain(q_w: torch.Tensor, new_q: torch.Tensor) -> torch.Tensor:
+    """`q_w @ new_q` over the query axis as XLA's CPU dot computes it: per
+    column acc = fma(q_w[i], new_q[i], acc) for i in query order, from 0,
+    rounded to float32 at each step.  (nq,), (nq, m) -> (m,) float32.
+
+    Each step adds the exact float64 product to the float32 accumulator in
+    float64 and rounds to float32: two ops a query.  That second rounding
+    is exact unless the float64 sum fell on a float32 midpoint (or left
+    float32's normal range), where it may have been rounded there from
+    either side; the sums are checked once at the end, and a chain that
+    met such a sum is computed again with `_rn32_add`."""
+    p = q_w.double()[:, None] * new_q.double()         # exact products
+    sums = torch.empty_like(p)
+    acc = torch.zeros(new_q.shape[1:], dtype=torch.float32,
+                      device=new_q.device)
+    for p_i, s_i in zip(p.unbind(0), sums.unbind(0)):
+        torch.add(acc, p_i, out=s_i)
+        acc = s_i.float()
+    mag = sums.abs()
+    hazard = ((sums.view(torch.int64) & _LOW29) == _HALF29) | \
+        ((mag < _F32_MIN) & (mag != 0)) | (mag > _F32_MAX)
+    if bool(hazard.any()):
+        exact = torch.zeros(new_q.shape[1:], dtype=torch.float64,
+                            device=new_q.device)
+        for p_i in p.unbind(0):
+            exact = _rn32_add(exact, p_i)
+        acc = exact.float()
+    return acc
+
+
 def _score_secondary_torch(cur_q, cov, seek, ridr, size_c, beta_c,
                            ncols_used, q_w):
     """New weighted query totals when each candidate secondary is added."""
@@ -505,7 +567,7 @@ def _score_secondary_torch(cur_q, cov, seek, ridr, size_c, beta_c,
            + beta_c * ridr * ncols_used[:, None])
     path = torch.minimum(cov, seek + rid)
     new_q = torch.minimum(cur_q[:, None], path)
-    return q_w @ new_q
+    return _fma_chain(q_w, new_q)
 
 
 def _score_replace_torch(scanc_c, cov, seek, ridr, size_c, beta_c,
@@ -521,7 +583,7 @@ def _score_replace_torch(scanc_c, cov, seek, ridr, size_c, beta_c,
            + beta_c * r3 * ncols_used[:, None, None])
     path = torch.minimum(cov[:, :, None], seek[:, :, None] + rid)
     new_q = torch.minimum(scanc_c, path.amin(dim=1))
-    return q_w @ new_q
+    return _fma_chain(q_w, new_q)
 
 
 def _own_path_torch(cov, seek, ridr, size_c, beta_c, ncq, is_sec):

@@ -11,18 +11,20 @@ Counterpart of the JAX package's `data/pipeline.py`: the same NumPy
 generator gives the same tokens and labels, returned as int32 tensors on
 the port's device (the card unless the caller asks for the CPU), and the
 stub embeddings of the vlm / audio frontends (`d_model` > 0) with JAX's
-bfloat16 bits.  The JAX `sharding` argument waits for the distribution
-slice (ROADMAP.md Queue A item 13).
+bfloat16 bits.  With `sharding` (a mesh and activation specs), each
+batch tensor becomes a `DTensor` on the mesh, placed by its spec.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import distribute_tensor
 
-from ..device import resolve_device
+from ..device import resolve_tensor_device
+from ..distributed.sharding import placements
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,14 +51,20 @@ def _tokens_for(cfg: DataConfig, step: int) -> np.ndarray:
     return toks.astype(np.int32)
 
 
-def batch_at(cfg: DataConfig, step: int,
-             device="cuda") -> Dict[str, torch.Tensor]:
+def batch_at(cfg: DataConfig, step: int, device="cuda",
+             sharding: Optional[Tuple[object, Mapping]] = None
+             ) -> Dict[str, torch.Tensor]:
     """Batch for `step`: tokens and next-token labels, (batch, seq) int32,
     and with `cfg.d_model` > 0 stub embeddings "embeds" (batch, seq,
     d_model) bfloat16: float32 normals * 0.02 from a generator seeded with
     seed * 7 + step, rounded to nearest even as `jnp.asarray(...,
-    jnp.bfloat16)` rounds them."""
-    dev = resolve_device(device)
+    jnp.bfloat16)` rounds them.
+
+    `sharding` = (a DeviceMesh on `device`'s type, {name: spec}) (the
+    activation specs of `distributed.sharding`): the tensors it names are
+    distributed over the mesh by their specs' `placements`, the others
+    dropped, as the JAX function keeps only what its sharding names."""
+    dev = resolve_tensor_device(device)
     toks = _tokens_for(cfg, step)
     labels = np.concatenate([toks[:, 1:], toks[:, :1]], axis=1)
     out = {"tokens": torch.from_numpy(toks).to(dev),
@@ -66,4 +74,8 @@ def batch_at(cfg: DataConfig, step: int,
         emb = rng.standard_normal((cfg.batch, cfg.seq, cfg.d_model),
                                   np.float32) * 0.02
         out["embeds"] = torch.from_numpy(emb).to(torch.bfloat16).to(dev)
+    if sharding is not None:
+        mesh, specs = sharding
+        out = {k: distribute_tensor(v, mesh, placements(specs[k], mesh))
+               for k, v in out.items() if k in specs}
     return out

@@ -24,3 +24,10 @@ def resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
     return dev
+
+
+def resolve_tensor_device(device) -> torch.device:
+    """`resolve_device`, and also the meta device (shapes without storage:
+    the dry run builds the LM stack's tensors there)."""
+    dev = torch.device(device)
+    return dev if dev.type == "meta" else resolve_device(dev)

@@ -6,12 +6,13 @@ transformers, MoE transformers, RWKV6 (attention-free), and the Jamba-style
 hybrid (Mamba + attention 1:7 with interleaved MoE).
 
 The `*_padded` fields hold the head, expert and vocab counts padded to
-divide a tensor-parallel model axis; 0 means the logical count.  The
-function that pads them waits for the port's tensor-parallel slice.
+divide a tensor-parallel model axis (`pad_for_tp`); 0 means the logical
+count.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 
@@ -137,6 +138,37 @@ class ModelConfig:
             for i in range(self.n_layers):
                 total += attn_params() + mlp_params(i) + 2 * d
         return int(total)
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return int(math.ceil(x / m) * m)
+
+
+def pad_for_tp(cfg: ModelConfig, tp: int, pad_kv: bool = True) -> ModelConfig:
+    """Pad head/expert/vocab counts to divide the model axis (function-
+    preserving: padded heads/experts carry zero output weights).
+
+    pad_kv=False keeps the LOGICAL kv-head count (used when the KV cache is
+    sequence-sharded instead of head-sharded: no padding waste; the kv
+    projections replicate, which is cheap)."""
+    changes = {}
+    if cfg.mixer == "attn" or cfg.hybrid is not None:
+        nh = _ceil_to(cfg.n_heads, tp)
+        nkv = cfg.n_kv_heads
+        if pad_kv:
+            nkv = tp if nkv < tp else _ceil_to(nkv, tp)
+        if nh != cfg.n_heads:
+            changes["n_heads_padded"] = nh
+        if nkv != cfg.n_kv_heads:
+            changes["n_kv_heads_padded"] = nkv
+    if cfg.vocab % tp:
+        changes["vocab_padded"] = _ceil_to(cfg.vocab, tp)
+    moe = cfg.moe
+    if moe is not None and moe.experts % tp:
+        moe = dataclasses.replace(moe,
+                                  n_experts_padded=_ceil_to(moe.n_experts, tp))
+        changes["moe"] = moe
+    return dataclasses.replace(cfg, **changes) if changes else cfg
 
 
 def reduced_for_smoke(cfg: ModelConfig) -> ModelConfig:

@@ -24,6 +24,7 @@ from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from .config import ModelConfig
 from .model import LM, init_params
@@ -139,10 +140,20 @@ def checkpoint_leaves(params: LM, opt_state: Optional[Mapping] = None
     leading shape, the port's tensors that make it): () and one tensor, or
     (n_layers,) with one tensor per layer in layer order, or, for a hybrid
     group's blocks, (n_groups, n_blocks) with the tensors in row-major
-    order (the JAX leaf stacks them along those axes)."""
+    order (the JAX leaf stacks them along those axes).  A tensor on a
+    mesh of one device (`Trainer.reshard` on the smoke mesh) is its local
+    shard, which is the whole tensor; a leaf sharded over more devices
+    raises (a sharded checkpoint is not ported)."""
     items: Dict[str, list] = {}
 
     def add(key: str, index: Tuple[int, ...], t: torch.Tensor) -> None:
+        if isinstance(t, DTensor):
+            if t.device_mesh.size() != 1:
+                raise NotImplementedError(
+                    f"{key}: a checkpoint of a tensor sharded over "
+                    f"{t.device_mesh.size()} devices is not ported; only "
+                    "a mesh of one device is")
+            t = t.to_local()
         items.setdefault(key, []).append((index, t))
 
     moments = None if opt_state is None else opt_state["moments"]

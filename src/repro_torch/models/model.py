@@ -31,7 +31,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..device import resolve_device
+from ..device import resolve_tensor_device
 from . import layers as L
 from . import mamba as M
 from . import rwkv as R
@@ -65,8 +65,10 @@ class _LM(nn.Module):
         return getattr(self, key)
 
     def forward(self, tokens: Optional[torch.Tensor] = None,
-                embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return forward(self, self.cfg, tokens, embeds)
+                embeds: Optional[torch.Tensor] = None,
+                attn_impl: str = "full", remat: bool = False
+                ) -> torch.Tensor:
+        return forward(self, self.cfg, tokens, embeds, attn_impl, remat)
 
 
 class UniformLM(_LM):
@@ -75,7 +77,7 @@ class UniformLM(_LM):
 
     def __init__(self, generator: torch.Generator, cfg: ModelConfig,
                  device="cuda"):
-        dev = resolve_device(device)
+        dev = resolve_tensor_device(device)
         super().__init__(generator, cfg, dev)
         self.layers = nn.ModuleList(
             _init_uniform_layer(generator, cfg, dev)
@@ -89,7 +91,7 @@ class HybridLM(_LM):
 
     def __init__(self, generator: torch.Generator, cfg: ModelConfig,
                  device="cuda"):
-        dev = resolve_device(device)
+        dev = resolve_tensor_device(device)
         super().__init__(generator, cfg, dev)
         self.groups = nn.ModuleList(
             _init_group(generator, cfg, dev)
@@ -145,7 +147,7 @@ def init_params(generator: Optional[torch.Generator], cfg: ModelConfig,
     0 on `device` when it is None: a `HybridLM` for the hybrid family, a
     `UniformLM` for the others."""
     if generator is None:
-        generator = torch.Generator(resolve_device(device))
+        generator = torch.Generator(resolve_tensor_device(device))
         generator.manual_seed(0)
     return (HybridLM if is_hybrid(cfg) else UniformLM)(generator, cfg,
                                                        device)
@@ -256,8 +258,15 @@ def loss_fn(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
             labels: torch.Tensor, embeds: Optional[torch.Tensor] = None,
             remat: bool = False, attn_impl: str = "full") -> torch.Tensor:
     """Causal LM loss; padded vocab entries are masked out of the softmax."""
-    logits = forward(params, cfg, tokens, embeds, attn_impl=attn_impl,
-                     remat=remat).to(torch.float32)
+    return loss_from_logits(
+        forward(params, cfg, tokens, embeds, attn_impl=attn_impl,
+                remat=remat), cfg, labels)
+
+
+def loss_from_logits(logits: torch.Tensor, cfg: ModelConfig,
+                     labels: torch.Tensor) -> torch.Tensor:
+    """`loss_fn` of the logits `forward` gave (cast to float32 here)."""
+    logits = logits.to(torch.float32)
     if cfg.vocab_p != cfg.vocab:
         mask = torch.arange(cfg.vocab_p, device=logits.device) < cfg.vocab
         logits = torch.where(mask, logits, L.NEG_INF)
@@ -275,7 +284,7 @@ def init_serve_state(cfg: ModelConfig, batch: int, max_len: int,
     """pos (B,) per slot; a KV cache for the attention layers; RWKV state
     (layers first, batch on axis 1, no KV cache) or the hybrid's Mamba
     conv and ssm state ((n_groups, n_mamba, B, ...), both float32)."""
-    dev = resolve_device(device)
+    dev = resolve_tensor_device(device)
     # pos is PER-SLOT (B,): slot-based continuous batching (vLLM-style)
     state: State = {"pos": torch.zeros(batch, dtype=torch.int32, device=dev)}
     if is_hybrid(cfg):

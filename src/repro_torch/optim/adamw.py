@@ -32,6 +32,11 @@ float32 from an int32 step).  Differences:
 * The JAX `q_block` option is gone: the moments use the kernels'
   `DEFAULT_BLOCK` (128), the block of the gradient wire and of the layout
   advisor's q8 costing.
+* Parameters on a mesh (`torch.distributed.tensor.DTensor`s, after
+  `Trainer.reshard`) keep moments with their placements; the update runs
+  on the local shards (the gradients it is given are local shards too),
+  through the same kernels, and a q8 moment's blocks are its local
+  shard's.
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ from typing import Any, Dict, Mapping, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from ..kernels.quantize_blockwise import (DEFAULT_BLOCK,
                                           dequantize_blockwise_group,
@@ -58,30 +64,46 @@ class AdamWConfig:
     state_codec: str = "f32"      # "f32" | "q8"
 
 
+def local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (a view), or `t` itself."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def like(new: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """The local tensor `new` with the placements of `ref` where `ref` is a
+    DTensor (a moment of a parameter on a mesh), else `new` itself."""
+    if isinstance(ref, DTensor):
+        return DTensor.from_local(new, ref.device_mesh, ref.placements,
+                                  run_check=False)
+    return new
+
+
 def adamw_init(params: nn.Module, cfg: AdamWConfig) -> State:
-    """Zero moments for every parameter, and step 0 (an int32 tensor on the
-    parameters' device)."""
+    """Zero moments for every parameter (with the placements of a
+    parameter on a mesh), and step 0 (an int32 tensor on the parameters'
+    device)."""
     if cfg.state_codec not in ("f32", "q8"):
         raise ValueError(f"state_codec {cfg.state_codec!r} is not f32 or q8")
     moments = {}
     for name, p in params.named_parameters():
+        lp = local(p)
         if cfg.state_codec == "q8":
-            s_shape = (*p.shape[:-1], -(-p.shape[-1] // DEFAULT_BLOCK))
-            moments[name] = {
-                "m_q": torch.zeros(p.shape, dtype=torch.int8,
-                                   device=p.device),
-                "m_s": torch.zeros(s_shape, dtype=torch.float32,
-                                   device=p.device),
-                "v_q": torch.zeros(p.shape, dtype=torch.int8,
-                                   device=p.device),
-                "v_s": torch.zeros(s_shape, dtype=torch.float32,
-                                   device=p.device)}
+            s_shape = (*lp.shape[:-1], -(-lp.shape[-1] // DEFAULT_BLOCK))
+            mom = {"m_q": torch.zeros(lp.shape, dtype=torch.int8,
+                                      device=lp.device),
+                   "m_s": torch.zeros(s_shape, dtype=torch.float32,
+                                      device=lp.device),
+                   "v_q": torch.zeros(lp.shape, dtype=torch.int8,
+                                      device=lp.device),
+                   "v_s": torch.zeros(s_shape, dtype=torch.float32,
+                                      device=lp.device)}
         else:
-            moments[name] = {"m": torch.zeros(p.shape, dtype=torch.float32,
-                                              device=p.device),
-                             "v": torch.zeros(p.shape, dtype=torch.float32,
-                                              device=p.device)}
-    device = next(params.parameters()).device
+            mom = {"m": torch.zeros(lp.shape, dtype=torch.float32,
+                                    device=lp.device),
+                   "v": torch.zeros(lp.shape, dtype=torch.float32,
+                                    device=lp.device)}
+        moments[name] = {k: like(t, p) for k, t in mom.items()}
+    device = local(next(params.parameters())).device
     return {"step": torch.zeros((), dtype=torch.int32, device=device),
             "moments": moments}
 
@@ -126,6 +148,8 @@ def adamw_update(params: nn.Module, grads: Mapping[str, torch.Tensor],
     upd = upd_q8 if cfg.state_codec == "q8" else upd_f32
     moments = state["moments"]
     for name, p in params.named_parameters():
-        moments[name] = upd(p, grads[name], moments[name])
+        new = upd(local(p), local(grads[name]),
+                  {k: local(t) for k, t in moments[name].items()})
+        moments[name] = {k: like(t, p) for k, t in new.items()}
     state["step"] = step
     return params, state

@@ -6,27 +6,33 @@
   `straggler_factor` x EMA is logged and counted -- the hook where a
   multi-host deployment would trigger re-sharding away from the slow host
   (`on_straggler` exposes it for tests and integrations);
+* elastic scaling: `reshard(mesh, specs)` moves the parameters and the
+  AdamW moments onto a `DeviceMesh` (FSDP2 over its data axes; works
+  because the data pipeline is stateless-in-step);
 * gradient compression and compressed optimizer moments come from the
   design advisor's LayoutPlan (the paper's technique driving the trainer).
 
-Counterpart of the JAX package's `train/loop.py` on one card (the plan is
-made for `n_chips = 1`).  Checkpoints take the port's default codecs
-(zlib; `checkpoint.manager`), and a trainer resumes from a checkpoint of
-the JAX package's as well.  `reshard` (elastic scaling) waits for the
-distribution slice (ROADMAP.md Queue A item 13).
+Counterpart of the JAX package's `train/loop.py`.  The plan is made for
+one card at construction; `n_chips` follows the mesh after `reshard`.
+Checkpoints take the port's default codecs (zlib; `checkpoint.manager`),
+and a trainer resumes from a checkpoint of the JAX package's as well.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Mapping, Optional
 
 import torch
+from torch.distributed.fsdp import MixedPrecisionPolicy, fully_shard
+from torch.distributed.tensor import DTensor, Shard, distribute_tensor
 
 from ..checkpoint.manager import CheckpointConfig, CheckpointManager
 from ..data.pipeline import DataConfig, batch_at
 from ..design.advisor import plan_layout
 from ..device import resolve_device
+from ..distributed.sharding import (DistConfig, Spec, activation_specs,
+                                    entry_axes, mesh_sizes)
 from ..models import model as MD
 from ..models.config import ModelConfig
 from ..optim import AdamWConfig, adamw_init
@@ -63,10 +69,13 @@ class Trainer:
         self.history: List[Dict[str, float]] = []
 
         # --- the paper's advisor chooses the physical layout ---
-        n_chips = 1
-        flops = 6.0 * cfg.param_count() * tc.batch * tc.seq / n_chips
+        self.mesh = None
+        self._sharding = None       # the batch's placements after reshard
+        self.n_chips = 1
+        flops = 6.0 * cfg.param_count() * tc.batch * tc.seq / self.n_chips
         if tc.use_design_advisor:
-            self.plan = plan_layout(cfg, "train", tc.batch, tc.seq, n_chips,
+            self.plan = plan_layout(cfg, "train", tc.batch, tc.seq,
+                                    self.n_chips,
                                     tc.hbm_budget_bytes,
                                     base_flops_per_chip=flops)
             moments = ("q8" if self.plan.choices.get("adam_m") == "q8"
@@ -81,6 +90,7 @@ class Trainer:
         self.data_cfg = DataConfig(
             vocab=cfg.vocab, batch=tc.batch, seq=tc.seq, seed=tc.seed,
             d_model=cfg.d_model if cfg.frontend != "tokens" else 0)
+        self.grad_compression = grad_comp
         self._step_fn = make_train_step(
             cfg, self.opt_cfg, remat=True, grad_compression=grad_comp,
             attn_impl="chunked" if tc.seq >= 2048 else "full")
@@ -108,6 +118,30 @@ class Trainer:
         self.step = step
         print(f"[trainer] resumed from step {step}")
 
+    def reshard(self, mesh, specs: Mapping[str, Spec],
+                act_specs: Optional[Mapping] = None) -> None:
+        """Elastic scaling: move the parameters and the AdamW moments onto
+        `mesh`, a DeviceMesh with a "model" axis and data axes ("data",
+        and "pod" on the multi-pod mesh), as `specs` ({name: spec},
+        `distributed.sharding.param_specs`) shard them (`shard_params`
+        with the step's bfloat16 compute copy, `shard_opt_state`); the
+        batches follow with the activation specs' placements.  `act_specs`
+        go to the step (`make_train_step`).  Raises NotImplementedError for
+        a model axis larger than 1."""
+        shard_params(self.params, mesh, specs)
+        shard_opt_state(self.opt_state, self.params)
+        act = activation_specs(DistConfig(
+            pod_axis="pod" if "pod" in mesh.mesh_dim_names else None))
+        self._sharding = (mesh, {k: act[k] for k in ("tokens", "labels",
+                                                     "embeds")})
+        self.mesh = mesh
+        self.n_chips = mesh.size()
+        self._step_fn = make_train_step(
+            self.cfg, self.opt_cfg, remat=True,
+            grad_compression=self.grad_compression,
+            attn_impl="chunked" if self.tc.seq >= 2048 else "full",
+            act_specs=act_specs)
+
     # ------------------------------------------------------------------
     def run(self, steps: Optional[int] = None) -> Dict[str, Any]:
         steps = steps if steps is not None else self.tc.steps
@@ -115,7 +149,8 @@ class Trainer:
         target = self.step + steps
         first = True
         while self.step < target:
-            batch = batch_at(self.data_cfg, self.step, self.device)
+            batch = batch_at(self.data_cfg, self.step, self.device,
+                             sharding=self._sharding)
             t0 = time.perf_counter()
             self.params, self.opt_state, loss = self._step_fn(
                 self.params, self.opt_state, batch)
@@ -148,3 +183,53 @@ class Trainer:
         return {"final_loss": self.history[-1]["loss"],
                 "first_loss": self.history[0]["loss"],
                 "stragglers": list(self.straggler_events)}
+
+
+def shard_params(params, mesh, specs: Mapping[str, Spec],
+                 compute_dtype: Optional[torch.dtype] = torch.bfloat16
+                 ) -> None:
+    """Shard the model `params` in place over `mesh`'s data axes ("data",
+    and "pod" on the multi-pod mesh, which then replicates: HSDP) with
+    FSDP2 (`fully_shard`), each parameter on the dimension its spec's data
+    entry names (dimension 0 where the spec leaves it whole: FSDP2 shards
+    every parameter it holds).  The mixed precision is the unsharded
+    step's (`make_loss_and_grads`): a `compute_dtype` copy for the forward
+    and backward (none for None), float32 gradients, and the final norm's
+    scale, which that step does not cast, whole in float32 outside FSDP2.
+    Sets `params.mesh` and `params.data_axes` for the step.  Raises
+    NotImplementedError for a model axis larger than 1: tensor parallelism
+    does not run on one card (ROADMAP.md Queue A); the specs and the dry
+    run cover it."""
+    sizes = mesh_sizes(mesh)
+    if sizes.get("model", 1) > 1:
+        raise NotImplementedError(
+            f"a model axis of {sizes['model']}: tensor parallelism is not "
+            "ported (ROADMAP.md Queue A); the specs and the dry run cover "
+            "it")
+    data_axes = tuple(a for a in mesh.mesh_dim_names if a != "model")
+    by_id = {id(p): specs[n] for n, p in params.named_parameters()}
+
+    def shard_dim(p):
+        dims = [d for d, e in enumerate(by_id[id(p)])
+                if "data" in entry_axes(e)]
+        return Shard(dims[0] if dims else 0)
+
+    cast = compute_dtype is not None
+    fully_shard(params, mesh=mesh[data_axes], shard_placement_fn=shard_dim,
+                mp_policy=MixedPrecisionPolicy(param_dtype=compute_dtype,
+                                               reduce_dtype=torch.float32),
+                ignored_params=set(params.final_norm.parameters())
+                if cast else None)
+    params.mesh, params.data_axes = mesh, data_axes
+
+
+def shard_opt_state(opt_state, params) -> None:
+    """Give each AdamW moment of a sharded parameter that parameter's
+    placements, in place (the reference shards the optimizer state by the
+    parameter specs)."""
+    moments = opt_state["moments"]
+    for name, p in params.named_parameters():
+        if isinstance(p, DTensor):
+            moments[name] = {
+                k: distribute_tensor(t, p.device_mesh, p.placements)
+                for k, t in moments[name].items()}

@@ -7,9 +7,18 @@ remat=True (the default training policy).
 
 Counterpart of the JAX package's `train/step.py`, where the loss and
 gradients stay inside `make_train_step`; here they are a builder of their
-own so that a caller can read the gradients a step computes.  The JAX
-`act_specs` (activation shardings) wait for the distribution slice
-(ROADMAP.md Queue A item 13).
+own so that a caller can read the gradients a step computes.
+
+Parameters on a mesh (`Trainer.reshard`: FSDP2 over the data axes, the
+bf16 compute copy made by its mixed-precision policy) take the sharded
+path: the model is called as a module, so that FSDP2 gathers the
+parameters, the gradients come from `backward()` (reduce-scattered in
+float32), and the wire, AdamW and their kernels work on each gradient's
+local shard.  `act_specs` (the JAX step's activation shardings of
+"hidden" and "logits") are held against what that path computes: every
+activation batch-sharded over the data axes and whole over the model
+axis, whose size is 1 (tensor parallelism is not ported); a spec asking
+for another layout raises.
 
 The q8 gradient wire maps quantize-then-dequantize over every gradient, as
 the JAX step maps it over the gradient tree inside one jitted step; here
@@ -21,18 +30,22 @@ extra memory).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Mapping, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from ..kernels.quantize_blockwise import (DEFAULT_BLOCK,
                                           dequantize_blockwise_group,
                                           quantize_blockwise_group)
 from ..models import model as MD
 from ..models.config import ModelConfig
+from ..distributed.sharding import entry_axes, mesh_sizes
 from ..models.interop import jax_ndim
 from ..optim import AdamWConfig, adamw_update
+from ..optim.adamw import local
 
 Batch = Dict[str, torch.Tensor]
 
@@ -141,16 +154,82 @@ def make_loss_and_grads(cfg: ModelConfig, remat: bool = True,
     return loss_and_grads
 
 
+def on_mesh(params: nn.Module) -> bool:
+    """Whether `params` live on a mesh (`Trainer.reshard`)."""
+    return any(isinstance(p, DTensor) for p in params.parameters())
+
+
+def check_act_specs(act_specs: Optional[Mapping], mesh,
+                    data_axes: Sequence[str]) -> None:
+    """Raise unless each of `act_specs`' "hidden" and "logits" specs asks
+    for what the sharded path computes on `mesh`: the batch dimension over
+    (a subset of) the data axes and every other dimension whole (or over
+    axes of size 1)."""
+    size = mesh_sizes(mesh)
+    for key in ("hidden", "logits"):
+        spec = (act_specs or {}).get(key)
+        if spec is None:
+            continue
+        bad = [a for a in entry_axes(spec[0]) if a not in data_axes]
+        bad += [a for e in spec[1:] for a in entry_axes(e)
+                if size.get(a, 0) != 1]
+        if bad:
+            raise ValueError(
+                f"act_specs[{key!r}] = {spec}: the sharded step computes "
+                f"{key} batch-sharded over {tuple(data_axes)} and whole "
+                f"elsewhere; axes {bad} would need tensor parallelism, "
+                "which is not ported (ROADMAP.md Queue A)")
+
+
+def make_sharded_loss_and_grads(cfg: ModelConfig, remat: bool = True,
+                                attn_impl: str = "chunked",
+                                act_specs: Optional[Mapping] = None
+                                ) -> Callable:
+    """`make_loss_and_grads` for parameters on a mesh (`params.mesh`, its
+    data axes `params.data_axes`: `Trainer.reshard` sets both): returns
+    loss_and_grads(params, batch) -> (loss, {name: the local shard of its
+    gradient}).  The batch's DTensors give their local shards."""
+
+    def loss_and_grads(params, batch: Batch):
+        check_act_specs(act_specs, params.mesh, params.data_axes)
+        tokens, labels = local(batch["tokens"]), local(batch["labels"])
+        embeds = batch.get("embeds")
+        with torch.enable_grad():
+            logits = params(tokens, None if embeds is None else
+                            local(embeds), attn_impl=attn_impl, remat=remat)
+            loss = MD.loss_from_logits(logits, cfg, labels)
+            loss.backward()
+        grads = {}
+        world = dist.get_world_size()
+        for name, p in params.named_parameters():
+            g = p.grad
+            if g is None:
+                # a stub frontend's embedding table is unused: zero
+                g = torch.zeros_like(local(p))
+            elif not isinstance(p, DTensor) and world > 1:
+                # a parameter FSDP2 does not hold: average its gradient
+                dist.all_reduce(g)
+                g /= world
+            grads[name] = local(g)
+            p.grad = None
+        return loss.detach(), grads
+
+    return loss_and_grads
+
+
 def make_train_step(cfg: ModelConfig, opt: AdamWConfig, remat: bool = True,
                     grad_compression: Optional[str] = None,
                     compute_dtype: Optional[torch.dtype] = torch.bfloat16,
-                    attn_impl: str = "chunked") -> Callable:
+                    attn_impl: str = "chunked",
+                    act_specs: Optional[Mapping] = None) -> Callable:
     """Returns step(params, opt_state, batch) -> (params, opt_state, loss).
 
     The loss and gradients come from `make_loss_and_grads` (the
-    `compute_dtype` copy of the parameters feeds the forward and backward).
-    Training uses CHUNKED (online-softmax, checkpointed) attention so S^2
-    score tensors never materialize.
+    `compute_dtype` copy of the parameters feeds the forward and backward),
+    or, for parameters on a mesh, from `make_sharded_loss_and_grads` (the
+    mesh's mixed-precision policy makes the copy; `act_specs` is checked
+    there).  Training uses CHUNKED (online-softmax, checkpointed) attention
+    so S^2 score tensors never materialize.
 
     grad_compression="q8" quantizes every gradient blockwise to int8 and
     back before AdamW sees it (the wire format of a gradient all-reduce:
@@ -164,10 +243,12 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig, remat: bool = True,
                          "None or 'q8'")
     loss_and_grads = make_loss_and_grads(cfg, remat, compute_dtype,
                                          attn_impl)
+    sharded = make_sharded_loss_and_grads(cfg, remat, attn_impl, act_specs)
 
     def step(params, opt_state, batch: Batch):
         # the cast copy is gone once loss_and_grads returns, before AdamW
-        loss, grads = loss_and_grads(params, batch)
+        run = sharded if on_mesh(params) else loss_and_grads
+        loss, grads = run(params, batch)
         if grad_compression == "q8":
             q8_wire(grads)
         params, opt_state = adamw_update(params, grads, opt_state, opt)
