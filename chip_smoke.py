@@ -5,7 +5,7 @@ serving and LM training, every model family, and distribution.
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught), run in the order
-1, 2, 3, 3b, 3c, 3d, 3e, 4, 5, 4b, 6, 4c, 6f, 7, 8:
+1, 2, 3, 3b, 3c, 3d, 3e, 4, 5, 4b, 6, 4c, 6f, 7, 8, 9:
   1. print the card (nvidia-smi name, power limit) and build the eighteen
      hand-written kernels from the sources under src/repro_torch/kernels/
      (four libraries, one nvcc per source, all started together);
@@ -178,7 +178,27 @@ Phases (any failure exits non-zero; nothing is caught), run in the order
      and power limit; 8c the dry run (`launch.dryrun.run_cell`, on the
      host) of TinyLlama's four shapes and yi-9b's train_4k on the 16x16
      and 2x16x16 meshes: status and argument bytes per chip, failing on
-     an error; prints the phase's seconds.
+     an error; prints the phase's seconds;
+  9. the paper's estimation experiments at SF1 (`phase_9`, module level,
+     on phase 3's data): 9a full-index ground truth, `full_index_sizes`'
+     codec kernels over whole lineitem indexes (Table 4's five column
+     prefixes and one single-column index per codec; GDICT's first path)
+     `==` the NumPy formula on the same built index, seconds per codec on
+     the card and in NumPy and the builds' host seconds apart, GDICT's
+     layout at 6,000,000 values; 9b Table 1: `SynopsisManager` GROUP BY
+     MV samples (seven MVs on lineitem and orders, one through
+     lineitem's foreign key to orders) and their index sizes at f = 0.05
+     on the card `==` the NumPy run, AE against the multiply and
+     optimizer baselines and the true group count; 9c Table 4: `greedy`
+     at each fraction of F_GRID on the ten targets and the first eight,
+     one planner_walk launch each, held to the NumPy engine's plans (the
+     equal-p tie rule), `optimal` on the first eight <= greedy; 9d
+     `chunked_config_costs` over 4,000 statements in 4 chunks, the base
+     configuration and phase 3's, held to NumPy within rtol 1e-6, with
+     seconds and peak device memory; 9e every examples/torch_*.py `main`
+     on the card at its reference's default size (train_e2e: the fast
+     preset, 3 steps), each one's seconds; the phase's launches join the
+     advisor kernels' records.
 
 Prints the per-phase wall times, launch counts, kernel times beside their
 bounds, peak device memory, a JSON line of kernel records, the card line,
@@ -1294,6 +1314,368 @@ def phase_8(lm, dev):
           f"{time.perf_counter() - t0:.3f} s")
     print(f"phase 8: {time.perf_counter() - t_phase:.3f} s")
     return counts_s
+
+
+# phase 9: the paper's estimation experiments at SF1
+TABLE4_COLS = ("l_shipdate", "l_returnflag", "l_extendedprice",
+               "l_quantity", "l_discount")
+# 9a: one single-column lineitem index per codec beside Table 4's prefixes
+TRUTH_SINGLE = {"NS": "l_orderkey", "GDICT": "l_suppkey",
+                "LDICT": "l_partkey", "PREFIX": "l_extendedprice",
+                "RLE": "l_linestatus"}
+MV_F = 0.05                      # 9b: Table 1's sampling fraction
+TABLE1_MVS = (("lineitem", ("l_shipdate",)), ("lineitem", ("l_partkey",)),
+              ("lineitem", ("l_shipdate", "l_returnflag")),
+              ("lineitem", ("l_suppkey", "l_shipmode")),
+              ("orders", ("o_orderdate",)), ("orders", ("o_custkey",)),
+              ("orders", ("o_orderdate", "o_orderpriority")))
+# a GROUP BY through lineitem's foreign key to orders (a join synopsis)
+JOIN_MV = ("lineitem", ("o_orderpriority", "l_shipmode"))
+MV_METHODS = ("NS", "LDICT", "PREFIX")
+TABLE4_EQ = (0.5, 0.9)           # 9c: (e, q) of Table 4
+CHUNKED = (4000, 1000)           # 9d: statements, statements a chunk
+CHUNKED_F = 0.05                 # 9d: SampleCF fraction of the sizes
+EXAMPLES = (("quickstart", []), ("scaled_workloads", []),
+            ("layout_advisor", []), ("online_advisor", []),
+            ("fleet_advisor", []), ("fault_tolerant_fleet", []),
+            ("serve_batched", []), ("train_e2e", ["--steps", "3"]))
+
+
+def packed_ndv(values) -> int:
+    """Distinct rows of non-negative integer columns, packed into one
+    int64 key (np.unique on one column; `Table.ndv` stacks rows)."""
+    import numpy as np
+    key = np.zeros(values[0].shape[0], dtype=np.int64)
+    for v in values:
+        v = np.asarray(v, dtype=np.int64)
+        lo, hi = int(v.min()), int(v.max())
+        if lo < 0 or (int(key.max()) + 1) * (hi + 1) >= 1 << 62:
+            raise ValueError("packed_ndv: columns do not pack into int64")
+        key = key * (hi + 1) + v
+    return int(np.unique(key).size)
+
+
+def phase_9(dev, schema, rec3_config):
+    """Phase 9: the paper's estimation experiments on the card at SF1
+    (`schema`, phase 3's data).  9a full-index ground truth
+    (`full_index_sizes`, Fig. 9's truth) for the five codecs on Table 4's
+    lineitem prefixes and one single-column index each, `==` the NumPy
+    formula on the same built index; 9b Table 1: GROUP BY MV samples and
+    their index sizes (`SynopsisManager`, f = 0.05) `==` the NumPy run,
+    AE against the multiply and optimizer baselines; 9c Table 4: `greedy`
+    at each fraction of F_GRID against the NumPy engine's plans, `optimal`
+    on the first eight targets <= greedy; 9d streamed costing
+    (`chunked_config_costs`, 4 chunks) of the base configuration and
+    `rec3_config` against NumPy within rtol 1e-6; 9e every
+    examples/torch_*.py `main` on the card.  Returns the phase's launch
+    counts and GDICT's timing at its first path's shape."""
+    import importlib.util
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch import core as pt
+    from repro_torch.core import distinct as dv
+    from repro_torch.core import estimation_graph as eg
+    from repro_torch.core import samplecf as scf
+    from repro_torch.core.relation import build_index_data
+    from repro_torch.kernels import (codec_bytes as cb, launch_counts,
+                                     reset_launch_counts)
+
+    t_phase = time.perf_counter()
+    total = {}
+    extras = {}
+
+    def counted(fn):
+        """fn() with the launch counters zeroed just before and read just
+        after; returns (result, seconds)."""
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        for k, v in launch_counts().items():
+            total[k] = total.get(k, 0) + v
+        return out, secs
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0
+
+    # ---- 9a: full-index ground truth --------------------------------
+    t0 = time.perf_counter()
+    li = schema.tables["lineitem"]
+    before = dict(total)
+    index_cols = [TABLE4_COLS[:i] for i in range(1, len(TABLE4_COLS) + 1)]
+    index_cols += sorted({(c,) for c in TRUTH_SINGLE.values()} -
+                         set(index_cols))
+    built, build_s = {}, 0.0
+    for cols in index_cols:
+        built[cols], s = timed(lambda: build_index_data(
+            li, pt.IndexDef("lineitem", cols)))
+        build_s += s
+    print(f"phase 9a: {len(built)} lineitem indexes of {li.nrows} rows "
+          f"built on the host in {build_s:.3f} s")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = cb.gdict_plan(1, li.nrows, sms)
+    print(f"phase 9a: gdict_plan for a {li.nrows}-value row: {plan.route} "
+          f"layout, {plan.tables} tables of {1 << plan.log_slots} slots, "
+          f"{plan.parts} blocks a table, scratch {plan.scratch_bytes} B")
+    for method in FIVE:
+        card_s = np_s = 0.0
+        cases = index_cols[:len(TABLE4_COLS)] + [(TRUTH_SINGLE[method],)]
+        for cols in cases:
+            data = built[cols]
+            widths = [li.col_by_name[c].width for c in cols]
+            got, s = counted(lambda: scf.compressed_index_bytes(
+                data, widths, method, dev))
+            card_s += s
+            want, s = timed(lambda: scf.compressed_index_bytes(
+                data, widths, method))
+            np_s += s
+            if got != want:
+                fail(f"phase 9a: {method} on lineitem{cols}: card {got} B "
+                     f"!= NumPy {want} B")
+        idx = pt.IndexDef("lineitem", (TRUTH_SINGLE[method],), method)
+        sizes, s = counted(lambda: scf.full_index_sizes(li, idx, dev))
+        data = built[idx.cols]
+        want = scf.compressed_index_bytes(
+            data, [li.col_by_name[idx.cols[0]].width], method)
+        if sizes[1] != want:
+            fail(f"phase 9a: full_index_sizes({idx.label()}) {sizes} != "
+                 f"NumPy {want} B")
+        print(f"phase 9a: {method}: {len(cases)} indexes == NumPy; card "
+              f"{card_s:.3f} s, NumPy {np_s:.3f} s; full_index_sizes("
+              f"{idx.label()}) = {sizes} in {s:.3f} s (its build included)")
+    launches = {k: total.get(k, 0) - before.get(k, 0) for k in total}
+    for name in CODECS:
+        if launches.get(name, 0) <= 0:
+            fail(f"phase 9a: kernel {name} was not launched")
+    print(f"phase 9a: launches {json.dumps(launches)}")
+    # GDICT at its first path's shape: the l_suppkey index's row, per
+    # call (CUDA events, outside the counted runs) beside its plain
+    # version and its bound
+    row = torch.as_tensor(built[("l_suppkey",)][:, 0][None], device=dev)
+    w = torch.tensor([4], dtype=torch.int64, device=dev)
+    if not torch.equal(cb.gdict_bytes(row, w), cb.gdict_bytes_plain(row, w)):
+        fail("phase 9a: gdict_bytes != plain on the l_suppkey index row")
+
+    def event_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        runs = []
+        for _ in range(5):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(reps):
+                fn()
+            b.record()
+            torch.cuda.synchronize()
+            runs.append(a.elapsed_time(b) / reps)
+        return float(np.median(runs))
+    g_ms = event_ms(lambda: cb.gdict_bytes(row, w), 10)
+    g_plain = event_ms(lambda: cb.gdict_bytes_plain(row, w), 2)
+    bytes_ms = (row.numel() * 8 + 16) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 8 * row.numel() / OPS_PER_S * 1e3
+    extras["gdict_bytes"] = {
+        "shape": list(row.shape), "ms": g_ms, "plain_ms": g_plain,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "scratch_bytes": plan.scratch_bytes}
+    print(f"phase 9a: kernel gdict_bytes at {tuple(row.shape)} (the "
+          f"l_suppkey index): {g_ms:.4f} ms per call (plain {g_plain:.4f} "
+          f"ms, bound {max(bytes_ms, ops_ms):.6g} ms by "
+          f"{extras['gdict_bytes']['bound_by']})")
+    del built, row
+    print(f"phase 9a: {time.perf_counter() - t0:.3f} s")
+
+    # ---- 9b: Table 1, MV cardinality ----------------------------------
+    t0 = time.perf_counter()
+    before = dict(total)
+    syn_card = pt.SynopsisManager(
+        schema, pt.SampleManager(schema.tables, seed=0), device=dev)
+    syn_np = pt.SynopsisManager(schema, pt.SampleManager(schema.tables,
+                                                         seed=0))
+    fk = next(k for k in schema.fks_of("lineitem")
+              if k.dim_table == "orders")
+    joined = pt.synopses.join_sample_with_dims(li, schema, (fk,))
+    errs = {"AE": [], "Multiply": [], "Optimizer": []}
+    for tbl, cols in TABLE1_MVS + (JOIN_MV,):
+        joins = (fk,) if (tbl, cols) == JOIN_MV else ()
+        mv = pt.MVDef(f"mv_{tbl}_{'_'.join(cols)}", tbl, joins=joins,
+                      group_by=cols)
+        full = joined if joins else schema.tables[tbl]
+        true = packed_ndv([full.values[c] for c in cols])
+        (smv, ae), s_card = counted(lambda: syn_card.mv_sample(mv, MV_F))
+        (smv_n, ae_n), s_np = timed(lambda: syn_np.mv_sample(mv, MV_F))
+        if ae != ae_n or smv.nrows != smv_n.nrows or any(
+                not np.array_equal(smv.values[c], smv_n.values[c])
+                for c in smv.values):
+            fail(f"phase 9b: {mv.name}: card MV sample or n_est != NumPy")
+        sizes = []
+        for method in MV_METHODS:
+            est, s = counted(lambda: syn_card.mv_index_size(
+                mv, cols, method, MV_F))
+            s_card += s
+            est_n, s = timed(lambda: syn_np.mv_index_size(
+                mv, cols, method, MV_F))
+            s_np += s
+            if (est.est_bytes, est.cf, est.cost_pages) != \
+                    (est_n.est_bytes, est_n.cf, est_n.cost_pages):
+                fail(f"phase 9b: {mv.name} {method}: card {est} != NumPy "
+                     f"{est_n}")
+            sizes.append(f"{method} {est.est_bytes!r} B")
+        base = syn_np.join_synopsis(tbl, MV_F) if joins else \
+            syn_np.samples.get_sample(tbl, MV_F)
+        d = packed_ndv([base.values[c] for c in cols])
+        mult = dv.estimate_multiply(d, base.nrows / full.nrows)
+        opt = dv.estimate_optimizer(
+            [packed_ndv([full.values[c]]) for c in cols], full.nrows)
+        for k, v in (("AE", ae), ("Multiply", mult), ("Optimizer", opt)):
+            errs[k].append(abs(v / true - 1))
+        print(f"phase 9b: {mv.name}{' (join)' if joins else ''}: true "
+              f"{true}, AE {ae!r}, multiply {mult!r}, optimizer {opt!r}; "
+              f"{smv.nrows} sampled groups; index sizes {', '.join(sizes)} "
+              f"== NumPy; card {s_card:.3f} s, NumPy {s_np:.3f} s")
+    print("phase 9b: Table 1 average errors " + ", ".join(
+        f"{k} {100 * float(np.mean(v)):.1f} %" for k, v in errs.items()))
+    launches = {k: total.get(k, 0) - before.get(k, 0) for k in total}
+    print(f"phase 9b: launches {json.dumps(launches)}")
+    del joined
+    print(f"phase 9b: {time.perf_counter() - t0:.3f} s")
+
+    # ---- 9c: Table 4, Greedy against Optimal ---------------------------
+    t0 = time.perf_counter()
+    before = dict(total)
+    e, q = TABLE4_EQ
+    targets = [pt.NodeKey("lineitem", TABLE4_COLS[:i], m)
+               for i in range(1, len(TABLE4_COLS) + 1)
+               for m in ("NS", "LDICT")]
+    card = pt.EstimationPlanner(schema.tables, device=dev)
+    host = pt.EstimationPlanner(schema.tables)
+    ties = 0
+    for f in eg.F_GRID:
+        greedy = []
+        for tg in (targets, targets[:8]):
+            got, _ = counted(lambda: card.greedy(tg, f, e, q))
+            ties += plans_match(got, host.greedy(tg, f, e, q), e,
+                                f"phase 9c: greedy f={f} on {len(tg)}")
+            greedy.append(got)
+        g10, g8 = greedy
+        (opt, opt_s) = timed(lambda: card.optimal(targets[:8], f, e, q))
+        opt_n = host.optimal(targets[:8], f, e, q)
+        if opt.total_cost != opt_n.total_cost or opt.total_cost > \
+                g8.total_cost:
+            fail(f"phase 9c: f={f}: optimal {opt.total_cost} (NumPy "
+                 f"{opt_n.total_cost}) against greedy {g8.total_cost}")
+        all_cost = sum(eg.sampling_cost(li, t, f) for t in targets)
+        print(f"phase 9c: f={f}: All {all_cost}, Greedy "
+              f"{g10.total_cost}, on the first "
+              f"eight Greedy {g8.total_cost} / Optimal {opt.total_cost} = "
+              f"{g8.total_cost / max(opt.total_cost, 1e-9):.3f} "
+              f"(optimal {opt_s:.3f} s on the host)")
+    launches = {k: total.get(k, 0) - before.get(k, 0) for k in total}
+    if launches.get("planner_walk", 0) < 2 * len(eg.F_GRID):
+        fail(f"phase 9c: planner_walk launches {launches}")
+    print(f"phase 9c: launches {json.dumps(launches)} (one planner_walk "
+          f"per greedy on the card); {ties} equal-p ties")
+    print(f"phase 9c: {time.perf_counter() - t0:.3f} s")
+
+    # ---- 9d: streamed costing -------------------------------------------
+    t0 = time.perf_counter()
+    before = dict(total)
+    n9, chunk = CHUNKED
+    wl9 = pt.make_scaled_workload(schema, n_statements=n9, seed=0)
+    configs = [pt.base_configuration(schema), rec3_config]
+
+    def sized(device):
+        """A SizeProvider holding the configs' compressed indexes' SampleCF
+        estimates (the estimation engine on `device`)."""
+        sp = pt.SizeProvider(schema)
+        eng = pt.EstimationEngine(
+            schema.tables, pt.SampleManager(schema.tables, seed=0), device)
+        keys = {pt.NodeKey(i.table, i.cols, i.compression): i
+                for c in configs for i in c.indexes
+                if i.compression and i.predicate is None}
+        for k, est in eng.estimate_batch(list(keys), CHUNKED_F).items():
+            sp.register(keys[k], est.est_bytes)
+        return sp
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    got, s_card = counted(lambda: pt.chunked_config_costs(
+        wl9, sized(dev), configs, chunk_statements=chunk, device=dev))
+    peak = torch.cuda.max_memory_allocated(dev)
+    want, s_np = timed(lambda: pt.chunked_config_costs(
+        wl9, sized(None), configs, chunk_statements=chunk))
+    if not np.allclose(got, want, rtol=1e-6, atol=0.0):
+        fail(f"phase 9d: chunked costs {got.tolist()} != NumPy "
+             f"{want.tolist()}")
+    launches = {k: total.get(k, 0) - before.get(k, 0) for k in total}
+    print(f"phase 9d: chunked_config_costs over {n9} statements in "
+          f"{-(-n9 // chunk)} chunks: base {float(got[0])!r}, phase 3's "
+          f"config {float(got[1])!r} (NumPy {want.tolist()}); card "
+          f"{s_card:.3f} s, NumPy {s_np:.3f} s; peak device memory "
+          f"(max_memory_allocated) {peak} B; launches "
+          f"{json.dumps(launches)}")
+    print(f"phase 9d: {time.perf_counter() - t0:.3f} s")
+
+    # ---- 9e: the example twins on the card ----------------------------
+    t0 = time.perf_counter()
+    before = dict(total)
+    for name, argv in EXAMPLES:
+        path = ROOT / "examples" / f"torch_{name}.py"
+        spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        with tempfile.TemporaryDirectory(prefix="ex_") as d:
+            args = argv + (["--checkpoint-dir", d]
+                           if name == "train_e2e" else [])
+            print(f"phase 9e: examples/torch_{name}.py {' '.join(args)}")
+            _, s = counted(lambda: mod.main(args))
+        print(f"phase 9e: examples/torch_{name}.py: {s:.3f} s")
+    launches = {k: total.get(k, 0) - before.get(k, 0) for k in total}
+    print(f"phase 9e: launches {json.dumps(launches)}")
+    print(f"phase 9e: {time.perf_counter() - t0:.3f} s")
+    print(f"phase 9: {time.perf_counter() - t_phase:.3f} s; launches "
+          f"{json.dumps(total)}")
+    return total, extras
+
+
+def plans_match(got, want, e, label) -> int:
+    """The card's plan against the NumPy engine's: the same f, total cost,
+    feasibility, nodes and states, each DEDUCED node with the same chosen
+    deduction and RV (float32 against float64: rtol 1e-5 on the mean,
+    1e-4 on the std) or else an equal-p tie (the float32 walk breaks ties
+    among candidates whose p agree to 1e-7 by its own roundings), whose
+    two RVs' p agree within 5e-5.  Returns the number of ties."""
+    import numpy as np
+    from repro_torch.core import errors as err
+    if (got.f, got.total_cost, got.feasible) != \
+            (want.f, want.total_cost, want.feasible) or \
+            [k.label() for k in got.nodes] != [k.label() for k in want.nodes]:
+        fail(f"{label}: plans differ ({got.total_cost} vs "
+             f"{want.total_cost})")
+    ties = 0
+    for kg, kw in zip(got.nodes, want.nodes):
+        ng, nw = got.nodes[kg], want.nodes[kw]
+        if ng.state is not nw.state or \
+                (ng.chosen is None) != (nw.chosen is None):
+            fail(f"{label}: {kg.label()} state differs")
+        same = ng.chosen is None or \
+            [c.label() for c in ng.chosen.children] == \
+            [c.label() for c in nw.chosen.children]
+        close = np.isclose(ng.rv.mean, nw.rv.mean, rtol=1e-5, atol=0.0) \
+            and np.isclose(ng.rv.std, nw.rv.std, rtol=1e-4, atol=1e-6)
+        if not (same and close):
+            pg, pw = err.prob_within_batch(
+                np.array([ng.rv.mean, nw.rv.mean]),
+                np.array([ng.rv.std, nw.rv.std]), e)
+            if abs(pg - pw) > 5e-5:
+                fail(f"{label}: {kg.label()} differs beyond an equal-p tie")
+            ties += 1
+    return ties
 
 
 def main() -> int:
@@ -3820,6 +4202,18 @@ def main() -> int:
         if rec["name"] in ("quantize_blockwise", "dequantize_blockwise"):
             rec["launches_by_phase"]["8a"] = launches8[rec["name"]]
             rec["launches"] += launches8[rec["name"]]
+
+    # ---- phase 9: the paper's estimation experiments at SF1 -------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches9, extras9 = phase_9(dev, schema, rec_t.config)
+    for rec in records:
+        n9 = launches9.get(rec["name"], 0)
+        if rec["name"] in extras9:
+            rec["phase_9"] = extras9[rec["name"]]
+        rec.setdefault("launches_by_phase", {
+            "before 9": rec["launches"]})["9"] = n9
+        rec["launches"] += n9
 
     print(json.dumps({"kernels": records}))
     print(f"card: {card}")

@@ -27,13 +27,15 @@ greedy-step scoring functions — add-secondary, replace-clustered and
 per-query candidate costing — run as float32 torch ops on the device (the
 op sequences of the JAX package's `jax.jit` scorers).  The weighted sum
 `q_w @ new_q` is not a BLAS call: XLA's CPU dot sums a vector-matrix
-product as a chain of float32 fused multiply-adds in query order, and a
-BLAS library picks its own order per CPU branch, which moves the greedy's
-near-zero benefits across its threshold.  `_fma_chain` computes that
-chain exactly, with the same ops on the CPU and the card, so the totals
-are the JAX package's bit for bit where XLA keeps query order.  The cost
-matrices themselves stay on the host, as in the reference, and each
-scoring call copies its slices to the device in one transfer.
+product in an order LLVM picks by shape (a chain of float32 fused
+multiply-adds in query order, or 8 FMA lanes and a tree), and a BLAS
+library picks its own order per CPU branch, which moves the greedy's
+near-zero benefits across its threshold.  `_xla_sum_order` is that
+order as a rule of the shapes, read off XLA's dumps, and `_fma_chain` /
+`_rid_f32` compute it exactly, with the same ops on the CPU and the card,
+so the totals are the JAX package's bit for bit where the rule holds.
+The cost matrices themselves stay on the host, as in the reference, and
+each scoring call copies its slices to the device in one transfer.
 
 Online sessions keep one engine across workload deltas (`apply_delta`,
 `sync_sizes`): removed statements' rows are dropped, reweights touch only
@@ -528,10 +530,12 @@ def _rn32_add(a: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return bits.view(torch.float64).float().double()
 
 
-def _fma_chain(q_w: torch.Tensor, new_q: torch.Tensor) -> torch.Tensor:
-    """`q_w @ new_q` over the query axis as XLA's CPU dot computes it: per
-    column acc = fma(q_w[i], new_q[i], acc) for i in query order, from 0,
-    rounded to float32 at each step.  (nq,), (nq, m) -> (m,) float32.
+def _fma_chain(q_w: torch.Tensor, new_q: torch.Tensor,
+               init: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`q_w @ new_q` over the leading (query) axis as a sequential float32
+    FMA chain: acc = fma(q_w[i], new_q[i], acc) for i in order, from
+    `init` (0 by default), rounded to float32 at each step.  q_w (k, *l)
+    broadcasts against new_q (k, *l, m) -> (*l, m) float32.
 
     Each step adds the exact float64 product to the float32 accumulator in
     float64 and rounds to float32: two ops a query.  That second rounding
@@ -539,10 +543,12 @@ def _fma_chain(q_w: torch.Tensor, new_q: torch.Tensor) -> torch.Tensor:
     float32's normal range), where it may have been rounded there from
     either side; the sums are checked once at the end, and a chain that
     met such a sum is computed again with `_rn32_add`."""
-    p = q_w.double()[:, None] * new_q.double()         # exact products
+    w = q_w.double().reshape(q_w.shape + (1,) * (new_q.dim() - q_w.dim()))
+    p = w * new_q.double()                              # exact products
+    start = (torch.zeros(new_q.shape[1:], dtype=torch.float32,
+                         device=new_q.device) if init is None else init)
     sums = torch.empty_like(p)
-    acc = torch.zeros(new_q.shape[1:], dtype=torch.float32,
-                      device=new_q.device)
+    acc = start
     for p_i, s_i in zip(p.unbind(0), sums.unbind(0)):
         torch.add(acc, p_i, out=s_i)
         acc = s_i.float()
@@ -550,24 +556,134 @@ def _fma_chain(q_w: torch.Tensor, new_q: torch.Tensor) -> torch.Tensor:
     hazard = ((sums.view(torch.int64) & _LOW29) == _HALF29) | \
         ((mag < _F32_MIN) & (mag != 0)) | (mag > _F32_MAX)
     if bool(hazard.any()):
-        exact = torch.zeros(new_q.shape[1:], dtype=torch.float64,
-                            device=new_q.device)
+        exact = start.double()
         for p_i in p.unbind(0):
             exact = _rn32_add(exact, p_i)
         acc = exact.float()
     return acc
 
 
+def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+           ) -> torch.Tensor:
+    """float32 fma(a, b, c) of float32 operands, exactly (`_rn32_add`)."""
+    return _rn32_add(c.double(), a.double() * b.double()).float()
+
+
+_T_IO_RAND32 = torch.tensor(cm.T_IO_RAND, dtype=torch.float32)
+_CPU_ROW32 = torch.tensor(cm.CPU_ROW, dtype=torch.float32)
+
+
+def _rid_f32(r, npages, beta, ncols, form: str) -> torch.Tensor:
+    """The RID-lookup term T_IO_RAND * min(r, npages) + CPU_ROW * r +
+    (beta * r) * ncols in float32 as XLA's CPU code computes it: LLVM
+    contracts each multiply that feeds an add into an FMA.  Form "A"
+    contracts T_IO_RAND * min into the first add (CPU_ROW * r is a value
+    computed in another block, a hoisted or broadcast operand), form "B"
+    contracts CPU_ROW * r (both products in the add's block; the first
+    operand fuses).  Both then fuse (beta * r) * ncols into the second."""
+    t = _T_IO_RAND32.to(r.device)
+    c = _CPU_ROW32.to(r.device)
+    mn = torch.minimum(r, npages)
+    if form == "A":
+        inner = _fma32(mn, t, c * r)
+    else:
+        inner = _fma32(r, c, t * mn)
+    return _fma32(beta * r, ncols, inner)
+
+
+def _xla_sum_order(scorer: str, nq: int, m: int, ns: int
+                   ) -> Tuple[str, str, int, int]:
+    """How XLA's CPU code (x86, 8-wide float32 vectors) orders a scorer's
+    fused `q_w @ new_q`: (rid form of the lane part, rid form of the
+    chain, lanes, nv).  The first nv queries (a multiple of `lanes`) are
+    summed in `lanes` accumulators, query i into lane i mod lanes by FMA,
+    and the lanes added as a halving tree (8 lanes: ((l0+l4)+(l2+l6)) +
+    ((l1+l5)+(l3+l7))); the rest continue as a sequential FMA chain from
+    that sum.  nv = 0 is the chain alone.  `_rid_f32` gives the forms.
+
+    The rule is read off XLA's dumps (`*.ir-with-opt.ll`, the object code)
+    of the JAX package's `_jax_score_secondary` / `_jax_score_replace`
+    (scorer "sec" / "rep"), nq queries, m candidates, ns kept
+    secondaries:
+      * LLVM fully unrolls the replace scorer's query loop while nq *
+        (11 + 13 ns) <= 300 and vectorizes across the candidates: a chain
+        with CPU_ROW * r a broadcast scalar (form A; scalar code, form B,
+        for a single candidate).
+      * A query loop of 16 or more is vectorized 8 wide.  Candidate
+        columns of stride m <= 8 make the strided loads an interleaved
+        group with gaps, which needs a scalar epilogue: nv = 8 * ((nq - 1)
+        // 8); a wider stride does not: nv = 8 * (nq // 8).
+      * The replace scorer's query loop of 4 or 8 that is not unrolled is
+        one vector of that width, no epilogue.
+      * Otherwise the query loop stays scalar: a chain in form B.
+    Classes this rule does not reproduce stay listed in ROADMAP (Queue C),
+    for example vector epilogues of 4 and 2 lanes (nq = 23) and the
+    replace scorer at m = 2."""
+    grouped = m <= 8
+    if scorer == "rep":
+        if nq * (11 + 13 * ns) <= 300:
+            # a single candidate leaves nothing to vectorize: scalar code
+            return ("B", "B", 8, 0) if m == 1 else ("A", "A", 8, 0)
+        if nq in (4, 8):
+            return ("A" if 2 <= ns <= 8 else "B"), "B", nq, nq
+        if nq < 16:
+            return "B", "B", 8, 0
+        if grouped:
+            return ("B" if ns == 1 else "A"), "B", 8, 8 * ((nq - 1) // 8)
+        return "A", "A", 8, 8 * (nq // 8)
+    if nq < 16:
+        return "B", "B", 8, 0
+    return "B", "B", 8, 8 * ((nq - 1) // 8 if grouped else nq // 8)
+
+
+def _sec_edge_form(nq: int, m: int) -> Optional[str]:
+    """The secondary scorer's ninth candidate column at m = 9, in scalar
+    code past the 8-wide vector: form A at nq = 2, 5 and 7 (read off the
+    dumps as `_xla_sum_order`), else the other columns' form (None)."""
+    return "A" if m == 9 and nq in (2, 5, 7) else None
+
+
+def _xla_dot(q_w: torch.Tensor, new_q: torch.Tensor, lanes: int, nv: int
+             ) -> torch.Tensor:
+    """`q_w @ new_q` in the order `_xla_sum_order` gives (nv queries summed
+    in `lanes` lanes, then the chain)."""
+    acc = None
+    if nv:
+        part = _fma_chain(q_w[:nv].reshape(-1, lanes),
+                          new_q[:nv].reshape(nv // lanes, lanes, -1))
+        while part.shape[0] > 1:                    # the halving tree
+            h = part.shape[0] // 2
+            part = part[:h] + part[h:]
+        acc = part[0]
+        if nv == new_q.shape[0]:
+            return acc
+    return _fma_chain(q_w[nv:], new_q[nv:], init=acc)
+
+
+def _by_form(nv: int, lane_form: str, tail_form: str, f) -> torch.Tensor:
+    """new_q rows from `f(form)`: rows below nv in the lane part's form,
+    the rest in the chain's."""
+    if lane_form == tail_form or nv == 0:
+        return f(tail_form)
+    lane, tail = f(lane_form), f(tail_form)
+    return torch.cat([lane[:nv], tail[nv:]])
+
+
 def _score_secondary_torch(cur_q, cov, seek, ridr, size_c, beta_c,
                            ncols_used, q_w):
     """New weighted query totals when each candidate secondary is added."""
     npages = _pages_f32(size_c)
-    rid = (cm.T_IO_RAND * torch.minimum(ridr, npages)
-           + cm.CPU_ROW * ridr
-           + beta_c * ridr * ncols_used[:, None])
-    path = torch.minimum(cov, seek + rid)
-    new_q = torch.minimum(cur_q[:, None], path)
-    return _fma_chain(q_w, new_q)
+    lane_form, tail_form, lanes, nv = _xla_sum_order(
+        "sec", cov.shape[0], cov.shape[1], 0)
+
+    def new_q(form):
+        rid = _rid_f32(ridr, npages, beta_c, ncols_used[:, None], form)
+        return torch.minimum(cur_q[:, None], torch.minimum(cov, seek + rid))
+    x = _by_form(nv, lane_form, tail_form, new_q)
+    edge = _sec_edge_form(cov.shape[0], cov.shape[1])
+    if edge is not None:
+        x = torch.cat([x[:, :8], new_q(edge)[:, 8:]], dim=1)
+    return _xla_dot(q_w, x, lanes, nv)
 
 
 def _score_replace_torch(scanc_c, cov, seek, ridr, size_c, beta_c,
@@ -578,12 +694,15 @@ def _score_replace_torch(scanc_c, cov, seek, ridr, size_c, beta_c,
     the candidate layouts' RID coupling."""
     npages = _pages_f32(size_c)                                   # (m,)
     r3 = ridr[:, :, None]
-    rid = (cm.T_IO_RAND * torch.minimum(r3, npages)
-           + cm.CPU_ROW * r3
-           + beta_c * r3 * ncols_used[:, None, None])
-    path = torch.minimum(cov[:, :, None], seek[:, :, None] + rid)
-    new_q = torch.minimum(scanc_c, path.amin(dim=1))
-    return _fma_chain(q_w, new_q)
+    lane_form, tail_form, lanes, nv = _xla_sum_order(
+        "rep", scanc_c.shape[0], scanc_c.shape[1], cov.shape[1])
+
+    def new_q(form):
+        rid = _rid_f32(r3, npages, beta_c, ncols_used[:, None, None], form)
+        path = torch.minimum(cov[:, :, None], seek[:, :, None] + rid)
+        return torch.minimum(scanc_c, path.amin(dim=1))
+    return _xla_dot(q_w, _by_form(nv, lane_form, tail_form, new_q), lanes,
+                    nv)
 
 
 def _own_path_torch(cov, seek, ridr, size_c, beta_c, ncq, is_sec):
@@ -884,6 +1003,42 @@ class CostEngine:
         else:
             upd_c = np.zeros(len(cids))
         return q_tot, upd_c
+
+
+# ---------------------------------------------------------------------------
+# Streamed costing for workloads too large to hold as dense matrices
+# ---------------------------------------------------------------------------
+
+def chunked_config_costs(workload: Workload, sizes: SizeProvider,
+                         configs: Sequence[Configuration],
+                         chunk_statements: int = 8192,
+                         device: Optional[torch.device] = None
+                         ) -> np.ndarray:
+    """Full-workload cost of each configuration, streamed in statement
+    chunks.
+
+    Never materializes the full (statements x access-path) matrices: each
+    chunk builds a short-lived engine over at most `chunk_statements`
+    statements (on `device`), scores every configuration against it, and
+    accumulates the weighted totals — peak memory is O(chunk x registered
+    paths) however large the workload.  The summation ORDER differs from a
+    monolithic `CostEngine.config_cost` (per-chunk partial sums), so this
+    is the memory-bounded evaluation path for huge workloads, not a
+    bit-parity replacement for the in-core engine; the chunks and their
+    sums run in the JAX package's order.
+    """
+    configs = list(configs)
+    totals = np.zeros(len(configs))
+    stmts = workload.statements
+    if not stmts or not configs:
+        return totals
+    for lo in range(0, len(stmts), int(chunk_statements)):
+        sub = Workload(schema=workload.schema,
+                       statements=stmts[lo:lo + int(chunk_statements)])
+        eng = CostEngine(sub, sizes, device=device)
+        for k, cfg in enumerate(configs):
+            totals[k] += eng.config_cost(cfg)
+    return totals
 
 
 # ---------------------------------------------------------------------------

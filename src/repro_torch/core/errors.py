@@ -17,7 +17,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Tuple
+from typing import Iterable, Tuple
 
 import numpy as np
 
@@ -89,6 +89,19 @@ def colext_error(method: str, a: int) -> ErrorRV:
     return ErrorRV(1.0 + fit["bias"] * a, fit["std"] * a)
 
 
+def compose(rvs: Iterable[ErrorRV]) -> ErrorRV:
+    """Product of independent RVs: E = prod E_i; V per Goodman [9]."""
+    e_prod = 1.0
+    v_term = 1.0
+    e2_term = 1.0
+    for rv in rvs:
+        e_prod *= rv.mean
+        v_term *= rv.var + rv.mean * rv.mean
+        e2_term *= rv.mean * rv.mean
+    var = max(v_term - e2_term, 0.0)
+    return ErrorRV(e_prod, math.sqrt(var))
+
+
 def goodman_fold(means: np.ndarray, stds: np.ndarray, axis: int = -1
                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """The raw Goodman accumulators (E-product, V-term, E^2-term) along
@@ -142,3 +155,21 @@ def prob_within_batch(means: np.ndarray, stds: np.ndarray,
     return out
 
 
+
+
+def _phi(x: float) -> float:
+    return 0.5 * (1.0 + math.erf(x / math.sqrt(2.0)))
+
+
+@functools.lru_cache(maxsize=65536)
+def prob_within(rv: ErrorRV, e: float) -> float:
+    """P(1/(1+e) <= X <= 1+e) under N(mean, std^2): the scalar form of
+    `prob_within_batch`, used by the exponential Optimal recursion."""
+    lo, hi = 1.0 / (1.0 + e), 1.0 + e
+    if rv.std <= 1e-12:
+        return 1.0 if lo <= rv.mean <= hi else 0.0
+    return _phi((hi - rv.mean) / rv.std) - _phi((lo - rv.mean) / rv.std)
+
+
+def satisfies(rv: ErrorRV, e: float, q: float) -> bool:
+    return prob_within(rv, e) >= q

@@ -9,19 +9,21 @@ The paper's greedy algorithm (§5.2 pseudocode) runs on the batched
 `planner_engine.PlannerEngine`, which scores every sampling fraction in one
 pass over a shared deduction graph; plans are then executed with the
 batched SampleCF `EstimationEngine` (`execute_cached` estimates only the
-(NodeKey, f) misses of an online session's cache).  The JAX package's
-frozen scalar greedy and the exponential Optimal recursion (Appendix D)
-are not ported.
+(NodeKey, f) misses of an online session's cache).  `greedy` runs the
+engine at one fraction, and `optimal` is the exponential Optimal
+recursion of Appendix D (host Python; the paper's quality yardstick,
+Table 4), which falls back to `greedy` where no plan meets the bound.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
 import functools
-from typing import Dict, MutableMapping, Optional, Sequence, Tuple
+from typing import Dict, List, MutableMapping, Optional, Sequence, Tuple
 
 from . import deduction as ded
 from . import errors as err
+from .compression import METHODS
 from .estimation_engine import EstimationEngine
 from .relation import IndexDef, Table, uncompressed_pages
 from .samplecf import SizeEstimate
@@ -144,6 +146,49 @@ def _colset_ded(other: NodeKey) -> Deduction:
     return Deduction("colset", (other,), (other.cols,))
 
 
+def _colset_deductions(key: NodeKey, mates: Sequence[NodeKey]
+                       ) -> List[Deduction]:
+    """ColSet deductions from `mates` (same table/column-set/method nodes)."""
+    if METHODS[key.method].order_dependent:
+        return []
+    return [Deduction("colset", (other,), (other.cols,))
+            for other in mates if other.cols != key.cols]
+
+
+def candidate_deductions(key: NodeKey, present: Sequence[NodeKey]
+                         ) -> List[Deduction]:
+    """Enumerate deductions for `key` (bounded, per §5.2 Figure 3).
+
+    * ColSet: any present node with the same column SET + method (ORD-IND).
+    * ColExt partitions: all singletons; (prefix, last); (first, rest).
+
+    The scanning form over a plain node list, for `optimal` (the engine
+    indexes its node set by ColSet group instead).
+    """
+    cs = frozenset(key.cols)
+    mates = [o for o in present
+             if o.table == key.table and o.method == key.method
+             and frozenset(o.cols) == cs]
+    return _colset_deductions(key, mates) + list(_colext_deductions(key))
+
+
+@functools.lru_cache(maxsize=65536)
+def _compose_cached(rvs: Tuple[err.ErrorRV, ...]) -> err.ErrorRV:
+    # samplecf_error/colext_error are memoized, so the same ErrorRV objects
+    # recur across targets and f values; cache their Goodman composition.
+    return err.compose(rvs)
+
+
+def _deduction_rv(key: NodeKey, d: Deduction,
+                  nodes: Dict[NodeKey, Node]) -> err.ErrorRV:
+    child_rvs = tuple(nodes[c].rv for c in d.children)
+    if d.kind == "colset":
+        drv = err.colset_error()
+    else:
+        drv = err.colext_error(key.method, len(d.children))
+    return _compose_cached(child_rvs + (drv,))
+
+
 class EstimationPlanner:
     """Runs the greedy state assignment through the batched
     `planner_engine.PlannerEngine`.  `device` selects the engine's scoring
@@ -163,6 +208,7 @@ class EstimationPlanner:
         self.max_replay = max_replay
         self.faults = faults
         self._engine = None
+        self._scost: Dict[Tuple[str, Tuple[str, ...], float], float] = {}
 
     @property
     def engine(self):
@@ -174,6 +220,15 @@ class EstimationPlanner:
                 max_nodes=self.max_nodes, max_replay=self.max_replay,
                 faults=self.faults)
         return self._engine
+
+    def _sampling_cost(self, key: NodeKey, f: float) -> float:
+        return memoized_sampling_cost(self.tables, self._scost, key, f)
+
+    def greedy(self, targets: Sequence[NodeKey], f: float, e: float,
+               q: float) -> Plan:
+        """One greedy run at fraction `f` (§5.2): the engine's pass with
+        the single fraction (one `planner_walk` launch on a device)."""
+        return self.engine.greedy_batch(targets, e, q, (f,))[0]
 
     def plan(self, targets: Sequence[NodeKey], e: float, q: float) -> Plan:
         """Outer loop over the sampling fractions of F_GRID (§5.2 last
@@ -187,6 +242,76 @@ class EstimationPlanner:
         deductions; the first grid fraction whose all-sampled plan meets
         (e, q), else the cheapest all-sampled plan, flagged infeasible."""
         return self.engine.plan_all_sampled_batch(targets, e, q)
+
+    # ------------------------------------------------------------------
+    # Optimal exact algorithm (Appendix D) — exponential; experiments only.
+    # ------------------------------------------------------------------
+    def optimal(self, targets: Sequence[NodeKey], f: float, e: float,
+                q: float, max_nodes: int = 14) -> Plan:
+        targets = list(targets)
+        if len(targets) > max_nodes:
+            raise ValueError("optimal(): too many targets (exponential)")
+
+        # Universe: targets + all their (recursive) potential children.
+        universe: Dict[NodeKey, List[Deduction]] = {}
+        frontier = list(targets)
+        while frontier:
+            k = frontier.pop()
+            if k in universe:
+                continue
+            cands = candidate_deductions(k, list(universe) + list(targets))
+            universe[k] = cands
+            for d in cands:
+                for c in d.children:
+                    if c not in universe:
+                        frontier.append(c)
+
+        best: List[Optional[Plan]] = [None]
+
+        def recurse(states: Dict[NodeKey, Tuple[State, Optional[Deduction]]],
+                    remaining: List[NodeKey], cost: float) -> None:
+            if best[0] is not None and cost >= best[0].total_cost:
+                return  # prune
+            if not remaining:
+                nodes: Dict[NodeKey, Node] = {}
+                # resolve rvs narrow->wide
+                for k in sorted(states, key=lambda k: (len(k.cols), k.cols)):
+                    st, d = states[k]
+                    n = Node(k, st)
+                    if st is State.SAMPLED:
+                        n.rv = err.samplecf_error(k.method, f)
+                    else:
+                        if any(c not in nodes and c not in states
+                               for c in d.children):
+                            return
+                        n.chosen = d
+                        n.rv = _deduction_rv(k, d, nodes)
+                    nodes[k] = n
+                for t in targets:
+                    if not err.satisfies(nodes[t].rv, e, q):
+                        return
+                best[0] = Plan(f=f, nodes=nodes, targets=tuple(targets),
+                               total_cost=cost, feasible=True)
+                return
+            # branch on the widest remaining index (App. D line 7)
+            remaining = sorted(remaining, key=lambda k: (len(k.cols), k.cols))
+            k = remaining[-1]
+            rest = remaining[:-1]
+            # option 1: SAMPLED, priced by the §5.1 formula the engine uses
+            recurse({**states, k: (State.SAMPLED, None)}, rest,
+                    cost + self._sampling_cost(k, f))
+            # option 2: each deduction; children must be decided too
+            for d in universe.get(k, []):
+                new_children = [c for c in d.children
+                                if c not in states and c not in rest
+                                and c != k]
+                recurse({**states, k: (State.DEDUCED, d)},
+                        rest + new_children, cost)
+
+        recurse({}, list(targets), 0.0)
+        if best[0] is None:
+            return self.greedy(targets, f, e, q)
+        return best[0]
 
     def execute(self, plan: Plan, engine: EstimationEngine
                 ) -> Dict[NodeKey, SizeEstimate]:

@@ -207,7 +207,7 @@ class PlannerEngine:
         # per-f-grid (node x f) §5.1 cost columns, grown with the universe
         self._scost_cols: Dict[Tuple[float, ...], list] = {}
         # numpy: (e, q) -> per-target _RecReplay decision records
-        self._replay: Dict[Tuple[float, float], Dict[NodeKey, _RecReplay]] = {}
+        self._replay: Dict[Tuple, Dict[NodeKey, _RecReplay]] = {}
         # torch: (e, q, q_feas) -> (target tuple, its walk's _RunState)
         self._walks: Dict[tuple, Tuple[tuple, _RunState]] = {}
         self.graph_builds = 0     # distinct target sets built
@@ -454,6 +454,15 @@ class PlannerEngine:
             ent[1] = n
         return arr[:n]
 
+    def greedy_batch(self, targets: Sequence[NodeKey], e: float, q: float,
+                     f_grid: Sequence[float] = F_GRID) -> List[Plan]:
+        """One `Plan` per fraction in `f_grid` from one pass (one
+        `planner_walk` launch on a torch device)."""
+        st = self._run(targets, e, q, f_grid=tuple(f_grid))
+        feas = self._feasible_vec(st, e, q)
+        return [self._assemble_one(st, fi, bool(feas[fi]))
+                for fi in range(len(st.f_grid))]
+
     def plan_batch(self, targets: Sequence[NodeKey], e: float,
                    q: float) -> Plan:
         """§5.2 outer loop: cheapest feasible plan over the f grid (else
@@ -668,7 +677,8 @@ class PlannerEngine:
             total[fi] += c
 
     def _run(self, targets: Sequence[NodeKey], e: float, q: float,
-             q_feas: Optional[float] = None) -> "_RunState":
+             q_feas: Optional[float] = None,
+             f_grid: Tuple[float, ...] = F_GRID) -> "_RunState":
         """One pass over the targets, scoring lines 6-9 of the §5.2
         pseudocode for the whole candidate set, for every f, at once.
         On a torch device the walk also judges feasibility against
@@ -685,7 +695,7 @@ class PlannerEngine:
         docstring): per record on numpy, per walk on torch.
         """
         self.batch_runs += 1
-        f_grid = F_GRID
+        f_grid = tuple(f_grid)
         if self.record:
             self._trim_replay()
         g = self._graph(targets)
@@ -693,7 +703,7 @@ class PlannerEngine:
         n = len(g.node_keys)
         pad = n   # child_ids pad id -1 wraps to this last row
         if self.device is not None:
-            wkey = (e, q, q if q_feas is None else q_feas)
+            wkey = (e, q, q if q_feas is None else q_feas, f_grid)
             held = self._walks.get(wkey)
             if held is not None and held[0] == tuple(targets):
                 self.replay_hits += len(g.recs)
@@ -730,7 +740,7 @@ class PlannerEngine:
         used = np.zeros((n + 1, nf), dtype=bool)
         chosen: Dict[Tuple[int, int], Deduction] = {}
         false_f = np.zeros(nf, dtype=bool)
-        store = (self._replay.setdefault((e, q), {})
+        store = (self._replay.setdefault((e, q, f_grid), {})
                  if self.record else None)
 
         # dirty-node pre-pass: a target that vanished from the round leaves

@@ -20,12 +20,15 @@ import dataclasses
 import hashlib
 import zlib
 from collections import OrderedDict
-from typing import Dict, Iterator, MutableMapping, Tuple
+from typing import Dict, Iterator, MutableMapping, Optional, Sequence, \
+    Tuple
 
 import numpy as np
+import torch
 
 from . import compression, distinct, errors
-from .relation import IndexDef, Table, build_index_data, uncompressed_pages
+from .relation import IndexDef, Table, build_index_data, rows_per_page, \
+    uncompressed_pages
 
 
 def table_fingerprint(table: Table) -> str:
@@ -170,6 +173,45 @@ class SampleManager:
             self._samples[key] = t.take(np.sort(rows))
             self.sampling_calls += 1
         return self._samples[key]
+
+
+def full_index_sizes(table: Table, idx: IndexDef,
+                     device: Optional[torch.device] = None
+                     ) -> Tuple[int, int]:
+    """(uncompressed_bytes, compressed_bytes) by building the FULL index.
+
+    Prohibitively expensive in a real tool (this is the paper's point) —
+    used here only as ground truth for accuracy experiments.  Without
+    `device` the codec runs in NumPy; with one, on that device
+    (`compressed_index_bytes`), the same integer bytes.
+    """
+    data = build_index_data(table, idx)
+    widths = [table.col_by_name[c].width for c in idx.cols]
+    s = compression.uncompressed_payload_bytes(data.shape[0], widths)
+    if idx.compression is None:
+        return s, s
+    return s, compressed_index_bytes(data, widths, idx.compression, device)
+
+
+def compressed_index_bytes(data: np.ndarray, widths: Sequence[int],
+                           method: str,
+                           device: Optional[torch.device] = None) -> int:
+    """Compressed payload bytes of a built index (`build_index_data`'s
+    (nrows, ncols) matrix in index order) under `method`.  Without
+    `device`, NumPy (`compression.compressed_payload_bytes`); with one,
+    the index goes to the device in one transfer and each of its columns
+    is sized as a one-row stack by the codec's kernel
+    (`compression.batched_bytes`)."""
+    if device is None:
+        return compression.compressed_payload_bytes(method, data, widths)
+    rpp = rows_per_page(int(sum(widths)))
+    cols = torch.from_numpy(np.ascontiguousarray(data.T)).to(device)
+    sc = data.shape[0] * compression.ROW_OVERHEAD
+    for j, w in enumerate(widths):
+        wt = torch.tensor([w], dtype=torch.int64, device=cols.device)
+        sc += int(compression.batched_bytes(method, cols[j:j + 1], wt, rpp,
+                                            backend="torch")[0])
+    return int(sc)
 
 
 def sample_cf(manager: SampleManager, idx: IndexDef, f: float

@@ -42,7 +42,8 @@ from ..kernels.quantize_blockwise import (DEFAULT_BLOCK,
                                           quantize_blockwise_group)
 from ..models import model as MD
 from ..models.config import ModelConfig
-from ..distributed.sharding import entry_axes, mesh_sizes
+from ..distributed.sharding import DistConfig, entry_axes, mesh_sizes
+from ..launch.mesh import MeshShape
 from ..models.interop import jax_ndim
 from ..optim import AdamWConfig, adamw_update
 from ..optim.adamw import local
@@ -257,9 +258,30 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig, remat: bool = True,
     return step
 
 
-def make_prefill_step(cfg: ModelConfig) -> Callable:
+def make_prefill_step(cfg: ModelConfig, act_specs: Optional[Mapping] = None,
+                      mesh=None) -> Callable:
     """Returns prefill(params, batch) -> logits, with chunked (online-
-    softmax) attention so long sequences never materialize S^2 scores."""
+    softmax) attention so long sequences never materialize S^2 scores.
+
+    `act_specs` (the JAX step's activation shardings of "hidden" and
+    "logits") are held, as `check_act_specs` holds the sharded train
+    step's, against `mesh` (a DeviceMesh or `launch.mesh.MeshShape`; the
+    JAX step's ambient mesh; by default one device, every axis of size
+    1): the batch dimension over the axes other than a model axis larger
+    than 1, every other dimension over axes of size 1.  A spec asking for
+    a model axis larger than 1 raises (tensor parallelism is not ported);
+    otherwise the logits are those of the call without specs."""
+    if act_specs is not None:
+        sizes = dict(mesh_sizes(mesh)) if mesh is not None else {}
+        for spec in act_specs.values():
+            for entry in spec:
+                for a in entry_axes(entry):
+                    sizes.setdefault(a, 1)
+        data_axes = tuple(a for a, n in sizes.items()
+                          if a != DistConfig.model_axis or n == 1)
+        check_act_specs(act_specs, MeshShape(tuple(sizes),
+                                             tuple(sizes.values())),
+                        data_axes)
 
     def prefill(params, batch: Batch):
         return MD.forward(params, cfg, batch.get("tokens"),

@@ -50,8 +50,8 @@ from repro_torch.core.planner_engine import PlannerEngine
 from repro_torch.kernels import launch_counts, planner_score as ps
 from torch_port_util import (BIG, MID, TRAP_A_E, WALK_SUMS, WALK_SUMS_WIN,
                              WALK_TIES, WALK_TIES_WIN, WALK_TRAP_A,
-                             port_schema, trap_a_score, walk_graph,
-                             walk_synthetic)
+                             assert_plans_match, port_schema, trap_a_score,
+                             walk_graph, walk_synthetic)
 
 E, Q = 0.5, 0.9
 CPU = torch.device("cpu")
@@ -129,43 +129,6 @@ def test_pack_round_trips_the_graph(schema, targets):
 # ---------------------------------------------------------------------------
 # the engine against the JAX package
 # ---------------------------------------------------------------------------
-
-P_ATOL = 5e-5     # fused_score p against the reference (float32, its erf)
-
-
-def assert_plans_match(got, want, e, exact_rv: bool):
-    """The same f, total cost, feasibility, nodes and node states.  Each
-    DEDUCED node with the same chosen deduction and error RVs within the
-    fused_score tolerances (exactly equal where `exact_rv`), or else an
-    equal-p tie: the float32 scorer (this port's and the JAX package's
-    alike) breaks ties among candidates whose p agree to 1e-7 by its own
-    roundings, which changes that node's deduction or, downstream, its
-    children's RVs; the two RVs' p must then agree within the p
-    tolerance.  Returns the number of such ties."""
-    assert (got.f, got.total_cost, got.feasible) == \
-        (want.f, want.total_cost, want.feasible)
-    assert [k.label() for k in got.nodes] == [k.label() for k in want.nodes]
-    ties = 0
-    for kg, kw in zip(got.nodes, want.nodes):
-        ng, nw = got.nodes[kg], want.nodes[kw]
-        assert ng.state.value == nw.state.value, kg.label()
-        assert (ng.chosen is None) == (nw.chosen is None)
-        if exact_rv:
-            assert (ng.rv.mean, ng.rv.std) == (nw.rv.mean, nw.rv.std)
-            continue
-        same = ng.chosen is None or \
-            [c.label() for c in ng.chosen.children] == \
-            [c.label() for c in nw.chosen.children]
-        close = np.isclose(ng.rv.mean, nw.rv.mean, rtol=1e-5, atol=0.0) \
-            and np.isclose(ng.rv.std, nw.rv.std, rtol=1e-4, atol=1e-6)
-        if not (same and close):
-            pg, pw = err.prob_within_batch(
-                np.array([ng.rv.mean, nw.rv.mean]),
-                np.array([ng.rv.std, nw.rv.std]), e)
-            assert abs(pg - pw) <= P_ATOL, kg.label()
-            ties += 1
-    return ties
-
 
 @pytest.mark.parametrize("all_sampled", [False, True])
 @pytest.mark.parametrize("backend", ["jax", "numpy"])

@@ -1,22 +1,29 @@
 """The order of the port's float32 weighted totals.
 
 The torch backend's greedy-step scorers (`_score_secondary_torch`,
-`_score_replace_torch`) sum `q_w @ new_q` over the query axis with
-`cost_engine._fma_chain`: a chain of float32 fused multiply-adds in query
-order, computed exactly in float64 ops (a float64 add and a float32
-rounding a query; `_rn32_add` where the second rounding could be a double
-rounding).  A BLAS `matmul`
-there picked its order by the CPU branch of the library (MKL's AVX512
-sgemv gave identical candidate columns different totals), which moved
-near-zero benefits across the greedy's 1e-9 threshold.
+`_score_replace_torch`) sum `q_w @ new_q` over the query axis in the
+order XLA's CPU code sums the JAX package's fused scorers
+(`cost_engine._xla_sum_order`): a chain of float32 fused multiply-adds
+in query order where XLA unrolls or keeps the query loop scalar, 8 FMA
+lanes and a halving tree, then the chain, where it vectorizes the loop;
+the RID term's multiply-adds contracted into FMAs as LLVM contracts them
+(`_rid_f32`).  Each FMA is exact in float64 ops (`_fma_chain`,
+`_rn32_add`).  A BLAS `matmul` there picked its order by the CPU branch
+of the library (MKL's AVX512 sgemv gave identical candidate columns
+different totals), which moved near-zero benefits across the greedy's
+1e-9 threshold.
 
 * the chain is float32 round-to-nearest at every step, exactly, against a
   rational reference (double rounding through float64 and float32's
   subnormals included);
+* on seeded random inputs whose paths win through the RID term, both
+  scorers are bit-equal to the JAX package's `_jax_score_secondary` /
+  `_jax_score_replace` at every (nq, m, ns) the fleet and session
+  fixtures reach and on a grid around the rule's classes (the chain,
+  8-lane vectors with and without a scalar epilogue, the unroll limit,
+  the ninth candidate column at m = 9);
 * on the session test's fixture (`test_torch_session_reference.py`) every
-  scorer call of the first two rounds is bit-equal to the JAX package's
-  `_jax_score_secondary` / `_jax_score_replace`, from the first call on
-  (where the BLAS sum first parted from them);
+  scorer call of the first two rounds is bit-equal to the reference's;
 * a candidate whose paths leave every query unchanged totals exactly what
   the unchanged workload totals under the same sum (benefit 0 against
   it), equal to every other such candidate and to the reference;
@@ -180,7 +187,10 @@ def test_unchanged_paths_give_the_unchanged_total(session_calls):
         if not neutral.any():
             continue
         seen += int(neutral.sum())
-        own = ce._fma_chain(t[7], t[0][:, None]).numpy()[0]
+        nq, m = t[1].shape
+        _, _, lanes, nv = ce._xla_sum_order("sec", nq, m, 0)
+        own = ce._xla_dot(t[7], t[0][:, None].expand(nq, m), lanes,
+                          nv).numpy()[0]
         assert set(_bits(out[neutral]).tolist()) == {int(_bits(own))}
         want = np.asarray(ref_ce._jax_score_secondary(
             *[jnp.asarray(a) for a in args]))
@@ -216,3 +226,75 @@ def test_session_reference_passes_under_mkl_avx2_branch():
          "-p", "no:randomly", test], cwd=ROOT, env=env,
         capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-2000:]
+
+
+# every (nq, m, ns) the fleet and session fixtures reach (the replace
+# scorer's m candidates are its nq rows there; ns is the secondary
+# scorer's candidate count too)
+FIXTURE_REP = [(2, 1, 1), (5, 4, 1)] + [
+    (nq, nq, ns) for nq, top in ((8, 12), (9, 12), (11, 15), (13, 18),
+                                 (15, 19)) for ns in range(1, top + 1)]
+FIXTURE_SEC = {
+    2: (3, 6, 9), 5: (3, 6),
+    8: (7, 9, 10, 11, 12, 13, 15, 17, 18, 19, 20, 21, 23, 24, 25, 26, 27,
+        28, 30, 31, 34, 37),
+    9: (12, 14, 15, 18, 19, 22, 24, 26, 27, 29, 32, 35, 38),
+    11: (33, 34, 36, 38, 39, 42, 45, 47, 49, 51, 52, 54, 57, 60, 63, 66),
+    13: (44, 45, 46, 48, 50, 51, 54, 57, 59, 60, 62, 64, 65, 68, 70, 73, 76,
+         79, 82),
+    15: (54, 56, 58, 60, 61, 64, 67, 69, 71, 73, 74, 76, 77, 80, 83, 86, 89,
+         91, 94, 97)}
+# the grid: both sides of the unroll limit, of 8 and 16 queries, of a
+# candidate stride of 8 (the epilogue), the m = 9 edge column
+GRID_REP = [(nq, m, ns) for nq in (1, 2, 3, 4, 5, 6, 7, 8, 9, 12, 15)
+            for m in (8, 16) for ns in (1, 2, 3, 5, 8)]
+GRID_SEC = [(nq, m) for nq in (1, 2, 5, 7, 8, 9, 15, 16, 17, 24, 25, 32, 33)
+            for m in (3, 9, 16)]
+PROBE = [(8, 8, 2), (8, 8, 3), (8, 16, 3), (16, 16, 2), (24, 8, 3)]
+SHAPES = sorted(
+    {("rep", *s) for s in FIXTURE_REP + GRID_REP + PROBE}
+    | {("sec", nq, m, 0) for nq, ms in FIXTURE_SEC.items() for m in ms}
+    | {("sec", nq, m, 0) for nq, m in GRID_SEC})
+
+
+def _random_args(scorer, nq, m, ns, rng):
+    """float32 scorer operands whose paths mostly win through seek + RID
+    (scan and covering costs 500-3000, RID terms of comparable size), so
+    every rounding of the RID term and of the sum shows."""
+    def u(lo, hi, *shape):
+        return rng.uniform(lo, hi, shape).astype(np.float32)
+    q_w = u(0.1, 10, nq)
+    ncols = rng.integers(1, 8, nq).astype(np.float32)
+    if scorer == "rep":
+        return [u(500, 3000, nq, m), u(500, 3000, nq, ns),
+                u(0.01, 5, nq, ns), u(0, 300, nq, ns), u(1e5, 3e6, m),
+                u(0, 0.3, m), ncols, q_w]
+    return [u(500, 3000, nq), u(500, 3000, nq, m), u(0.01, 5, nq, m),
+            u(0, 300, nq, m), np.float32(rng.uniform(1e5, 3e6)),
+            np.float32(rng.uniform(0, 0.3)), ncols, q_w]
+
+
+@pytest.mark.parametrize("scorer,nq,m,ns", SHAPES,
+                         ids=lambda v: str(v))
+def test_scorers_bit_equal_reference_on_random_inputs(scorer, nq, m, ns):
+    rng = np.random.default_rng([nq, m, ns, scorer == "rep"])
+    args = _random_args(scorer, nq, m, ns, rng)
+    name = {"rep": "_score_replace_torch",
+            "sec": "_score_secondary_torch"}[scorer]
+    got = getattr(ce, name)(*[torch.as_tensor(a) for a in args])
+    want = np.asarray(REF[name](*[jnp.asarray(a) for a in args]))
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+
+
+@pytest.mark.parametrize("shape,order", [
+    (("rep", 8, 8, 2), ("A", "A", 8, 0)),      # unrolled: the chain
+    (("rep", 8, 8, 3), ("A", "B", 8, 8)),      # one 8-lane vector
+    (("rep", 8, 16, 3), ("A", "B", 8, 8)),
+    (("rep", 16, 16, 2), ("A", "A", 8, 16)),   # two blocks, no epilogue
+    (("rep", 24, 8, 3), ("A", "B", 8, 16)),    # stride 8: a scalar epilogue
+    (("rep", 9, 9, 4), ("B", "B", 8, 0)),      # a scalar loop
+    (("sec", 15, 40, 0), ("B", "B", 8, 0)),
+    (("sec", 16, 8, 0), ("B", "B", 8, 8)),
+    (("sec", 33, 16, 0), ("B", "B", 8, 32))])
+def test_xla_sum_order_classes(shape, order):
+    assert ce._xla_sum_order(*shape) == order

@@ -366,6 +366,40 @@ def test_prefill_and_decode_steps():
     assert torch.equal(logits, again)
 
 
+@pytest.mark.parametrize("mode", ["tp", "fsdp"])
+def test_prefill_act_specs_checked_and_logits_unchanged(mode):
+    """`make_prefill_step(cfg, act_specs=)`: the reference's activation
+    specs on a 1x1 mesh (or no mesh) give the call without specs' logits,
+    bit for bit, and the JAX prefill's within the test's tolerances; a
+    model axis larger than 1 raises (tensor parallelism is not ported),
+    also in a spec's batch dimension."""
+    from repro.distributed import sharding as JS
+    from repro_torch.distributed.sharding import DistConfig, activation_specs
+    from repro_torch.launch.mesh import MeshShape
+    jp = jax_params(TINY)
+    tp = carry(jp, TINY)
+    toks = tokens((2, 16), TINY.vocab, seed=5)
+    act = activation_specs(DistConfig(parallel_mode=mode))
+    specs = {"hidden": act["hidden"], "logits": act["logits"]}
+    assert specs == {k: tuple(v) for k, v in JS.activation_specs(
+        JS.DistConfig(parallel_mode=mode)).items() if k in specs}
+    cfg = port_cfg(TINY)
+    batch = {"tokens": torch.from_numpy(toks)}
+    with torch.no_grad():
+        plain = make_prefill_step(cfg)(tp, batch)
+        for mesh in (None, MeshShape(("data", "model"), (1, 1))):
+            got = make_prefill_step(cfg, act_specs=specs, mesh=mesh)(tp,
+                                                                     batch)
+            assert torch.equal(got, plain)
+    want = j_make_prefill_step(TINY, act_specs=None)(
+        jp, {"tokens": jnp.asarray(toks)})
+    np.testing.assert_allclose(plain.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    with pytest.raises(ValueError, match="tensor parallelism"):
+        make_prefill_step(cfg, act_specs=specs,
+                          mesh=MeshShape(("data", "model"), (1, 16)))
+
+
 # ---------------------------------------------------------------------------
 # Trainer
 # ---------------------------------------------------------------------------

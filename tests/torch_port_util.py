@@ -2,6 +2,12 @@
 against the JAX package (`repro`): hand the reference's exact schema and
 workload to the port as plain data, and compare configurations of the
 two packages by their index labels."""
+import contextlib
+import importlib.util
+import io
+import re
+from pathlib import Path
+
 import numpy as np
 
 import repro_torch.core as pt
@@ -369,3 +375,62 @@ def midflight_tokens(engine_mod, params, cfg, midflight: bool, **kw):
                                       max_new_tokens=5))
     eng.run_until_drained()
     return eng.finished[0].out_tokens
+
+
+PLAN_P_ATOL = 5e-5    # fused_score p against the reference (float32, its erf)
+
+
+def assert_plans_match(got, want, e, exact_rv: bool):
+    """The same f, total cost, feasibility, nodes and node states.  Each
+    DEDUCED node with the same chosen deduction and error RVs within the
+    fused_score tolerances (exactly equal where `exact_rv`), or else an
+    equal-p tie: the float32 scorer (this port's and the JAX package's
+    alike) breaks ties among candidates whose p agree to 1e-7 by its own
+    roundings, which changes that node's deduction or, downstream, its
+    children's RVs; the two RVs' p must then agree within the p
+    tolerance.  Returns the number of such ties."""
+    assert (got.f, got.total_cost, got.feasible) == \
+        (want.f, want.total_cost, want.feasible)
+    assert [k.label() for k in got.nodes] == [k.label() for k in want.nodes]
+    ties = 0
+    for kg, kw in zip(got.nodes, want.nodes):
+        ng, nw = got.nodes[kg], want.nodes[kw]
+        assert ng.state.value == nw.state.value, kg.label()
+        assert (ng.chosen is None) == (nw.chosen is None)
+        if exact_rv:
+            assert (ng.rv.mean, ng.rv.std) == (nw.rv.mean, nw.rv.std)
+            continue
+        same = ng.chosen is None or \
+            [c.label() for c in ng.chosen.children] == \
+            [c.label() for c in nw.chosen.children]
+        close = np.isclose(ng.rv.mean, nw.rv.mean, rtol=1e-5, atol=0.0) \
+            and np.isclose(ng.rv.std, nw.rv.std, rtol=1e-4, atol=1e-6)
+        if not (same and close):
+            pg, pw = pt.errors.prob_within_batch(
+                np.array([ng.rv.mean, nw.rv.mean]),
+                np.array([ng.rv.std, nw.rv.std]), e)
+            assert abs(pg - pw) <= PLAN_P_ATOL, kg.label()
+            ties += 1
+    return ties
+
+
+EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
+# wall times in the examples' output: "5.44s", "  31ms", "0.42 ms", "(1.2x)"
+EXAMPLE_TIMES = re.compile(r"\d+(\.\d+)?\s*(s|ms)\b|\(\s*[\d.]+x\)")
+
+
+def load_example(name):
+    """examples/<name>.py as a module (the folder is not a package)."""
+    spec = importlib.util.spec_from_file_location(name,
+                                                  EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_output(fn, *args) -> str:
+    """What fn(*args) prints."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fn(*args)
+    return buf.getvalue()
