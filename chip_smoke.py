@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one GPU, end to end: the advisor, LM
-serving and LM training, every model family, and distribution.
+serving and LM training, every model family served and trained, and
+distribution.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught), run in the order
-1, 2, 3, 3b, 3c, 3d, 3e, 4, 5, 4b, 6, 4c, 6f, 7, 8, 9:
+1, 2, 3, 3b, 3c, 3d, 3e, 4, 5, 4b, 6, 4c, 6f, 7, 8, 9, 10:
   1. print the card (nvidia-smi name, power limit) and build the eighteen
      hand-written kernels from the sources under src/repro_torch/kernels/
      (four libraries, one nvcc per source, all started together);
@@ -198,12 +199,51 @@ Phases (any failure exits non-zero; nothing is caught), run in the order
      seconds and peak device memory; 9e every examples/torch_*.py `main`
      on the card at its reference's default size (train_e2e: the fast
      preset, 3 steps), each one's seconds; the phase's launches join the
-     advisor kernels' records.
+     advisor kernels' records;
+  10. the non-dense families trained on the card (`phase_10`, module
+     level), every earlier model and the SF1 schema freed: 10a
+     granite-moe-3b-a800m at its published size (3.374 B parameters)
+     through `launch.train.main` at batch 4 x seq 2048, 5 steps, the 80 GB
+     plan (float32 moments, the q8 wire): losses finite, the first within
+     FIRST_LOSS_WINDOW of ln(vocab) + d_model * 0.02^2 / 2, the last below
+     it, one grouped quantize and one grouped dequantize launch per wire
+     bucket per step, step seconds, tokens/s, peak device memory, the
+     share of expert assignments kept per step (each MoE call's keep mask
+     as `moe_routing` returns it, each layer's first call a step), one
+     more step traced (busy share,
+     device time by kernel family, the index kernels); 10a-ii
+     `make_loss_and_grads` twice on its final parameters (moments freed):
+     the loss bit-equal, each gradient bit-equal or the largest gap per
+     parameter kind printed, then both q8 kernels, single and grouped on
+     the wire's buckets, bit-equal to their plain versions on those
+     gradients; 10b rwkv6-7b at full width, cut to RWKV_DEPTH layers,
+     `Trainer` at the 80 GB plan, batch 4 x seq 512 (two WKV chunks), step
+     0 and 3 more: 10a's checks, one traced step with the WKV scan's share
+     of host and device time, then the q8 kernels on its gradients; 10c
+     granite-moe-3b-a800m, rwkv6-7b, pixtral-12b and musicgen-medium at
+     full width and depth 2 trained FAMILY_TRAIN_STEPS steps on the card
+     and on a CPU copy of the same weights (float32 compute, remat, the q8
+     wire and q8 moments, batch 1 x seq 512), held to phase 6e's bounds,
+     MoE routing differences and RWKV's near-eps group-norm rows counted,
+     not exempted, the CPU copy's host bytes reckoned; 10d the Jamba smoke
+     configuration the same way at seq 256, and its Mamba block alone at
+     d_model 8192 (AdamW on the mean square of its output against a seeded
+     target, batch 2 x seq 256); 10e `launch.train.main` at smoke size, 5
+     steps, for the six non-dense architectures, each held to a CPU
+     Trainer from the same initial weights (losses within rtol 2e-2,
+     finite, the last below the first, a stub frontend's near ln(vocab));
+     where a token model's loss does not fall with the plan's q8 moments
+     and q8 wire at lr 1e-3 (the Jamba smoke's: the JAX Trainer rises so too,
+     tests/test_torch_train_hybrid.py), the CPU's must not fall either and
+     the same weights trained with float32 moments and no wire must fall
+     on the card; prints each part's
+     seconds; the q8 launches of its training runs join the q8 records.
 
 Prints the per-phase wall times, launch counts, kernel times beside their
 bounds, peak device memory, a JSON line of kernel records, the card line,
 and last {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
+import contextlib
 import dataclasses
 import gc
 import json
@@ -271,9 +311,6 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 4, 2048, 3e-4
 TRAIN_BUDGETS = (80e9, 10e9)     # 6b float32 moments, 6c q8 moments
 TRAIN_STEPS = (6, 4)
 BF16_PEAK = 989e12               # H100 SXM dense bf16 tensor-core rate
-# at init the logits have variance d_model * 0.02^2 ~ 0.82, so the first
-# loss is about ln(32000) + 0.41 = 10.78
-FIRST_LOSS = (10.0, 11.5)
 # phase 6e, card vs CPU in float32 (the CPU tests' tolerances against
 # JAX): losses within rtol 1e-4; parameters within 6 lr everywhere and
 # within 1e-5 on all but 0.1 % (Adam's first updates are near sign(g) * lr,
@@ -296,6 +333,8 @@ KERNEL_FAMILIES = (
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_PARAM_ATOL = 1e-5
 TRAIN_FAR_SHARE = 1e-3
+Q8_KERNELS = ("quantize_blockwise", "dequantize_blockwise")
+SCAN_RANGE = "chunked_scan"      # the profiler range of a recurrence's time loop
 # phase 6f: T1 runs the first CKPT_STEPS[0] steps and saves, T2 resumes
 # for CKPT_STEPS[1] more; checkpoint_every beyond the run (only the
 # end-of-run save fires); the disk must hold this many times the state's
@@ -404,6 +443,387 @@ def state_gap(a, b):
 def dir_bytes(path):
     return sum(p.stat().st_size for p in Path(path).rglob("*")
                if p.is_file())
+
+
+def read_trace(prof):
+    """({kernel name: device us}, host us, device us) of a torch.profiler
+    profile, read from its raw events (building the profiler's event tree
+    takes minutes for the million host events of a recurrent step).  The
+    two times are those of the `SCAN_RANGE` ranges and of the backward
+    nodes of the ops run inside them (matched by their forward op's
+    autograd sequence number and thread), as the union of those intervals
+    on each thread, and of the kernels their ops launched."""
+    import bisect
+
+    from torch.autograd import DeviceType
+    raw = prof.profiler.kineto_results.events()
+    kernels, ops = [], []
+    for e in raw:
+        if e.device_type() == DeviceType.CUDA:
+            if e.name() != SCAN_RANGE:          # not the range's annotation
+                kernels.append(e)
+        elif e.linked_correlation_id() == 0:    # an op, range or node
+            ops.append(e)
+    by_name = {}
+    for k in kernels:
+        by_name[k.name()] = by_name.get(k.name(), 0.0) + \
+            k.duration_ns() / 1e3
+    by_thread = {}
+    for e in ops:
+        by_thread.setdefault(e.start_thread_id(), []).append(e)
+    starts = {}
+    for t, es in by_thread.items():
+        es.sort(key=lambda e: e.start_ns())
+        starts[t] = [e.start_ns() for e in es]
+    spans = {}                                  # thread -> [(start, end)]
+    fwd = set()
+    for e in ops:
+        if e.name() != SCAN_RANGE:
+            continue
+        t, lo, hi = e.start_thread_id(), e.start_ns(), e.end_ns()
+        spans.setdefault(t, []).append((lo, hi))
+        es = by_thread[t]
+        for i in range(bisect.bisect_left(starts[t], lo),
+                       bisect.bisect_left(starts[t], hi)):
+            if es[i].sequence_nr() >= 0:
+                fwd.add((t, es[i].sequence_nr()))
+    for e in ops:
+        if e.name().startswith("autograd::engine::evaluate_function") and \
+                (e.fwd_thread_id(), e.sequence_nr()) in fwd:
+            spans.setdefault(e.start_thread_id(), []).append(
+                (e.start_ns(), e.end_ns()))
+    host_ns = 0
+    merged = {}
+    for t, iv in spans.items():
+        iv.sort()
+        out = []
+        for lo, hi in iv:
+            if out and lo <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], hi)
+            else:
+                out.append([lo, hi])
+        merged[t] = ([lo for lo, _ in out], [hi for _, hi in out])
+        host_ns += sum(hi - lo for lo, hi in out)
+    launcher = {e.correlation_id(): e for e in ops}
+    dev_ns = 0
+    for k in kernels:
+        op = launcher.get(k.linked_correlation_id())
+        if op is None or op.start_thread_id() not in merged:
+            continue
+        los, his = merged[op.start_thread_id()]
+        i = bisect.bisect_right(los, op.start_ns()) - 1
+        if i >= 0 and op.start_ns() < his[i]:
+            dev_ns += k.duration_ns()
+    return by_name, host_ns / 1e3, dev_ns / 1e3
+
+
+def trace_step(label, trainer, scan_module=None):
+    """One more step of `trainer` under torch.profiler: device busy time
+    against the step's wall time, and the kernels' time by family
+    (KERNEL_FAMILIES).  With `scan_module` (a model module that calls
+    `chunked_scan`), each of its scans runs inside a `SCAN_RANGE` profiler
+    range, and the scans' share of the step's host and device time
+    (`read_trace`) is printed too.  Returns {kernel name: device us}."""
+    from torch.autograd.profiler import record_function
+    from torch.profiler import ProfilerActivity, profile
+    if scan_module is not None:
+        orig = scan_module.chunked_scan
+
+        def ranged(*args, **kw):
+            with record_function(SCAN_RANGE):
+                return orig(*args, **kw)
+        scan_module.chunked_scan = ranged
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            trainer.run(1)
+    finally:
+        if scan_module is not None:
+            scan_module.chunked_scan = orig
+    t0 = time.perf_counter()
+    step_us = trainer.history[-1]["seconds"] * 1e6
+    by_name, host_us, dev_us = read_trace(prof)
+    busy_us = sum(by_name.values())
+    if scan_module is not None:
+        print(f"phase {label} trace: the recurrence's chunked_scan (its "
+              f"forward, both checkpoints' recomputes and its backward "
+              f"nodes): host {host_us / 1e3:.3f} ms "
+              f"({host_us / step_us:.4f} of the step's wall time), device "
+              f"{dev_us / 1e3:.3f} ms ("
+              f"{dev_us / busy_us if busy_us > 0 else float('nan'):.4f} of "
+              f"the device time)")
+    if busy_us <= 0:
+        print(f"phase {label} trace: torch.profiler recorded no device time")
+        return by_name
+    fams = {}
+    for name, us in by_name.items():
+        low = name.lower()
+        fam = next((f for f, keys in KERNEL_FAMILIES if any(
+            k in low for k in keys)), "other")
+        fams[fam] = fams.get(fam, 0.0) + us
+    print(f"phase {label} trace: one step under torch.profiler: "
+          f"{step_us / 1e3:.3f} ms wall (profiler on), {busy_us / 1e3:.3f}"
+          f" ms of device work in {len(by_name)} kernel names: device "
+          f"busy {busy_us / step_us:.4f}, idle "
+          f"{1 - busy_us / step_us:.4f}; the trace read in "
+          f"{time.perf_counter() - t0:.3f} s")
+    print(f"phase {label} trace: device ms by family: " + ", ".join(
+        f"{f} {us / 1e3:.3f} ({us / busy_us:.3f})"
+        for f, us in sorted(fams.items(), key=lambda kv: -kv[1])))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    print(f"phase {label} trace: top kernels (device ms): " + "; ".join(
+        f"{short_name(n)} {us / 1e3:.3f}" for n, us in top))
+    return by_name
+
+
+def q8_on_gradients(label, grads):
+    """Both q8 kernels bit-equal to their plain versions on real gradients
+    ({name: tensor} on the card): `quantize_blockwise` and
+    `dequantize_blockwise` on each gradient, then the grouped quantize and
+    dequantize on the q8 wire's buckets of them (`train.step.
+    wire_buckets`).  Returns {name: (q, scales)} of the single calls."""
+    import torch
+    from repro_torch.kernels import quantize_blockwise as qb
+    from repro_torch.train import step as train_step
+    wire = {}
+    for name, g in grads.items():
+        q_, s_ = qb.quantize_blockwise(g)
+        q_p, s_p = qb.quantize_blockwise_plain(g)
+        if not (bit_equal(q_, q_p) and bit_equal(s_, s_p)):
+            fail(f"{label}: quantize_blockwise != plain on the gradient of "
+                 f"{name}")
+        if not bit_equal(qb.dequantize_blockwise(q_, s_),
+                         qb.dequantize_blockwise_plain(q_, s_)):
+            fail(f"{label}: dequantize_blockwise != plain on the gradient "
+                 f"of {name}")
+        wire[name] = (q_, s_)
+    wire_list = list(wire.values())
+    grad_list = list(grads.values())
+    buckets = train_step.wire_buckets(grad_list)
+    for bucket in buckets:
+        items = [(grad_list[i], torch.empty_like(wire_list[i][0]),
+                  torch.empty_like(wire_list[i][1])) for i in bucket]
+        qb.quantize_blockwise_group(items)
+        for i, (_, q_, s_) in zip(bucket, items):
+            if not (bit_equal(q_, wire_list[i][0])
+                    and bit_equal(s_, wire_list[i][1])):
+                fail(f"{label}: quantize_blockwise_group != plain on a "
+                     f"{tuple(q_.shape)} gradient")
+        items = [(*wire_list[i], torch.empty(wire_list[i][0].shape,
+                                             device=grad_list[i].device))
+                 for i in bucket]
+        qb.dequantize_blockwise_group(items)
+        for q_, s_, out in items:
+            if not bit_equal(out, qb.dequantize_blockwise_plain(q_, s_)):
+                fail(f"{label}: dequantize_blockwise_group != plain on a "
+                     f"{tuple(q_.shape)} gradient")
+    shapes = sorted({tuple(g.shape) for g in grads.values()})
+    print(f"{label}: quantize_blockwise and dequantize_blockwise bit-equal "
+          f"to plain on {len(wire)} real gradients of {len(shapes)} shapes "
+          f"{shapes}; quantize_blockwise_group and dequantize_blockwise_group"
+          f" bit-equal on the q8 wire's {len(buckets)} buckets of them")
+    return wire
+
+
+def family_step(cfg):
+    """Phase 6e's step: `make_train_step` with float32 compute, per-layer
+    remat, chunked attention, the q8 wire and q8 moments (FAMILY_OPT)."""
+    from repro_torch.train import step as train_step
+    return train_step.make_train_step(
+        cfg, family_opt(), remat=True, grad_compression="q8",
+        compute_dtype=None, attn_impl="chunked")
+
+
+def family_opt():
+    from repro_torch.optim import AdamWConfig
+    return AdamWConfig(lr=TRAIN_LR, state_codec="q8")
+
+
+def family_batches(cfg, batch, seq, steps):
+    """`batch_at`'s first `steps` batches of `cfg` on the CPU (seed 0); a
+    stub frontend's embeddings in float32, the models' type."""
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    stub = cfg.frontend != "tokens"
+    data = DataConfig(cfg.vocab, batch, seq, seed=0,
+                      d_model=cfg.d_model if stub else 0)
+    out = []
+    for i in range(steps):
+        b = batch_at(data, i, device="cpu")
+        if stub:
+            b["embeds"] = b["embeds"].float()
+        out.append(b)
+    return out
+
+
+# 10c and 10d's CPU references take a large CPU tensor a block of rows at a
+# time in AdamW and the q8 plain group functions (`cpu_row_blocks`): on
+# tensors of gigabytes a whole tensor's temporaries are fresh pages, whose
+# first touch costs more than the arithmetic (PERF.md, phase 10)
+CPU_ROW_BLOCK_BYTES = 8 << 20
+
+
+def row_blocks(t):
+    """Slices of `t`'s first dimension of about CPU_ROW_BLOCK_BYTES of
+    float32 each; one slice of all of it for a tensor off the CPU or of
+    fewer than two dimensions."""
+    if t.device.type != "cpu" or t.ndim < 2 or t.shape[0] == 0:
+        return [slice(None)]
+    rows = max(1, CPU_ROW_BLOCK_BYTES // max(1, 4 * t[0].numel()))
+    return [slice(i, i + rows) for i in range(0, t.shape[0], rows)]
+
+
+@contextlib.contextmanager
+def cpu_row_blocks():
+    """For the block, `adamw_update` (as `train.step` and `mamba_step`
+    call it) and the plain q8 group functions (the CPU path of the q8 wire
+    and the q8 moments) applied to each CPU tensor a block of rows at a
+    time (`row_blocks`), through the port's own functions.  Rows are
+    independent (a q8 block lies within a row; AdamW works element by
+    element), so the bits are those of one call on the whole tensor."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.kernels import quantize_blockwise as qb
+    from repro_torch.train import step as train_step
+    update = optim.adamw_update
+    q_plain = qb.quantize_blockwise_group_plain
+    dq_plain = qb.dequantize_blockwise_group_plain
+
+    def quantize(items, block=qb.DEFAULT_BLOCK):
+        for x, q, s in items:
+            for r in row_blocks(x):
+                q_plain([(x[r], q[r], s[r])], block)
+
+    def dequantize(items, block=qb.DEFAULT_BLOCK):
+        for q, s, out in items:
+            for r in row_blocks(q):
+                dq_plain([(q[r], s[r], out[r])], block)
+
+    def adamw(params, grads, state, cfg):
+        moments = state["moments"]
+        for name, p in params.named_parameters():
+            blocks = row_blocks(p)
+            new = {k: torch.empty_like(t) for k, t in moments[name].items()}
+            for r in blocks:
+                part = torch.nn.Module()
+                # a parameter sharing the rows' storage: updated in place
+                part.w = torch.nn.Parameter(p.data[r], requires_grad=False)
+                sub = {"step": state["step"], "moments": {"w": {
+                    k: t[r] for k, t in moments[name].items()}}}
+                update(part, {"w": grads[name][r]}, sub, cfg)
+                if len(blocks) == 1:
+                    new = sub["moments"]["w"]
+                else:
+                    for k, t in sub["moments"]["w"].items():
+                        new[k][r] = t
+            moments[name] = new
+        state["step"] = state["step"] + 1
+        return params, state
+
+    optim.adamw_update = train_step.adamw_update = adamw
+    qb.quantize_blockwise_group_plain = quantize
+    qb.dequantize_blockwise_group_plain = dequantize
+    try:
+        yield
+    finally:
+        optim.adamw_update = train_step.adamw_update = update
+        qb.quantize_blockwise_group_plain = q_plain
+        qb.dequantize_blockwise_group_plain = dq_plain
+
+
+def train_card_vs_cpu(label, what, cfg, p_card, step, batches, dev):
+    """Phase 6e's method: `p_card` and a CPU copy of the same weights,
+    each trained by `step(params, opt_state, batch)` from fresh q8 AdamW
+    state (`family_opt`) over `batches` (CPU tensors, moved to each
+    device), held to the CPU tests' bounds against JAX: losses within rtol
+    TRAIN_LOSS_RTOL, parameters within 6 lr everywhere and within
+    TRAIN_PARAM_ATOL on all but TRAIN_FAR_SHARE of them.  MoE routing
+    differences (`routing_gaps`, near-ties within ROUTE_GAP) and, for RWKV,
+    the rows a group-norm head below variance GN_VAR touched are counted
+    and printed, never exempted.  The CPU run takes large tensors a block
+    of rows at a time (`cpu_row_blocks`).  Returns the card run's launch
+    counts."""
+    import copy
+    import resource
+
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.layers import MoE
+    from repro_torch.optim import adamw_init
+    p_cpu = copy.deepcopy(p_card).cpu()
+    moe = any(isinstance(m, MoE) for m in p_card.modules())
+    rwkv = cfg.mixer == "rwkv6"
+    routes, hooks = {}, []
+    near = {}
+    losses, secs = {}, {}
+    counts = None
+    for where, p_, d_ in (("card", p_card, dev), ("cpu", p_cpu, "cpu")):
+        blocked = (cpu_row_blocks() if where == "cpu" else
+                   contextlib.nullcontext())
+        with blocked:
+            if moe:
+                routes[where], h = moe_routes(p_)
+                hooks += h
+            flags, unwatch = (watch_group_norm() if rwkv
+                              else ([], lambda: None))
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            state = adamw_init(p_, family_opt())
+            losses[where] = []
+            for b in batches:
+                p_, state, loss = step(p_, state, {k: v.to(d_)
+                                                   for k, v in b.items()})
+                losses[where].append(float(loss))
+            torch.cuda.synchronize()
+            secs[where] = time.perf_counter() - t0
+            if where == "card":
+                counts = launch_counts()
+            unwatch()
+            near[where] = sum(int(f.sum()) for f in flags)
+            state_b = sum(t.numel() * t.element_size()
+                          for m in state["moments"].values()
+                          for t in m.values())
+            del state
+    for h in hooks:
+        h.remove()
+    for a_, b_ in zip(losses["card"], losses["cpu"]):
+        if not math.isclose(a_, b_, rel_tol=TRAIN_LOSS_RTOL):
+            fail(f"{label}: card losses {losses['card']} and CPU losses "
+                 f"{losses['cpu']} differ beyond rtol {TRAIN_LOSS_RTOL}")
+    far = total = 0
+    worst = 0.0
+    for (name, pc), pp in zip(p_card.named_parameters(), p_cpu.parameters()):
+        d = (pc.detach() - pp.detach().to(pc.device)).abs()
+        worst = max(worst, float(d.max()))
+        far += int((d > TRAIN_PARAM_ATOL).sum())
+        total += d.numel()
+    if worst > 6 * TRAIN_LR or far > TRAIN_FAR_SHARE * total:
+        fail(f"{label}: parameters differ by up to {worst} (6 lr = "
+             f"{6 * TRAIN_LR}); {far} of {total} beyond {TRAIN_PARAM_ATOL}")
+    shape = tuple(next(iter(batches[0].values())).shape)
+    param_b = sum(t.numel() * t.element_size() for t in p_cpu.parameters())
+    print(f"{label}: {what}: width {cfg.d_model}, {total} float32 "
+          f"parameters, batch {shape[0]} x seq {shape[1]}, float32 "
+          f"compute, q8 wire "
+          f"and q8 moments, {len(batches)} step(s): card losses "
+          f"{losses['card']} ({secs['card']:.3f} s), CPU losses "
+          f"{losses['cpu']} ({secs['cpu']:.3f} s), within rtol "
+          f"{TRAIN_LOSS_RTOL}; parameters within {6 * TRAIN_LR} everywhere "
+          f"(max {worst:.3g}), {far} of {total} beyond {TRAIN_PARAM_ATOL}; "
+          f"the CPU copy's host bytes reckoned: parameters {param_b}, "
+          f"gradients {param_b}, q8 moments {state_b} (sum "
+          f"{2 * param_b + state_b}); the process's peak RSS "
+          f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024} B")
+    if moe:
+        routing_gaps(label, routes["card"], routes["cpu"], hold=False)
+    if rwkv:
+        print(f"{label}: (row, position)s that a group-norm head below "
+              f"variance {GN_VAR} touched over the run's forward and "
+              f"recompute calls: card {near['card']}, CPU {near['cpu']} "
+              f"(counted, held all the same)")
+    del p_cpu
+    gc.collect()
+    return counts
 
 
 def phase_6f(lm, dev):
@@ -725,66 +1145,72 @@ def engine_vs_forward(params, cfg, prompt, dev):
     return fed, stepwise, full
 
 
-def moe_inputs(params):
+def moe_routes(params):
     """Forward pre-hooks on every MoE layer of `params` that keep each
-    call's input; returns (the list they fill, the hook handles)."""
-    from repro_torch.models.layers import MoE
+    call's routing as the layer computes it then (`moe_routing`: router
+    logits, expert indices, keep mask; copied to the CPU); returns (the
+    list they fill, the hook handles)."""
+    import torch
+    from repro_torch.models.layers import MoE, moe_routing
     seen = []
-    hooks = [m.register_forward_pre_hook(
-        lambda mod, args: seen.append((mod, args[0].detach().clone())))
-        for m in params.modules() if isinstance(m, MoE)]
+
+    def hook(mod, args):
+        with torch.no_grad():
+            logits, _, idx, _, keep = moe_routing(
+                mod, args[0].reshape(-1, args[0].shape[-1]), mod.moe)
+        seen.append((logits.cpu(), idx.cpu(), keep.cpu()))
+    hooks = [m.register_forward_pre_hook(hook) for m in params.modules()
+             if isinstance(m, MoE)]
     return seen, hooks
 
 
-def routing_gaps(label, card_seen, cpu_seen):
-    """Hold the card's MoE routing to the CPU's on the inputs each saw:
-    expert indices and keep masks equal, or an index difference where the
-    CPU's router logits of the two experts lie within ROUTE_GAP.  Returns
-    the number of such near-ties."""
+def routing_gaps(label, card_seen, cpu_seen, hold=True):
+    """Compare the card's MoE routing with the CPU's, call by call
+    (`moe_routes`): expert indices and keep masks equal, or an index
+    difference where the CPU's router logits of the two experts lie within
+    ROUTE_GAP (a near-tie; with `hold`, a wider gap fails).  Returns (the
+    assignments that differ, those at near-ties)."""
     import torch
-    from repro_torch.models.layers import moe_routing
     if len(card_seen) != len(cpu_seen):
         fail(f"{label}: {len(card_seen)} MoE calls on the card, "
              f"{len(cpu_seen)} on the CPU")
-    ties, gaps, n = 0, [], 0
-    for (m_card, x_card), (m_cpu, x_cpu) in zip(card_seen, cpu_seen):
-        d = x_cpu.shape[-1]
-        _, _, idx_c, _, keep_c = moe_routing(m_card, x_card.reshape(-1, d),
-                                             m_card.moe)
-        logits, _, idx, _, keep = moe_routing(m_cpu, x_cpu.reshape(-1, d),
-                                              m_cpu.moe)
-        idx_c, keep_c = idx_c.cpu(), keep_c.cpu()
+    diffs, ties, gaps, n = 0, 0, [], 0
+    for (_, idx_c, keep_c), (logits, idx, keep) in zip(card_seen, cpu_seen):
         n += idx.numel()
         diff = idx_c != idx
         if not diff.any():
-            if not torch.equal(keep_c, keep):
+            if hold and not torch.equal(keep_c, keep):
                 fail(f"{label}: equal expert picks, different keep masks")
             continue
         t, j = torch.nonzero(diff, as_tuple=True)
         gap = (logits[t, idx_c[t, j]] - logits[t, idx[t, j]]).abs()
         gaps += gap.tolist()
-        if float(gap.max()) > ROUTE_GAP:
+        if hold and float(gap.max()) > ROUTE_GAP:
             fail(f"{label}: the card routes {int(diff.sum())} assignments "
                  f"to other experts than the CPU, router-logit gaps up to "
                  f"{float(gap.max()):.3g} > {ROUTE_GAP}")
-        ties += int(diff.sum())
+        diffs += int(diff.sum())
+        ties += int((gap <= ROUTE_GAP).sum())
     print(f"{label}: MoE routing card vs CPU over {len(card_seen)} layer "
-          f"calls, {n} assignments: {ties} differ"
-          + (f", router-logit gaps {sorted(gaps)}" if ties else
-             "; keep masks equal"))
-    return ties
+          f"calls, {n} assignments: {diffs} differ"
+          + (f" ({ties} at near-ties within {ROUTE_GAP}), router-logit "
+             f"gaps {sorted(gaps)[:16]}{' ...' if len(gaps) > 16 else ''}"
+             if diffs else "; keep masks equal"))
+    return diffs, ties
 
 
 def watch_group_norm():
     """Wrap the RWKV block's per-head group norm to record, per call, which
     (batch row, position) had a head whose WKV output's variance lies below
     GN_VAR; returns (the list of (B, S) bool CPU tensors, the undo)."""
+    import torch
     from repro_torch.models import rwkv as R
     orig = R._group_norm
     near = []
 
     def watched(y, scale, eps):
-        var = y.float().var(dim=-1, correction=0)          # (B, S, H)
+        with torch.no_grad():
+            var = y.float().var(dim=-1, correction=0)      # (B, S, H)
         near.append((var < GN_VAR).any(-1).cpu())
         return orig(y, scale, eps)
     R._group_norm = watched
@@ -815,7 +1241,7 @@ def card_vs_cpu(label, arch, cfg, p_card, p_cpu, dev):
     seen = {}
     hooks = []
     for where, p_ in (("card", p_card), ("cpu", p_cpu)):
-        seen[where], h = moe_inputs(p_)
+        seen[where], h = moe_routes(p_)
         hooks += h
     near, unwatch = watch_group_norm() if rwkv else ([], lambda: None)
 
@@ -871,7 +1297,7 @@ def card_vs_cpu(label, arch, cfg, p_card, p_cpu, dev):
     seconds = time.perf_counter() - t0
     for h in hooks:
         h.remove()
-    ties = routing_gaps(label, seen["card"], seen["cpu"]) \
+    ties = routing_gaps(label, seen["card"], seen["cpu"])[1] \
         if cfg.moe is not None else 0
     worst, exempt = {}, 0.0
     for what, (a, b, held) in steps.items():
@@ -1138,12 +1564,10 @@ def phase_8(lm, dev):
     from repro_torch.data.pipeline import batch_at
     from repro_torch.distributed.sharding import (activation_specs,
                                                   param_specs)
-    from repro_torch.kernels import (launch_counts, quantize_blockwise as qb,
-                                     reset_launch_counts)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import census as CS, dryrun as DR
     from repro_torch.launch import roofline as RL
     from repro_torch.launch.mesh import dist_config, make_smoke_mesh
-    from repro_torch.train import step as train_step
     from repro_torch.train.loop import TrainConfig, Trainer
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -1194,12 +1618,8 @@ def phase_8(lm, dev):
     want = host_copy(plain.params, plain.opt_state)
     losses_p = [h["loss"] for h in plain.history]
     busy_p = busy(plain)
-    plist = [p_ for _, p_ in plain.params.named_parameters()]
-    n_group = sum(-(-len(b) // qb.group_capacity())
-                  for b in train_step.wire_buckets(plist))
-    # q8 moments (not at 80 GB): one grouped launch each way per parameter
-    n_group += len(plist) if plain.opt_cfg.state_codec == "q8" else 0
-    del plain, plist
+    n_group = q8_per_step(plain)[0]
+    del plain
     sharded, counts_s, peak_s, secs_s = run(True)
     got = host_copy(sharded.params, sharded.opt_state)
     losses_s = [h["loss"] for h in sharded.history][:steps]
@@ -1676,6 +2096,436 @@ def plans_match(got, want, e, label) -> int:
                 fail(f"{label}: {kg.label()} differs beyond an equal-p tie")
             ties += 1
     return ties
+
+
+# phase 10: training the remaining families on the card
+# 10a: granite-moe-3b-a800m at its published size through the launcher, at
+# phase 6's batch and context
+MOE_TRAIN_ARGV = ("--arch", MOE_ARCH, "--full", "--batch", "4", "--seq",
+                  "2048", "--steps", "5", "--lr", "3e-4")
+# 10b: rwkv6-7b at full width, cut to 8 layers (its 32 fit no card with
+# float32 moments), batch 4 x seq 512 (two WKV chunks of 256), step 0 + 3
+RWKV_DEPTH, RWKV_BATCH, RWKV_SEQ, RWKV_STEPS = 8, 4, 512, 4
+# 10a, 10b: the first loss within this of `init_loss`
+FIRST_LOSS_WINDOW = 0.7
+# 10c: batch, seq (two WKV chunks); 10d: the Jamba smoke config (two Mamba
+# chunks of 128) and the Mamba block alone at Jamba's width; two steps on
+# each device, as phase 6e
+FAMILY_TRAIN = (1, 512)
+HYBRID_TRAIN = (1, 256)
+MAMBA_TRAIN = (2, 256)
+FAMILY_TRAIN_STEPS = 2
+# 10e: every non-dense architecture through the launcher at smoke size
+LAUNCH_ARCHS = (MOE_ARCH, "qwen3-moe-235b-a22b", RWKV_ARCH, HYBRID_ARCH,
+                "pixtral-12b", "musicgen-medium")
+LAUNCH_STEPS = 5
+# 10e: the card's losses against the CPU's from the same initial weights,
+# bfloat16 compute on both (as the Trainer tests against JAX)
+LAUNCH_LOSS_RTOL = 2e-2
+
+
+def init_loss(cfg) -> float:
+    """The loss at init: ln(vocab) + d_model * 0.02^2 / 2.  The final
+    norm's output has unit RMS, so each logit is normal with variance
+    d_model * 0.02^2 (the head's init scale), and the mean logsumexp of
+    vocab such logits is about ln(vocab) + variance / 2."""
+    return math.log(cfg.vocab) + cfg.d_model * 0.02 ** 2 / 2
+
+
+def q8_per_step(trainer):
+    """(grouped quantize launches a step = grouped dequantize launches a
+    step, wire buckets, gradients on the wire) of `trainer`: one launch
+    each way per q8 wire bucket (per `group_capacity()` tensors), and with
+    q8 moments one more each way per parameter (its (m, sqrt v) pair)."""
+    from repro_torch.kernels import quantize_blockwise as qb
+    from repro_torch.train import step as train_step
+    plist = [p_ for _, p_ in trainer.params.named_parameters()]
+    buckets = (train_step.wire_buckets(plist)
+               if trainer.grad_compression == "q8" else [])
+    n_group = sum(-(-len(b) // qb.group_capacity()) for b in buckets)
+    per_param = len(plist) if trainer.opt_cfg.state_codec == "q8" else 0
+    return n_group + per_param, len(buckets), sum(len(b) for b in buckets)
+
+
+def train_report(label, trainer, counts, peak):
+    """Print a training run's plan, losses, step seconds (step 0 left
+    out), tokens/s and peak device memory, and fail unless every loss is
+    finite, the first is within FIRST_LOSS_WINDOW of `init_loss`, the last
+    is below the first, and each step made one grouped quantize and one
+    grouped dequantize launch per wire bucket (`q8_per_step`)."""
+    losses = [h["loss"] for h in trainer.history]
+    secs = [h["seconds"] for h in trainer.history]
+    steps, tc, cfg = len(losses), trainer.tc, trainer.cfg
+    step_s = sum(secs[1:]) / (steps - 1)
+    want = init_loss(cfg)
+    print(f"phase {label}: Trainer({cfg.name}: {cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, vocab {cfg.vocab}, "
+          f"{cfg.param_count()} parameters; batch {tc.batch}, seq {tc.seq}, "
+          f"lr {tc.lr}, hbm_budget_bytes {tc.hbm_budget_bytes:.3g}): plan "
+          f"{trainer.plan.choices}, moments {trainer.opt_cfg.state_codec}; "
+          f"losses {losses} (init {want:.4f}); step seconds {secs}")
+    print(f"phase {label}: {step_s:.4f} s per step without step 0; "
+          f"{tc.batch * tc.seq / step_s:.1f} tokens/s; peak device memory "
+          f"{peak} B")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"phase {label}: a loss is not finite: {losses}")
+    if abs(losses[0] - want) > FIRST_LOSS_WINDOW:
+        fail(f"phase {label}: first loss {losses[0]} not within "
+             f"{FIRST_LOSS_WINDOW} of {want:.4f}")
+    if not losses[-1] < losses[0]:
+        fail(f"phase {label}: the loss did not fall: {losses}")
+    per_step, n_buckets, n_wire = q8_per_step(trainer)
+    for k in Q8_KERNELS:
+        if counts[k] != steps * per_step:
+            fail(f"phase {label}: {counts[k]} {k} launches, not {steps} "
+                 f"steps x {per_step}")
+    print(f"phase {label}: {per_step} quantize_blockwise and {per_step} "
+          f"dequantize_blockwise launches per step ({n_wire} gradients on "
+          f"the q8 wire in {n_buckets} buckets)")
+
+
+def keep_masks():
+    """Wrap `layers.moe_routing`, which `moe_mlp` calls, so that each MoE
+    call's keep mask (k * T,) (each expert assignment within its expert's
+    capacity or not) is kept on the device as the layer computes it: no
+    work added to the step and no host read inside it.  Returns (the list
+    it fills, a function that unwraps)."""
+    from repro_torch.models import layers
+    routing, masks = layers.moe_routing, []
+
+    def recorded(p, xt, moe):
+        out = routing(p, xt, moe)
+        masks.append(out[-1])
+        return out
+
+    def unwrap():
+        layers.moe_routing = routing
+    layers.moe_routing = recorded
+    return masks, unwrap
+
+
+def real_gradients(label, trainer, dev, twice):
+    """10a-ii's check on `trainer`'s final parameters (its moments freed
+    first): the step's loss and gradients (`make_loss_and_grads`, bf16
+    compute, remat) on its next batch, with `twice` computed once more,
+    the loss required bit-equal, each gradient bit-equal or the largest
+    gap per parameter kind printed; then both q8 kernels bit-equal to
+    their plain versions on those gradients (`q8_on_gradients`)."""
+    import re
+
+    import torch
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.train import step as train_step
+    trainer.opt_state = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    lg = train_step.make_loss_and_grads(
+        trainer.cfg, remat=True,
+        attn_impl="chunked" if trainer.tc.seq >= 2048 else "full")
+    batch = batch_at(trainer.data_cfg, trainer.step, dev)
+    runs = []
+    for _ in range(2 if twice else 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs.append(lg(trainer.params, batch))
+        torch.cuda.synchronize()
+        print(f"{label}: make_loss_and_grads on {trainer.cfg.name}'s final "
+              f"parameters and batch {trainer.step}: "
+              f"{time.perf_counter() - t0:.3f} s")
+    l1, g1 = runs[0]
+    if not twice:
+        del runs
+        q8_on_gradients(label, g1)
+        return
+    l2, g2 = runs[1]
+    del runs
+    if not bit_equal(l1, l2):
+        fail(f"{label}: the same loss computed twice differs: "
+             f"{float(l1)!r} against {float(l2)!r}")
+    gaps, kinds = {}, set()
+    for name, a in g1.items():
+        kind = re.sub(r"\.\d+\.", ".*.", name)      # the layer index out
+        kinds.add(kind)
+        if not bit_equal(a, g2[name]):
+            gap = float((a.double() - g2[name].double()).abs().max())
+            gaps[kind] = max(gaps.get(kind, 0.0), gap)
+    del g2
+    print(f"{label}: the loss bit-equal ({float(l1)!r}); " + (
+        f"every one of {len(g1)} gradients bit-equal" if not gaps else
+        f"gradients not bit-equal, the largest gap by kind: "
+        f"{json.dumps(gaps)}; bit-equal kinds: {sorted(kinds - set(gaps))}"))
+    q8_on_gradients(label, g1)
+    del g1
+
+
+def mamba_step(cfg):
+    """One AdamW step of a Mamba block alone (`init_mamba_block`) on the
+    mean square of its output against a target, from zero conv and ssm
+    state: float32, the q8 wire and q8 moments (`family_opt`)."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.models import mamba as MB
+    from repro_torch.train.step import q8_wire
+    opt = family_opt()
+
+    def step(blk, state, batch):
+        x, target = batch["x"], batch["target"]
+        b, din = x.shape[0], MB.d_inner(cfg)
+        conv0 = torch.zeros((b, cfg.hybrid.d_conv - 1, din), device=x.device)
+        ssm0 = torch.zeros((b, din, cfg.hybrid.d_state), device=x.device)
+        names, ps = zip(*blk.named_parameters())
+        with torch.enable_grad():
+            y = MB.mamba_sequence(blk, x, cfg, conv0, ssm0)[0]
+            loss = torch.mean(torch.square(y - target))
+            grads = dict(zip(names, torch.autograd.grad(loss, ps)))
+        q8_wire(grads)
+        blk, state = optim.adamw_update(blk, grads, state, opt)
+        return blk, state, loss.detach()
+    return step
+
+
+def q8_rise(arch, tr, losses, want):
+    """10e where the loss of launcher Trainer `tr` did not fall: fail
+    unless it trains a token model whose plan took q8 moments and the q8
+    wire at lr >= 1e-3 (with
+    which the JAX Trainer's loss rises so from some inits too:
+    tests/test_torch_train_hybrid.py::
+    test_launcher_trainer_matches_jax_through_a_q8_loss_rise), the CPU's
+    losses `want` from the same weights did not fall either, and the same
+    weights trained on the card with float32 moments and no wire end below
+    their first loss."""
+    import torch
+    from repro_torch.train.loop import Trainer
+    if not (tr.cfg.frontend == "tokens" and tr.opt_cfg.state_codec == "q8"
+            and tr.grad_compression == "q8" and tr.tc.lr >= 1e-3):
+        fail(f"phase 10e: {arch}: the loss did not fall ({losses}); "
+             f"frontend {tr.cfg.frontend}, moments "
+             f"{tr.opt_cfg.state_codec}, wire {tr.grad_compression}, lr "
+             f"{tr.tc.lr}")
+    if want[-1] < want[0]:
+        fail(f"phase 10e: {arch}: the loss did not fall on the card "
+             f"({losses}), but did on the CPU ({want})")
+    f32 = Trainer(tr.cfg, dataclasses.replace(tr.tc,
+                                              use_design_advisor=False),
+                  device=tr.device)
+    f32.params.load_state_dict(tr.initial)
+    f32.run()
+    got = [h["loss"] for h in f32.history]
+    torch.cuda.synchronize()
+    print(f"phase 10e: {arch}: the loss did not fall in {LAUNCH_STEPS} "
+          f"steps with q8 moments and the q8 wire at lr {tr.tc.lr}, on the "
+          f"card as on the CPU; from the same weights with float32 moments "
+          f"and no wire: {got}")
+    if not (all(math.isfinite(v) for v in got) and got[-1] < got[0]):
+        fail(f"phase 10e: {arch}: with float32 moments and no wire the "
+             f"loss did not fall either: {got}")
+
+
+def phase_10(dev):
+    """Phase 10: the remaining families trained on the card.  10a
+    granite-moe-3b-a800m at its published size through the launcher; 10a-ii
+    its gradients twice and the q8 kernels on them; 10b rwkv6-7b at full
+    width and depth RWKV_DEPTH, then the same check; 10c four families at
+    full width and depth 2 and 10d the hybrid (the Jamba smoke config, the
+    Mamba block at Jamba's width) trained card against CPU; 10e every
+    non-dense architecture through the launcher at smoke size.  Returns
+    the q8 kernels' launches over the phase's training runs."""
+    import torch
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import mamba as MB, model as MD, rwkv as R
+    from repro_torch.train.loop import TrainConfig, Trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 10: device memory still allocated from earlier phases "
+          f"{torch.cuda.memory_allocated(dev)} B")
+    torch.set_grad_enabled(True)
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(Q8_KERNELS, 0)
+    secs = {}
+
+    def add(counts):
+        for k in total:
+            total[k] += counts[k]
+
+    def start():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counts()
+        return time.perf_counter()
+
+    def read():
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        add(counts)
+        return counts, torch.cuda.max_memory_allocated(dev)
+
+    # ---- 10a: granite-moe-3b-a800m at its published size -----------------
+    masks, unwrap = keep_masks()
+    t0 = start()
+    try:
+        tr = launcher.main(list(MOE_TRAIN_ARGV))
+    finally:
+        unwrap()
+    counts, peak = read()
+    train_report("10a", tr, counts, peak)
+    n_l, steps = tr.cfg.n_layers, len(tr.history)
+    # per step each MoE layer runs once forward and, under per-layer
+    # remat, once more in the backward pass; each layer's first call counts
+    per_call = len(masks) // steps
+    if per_call not in (n_l, 2 * n_l) or len(masks) != steps * per_call:
+        fail(f"phase 10a: {len(masks)} MoE calls in {steps} steps of "
+             f"{n_l} MoE layers")
+    kept = [float(torch.stack(masks[i * per_call:i * per_call + n_l]
+                              ).float().mean()) for i in range(steps)]
+    del masks
+    print(f"phase 10a: kept share of the {tr.cfg.moe.top_k} x "
+          f"{tr.tc.batch * tr.tc.seq} expert assignments per step (each "
+          f"layer's first call; {per_call} MoE calls a step): "
+          f"{[round(x, 4) for x in kept]}")
+    by_name = trace_step("10a", tr)
+    index = {short_name(n): round(us / 1e3, 3) for n, us in by_name.items()
+             if any(k in n.lower() for k in ("index", "scatter", "gather",
+                                             "embedding"))}
+    print(f"phase 10a trace: index, gather and scatter kernels (device ms):"
+          f" {index}")
+    secs["10a"] = time.perf_counter() - t0
+    print(f"phase 10a: {secs['10a']:.3f} s")
+    t0 = time.perf_counter()
+    real_gradients("phase 10a-ii", tr, dev, twice=True)
+    del tr
+    secs["10a-ii"] = time.perf_counter() - t0
+    print(f"phase 10a-ii: {secs['10a-ii']:.3f} s")
+
+    # ---- 10b: rwkv6-7b at full width, depth RWKV_DEPTH --------------------
+    cfg = dataclasses.replace(get_config(RWKV_ARCH),
+                              name=f"{RWKV_ARCH}-depth{RWKV_DEPTH}",
+                              n_layers=RWKV_DEPTH)
+    t0 = start()
+    tr = Trainer(cfg, TrainConfig(
+        steps=RWKV_STEPS, batch=RWKV_BATCH, seq=RWKV_SEQ, lr=TRAIN_LR,
+        hbm_budget_bytes=TRAIN_BUDGETS[0], seed=0, log_every=1), device=dev)
+    tr.run()
+    counts, peak = read()
+    train_report("10b", tr, counts, peak)
+    trace_step("10b", tr, scan_module=R)
+    secs["10b"] = time.perf_counter() - t0
+    print(f"phase 10b: {secs['10b']:.3f} s")
+    t0 = time.perf_counter()
+    real_gradients("phase 10b-ii", tr, dev, twice=False)
+    del tr
+    secs["10b-ii"] = time.perf_counter() - t0
+    print(f"phase 10b-ii: {secs['10b-ii']:.3f} s")
+
+    # ---- 10c: card vs CPU at full width, depth 2 ---------------------------
+    t0 = time.perf_counter()
+    b, s = FAMILY_TRAIN
+    for arch in WIDE_ARCHS:
+        cfg = dataclasses.replace(get_config(arch), name=f"{arch}-depth2",
+                                  n_layers=2)
+        start()
+        p_card = MD.init_params(torch.Generator(dev).manual_seed(0), cfg,
+                                device=dev)
+        add(train_card_vs_cpu("phase 10c", cfg.name, cfg, p_card,
+                              family_step(cfg),
+                              family_batches(cfg, b, s, FAMILY_TRAIN_STEPS),
+                              dev))
+        del p_card
+    secs["10c"] = time.perf_counter() - t0
+    print(f"phase 10c: {secs['10c']:.3f} s")
+
+    # ---- 10d: the hybrid -------------------------------------------------
+    t0 = time.perf_counter()
+    cfg = smoke_config(HYBRID_ARCH)
+    start()
+    p_card = MD.init_params(torch.Generator(dev).manual_seed(0), cfg,
+                            device=dev)
+    add(train_card_vs_cpu("phase 10d", cfg.name, cfg, p_card,
+                          family_step(cfg),
+                          family_batches(cfg, *HYBRID_TRAIN,
+                                         FAMILY_TRAIN_STEPS), dev))
+    cfg = get_config(HYBRID_ARCH)
+    start()
+    blk = MB.init_mamba_block(torch.Generator(dev).manual_seed(0), cfg,
+                              device=dev)
+    g = torch.Generator().manual_seed(3)
+    b, s = MAMBA_TRAIN
+    batches = [{k: torch.randn((b, s, cfg.d_model), generator=g)
+                for k in ("x", "target")} for _ in range(FAMILY_TRAIN_STEPS)]
+    add(train_card_vs_cpu(
+        "phase 10d", f"{HYBRID_ARCH}'s Mamba block alone (d_inner "
+        f"{MB.d_inner(cfg)}, d_state {cfg.hybrid.d_state})", cfg, blk,
+        mamba_step(cfg), batches, dev))
+    del p_card, blk, batches
+    secs["10d"] = time.perf_counter() - t0
+    print(f"phase 10d: {secs['10d']:.3f} s")
+
+    # ---- 10e: every non-dense architecture through the launcher ----------
+    t0 = time.perf_counter()
+
+    class Recorded(Trainer):
+        """The launcher's Trainer, keeping a CPU copy of its initial
+        parameters."""
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.initial = {n: p_.detach().to("cpu", copy=True)
+                            for n, p_ in self.params.named_parameters()}
+
+    launcher.Trainer = Recorded
+    try:
+        for arch in LAUNCH_ARCHS:
+            t1 = start()
+            tr = launcher.main(["--arch", arch, "--steps",
+                                str(LAUNCH_STEPS)])
+            counts, _ = read()
+            t_card = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            ref = Trainer(tr.cfg, tr.tc, device="cpu")
+            ref.params.load_state_dict(tr.initial)
+            ref.run()
+            losses = [h["loss"] for h in tr.history]
+            want = [h["loss"] for h in ref.history]
+            print(f"phase 10e: launch.train.main(--arch {arch} --steps "
+                  f"{LAUNCH_STEPS}): {tr.cfg.name} on {tr.device}, plan "
+                  f"{tr.plan.choices}, losses {losses} ({t_card:.3f} s; q8 "
+                  f"launches {[counts[k] for k in Q8_KERNELS]}); the same "
+                  f"initial weights trained on the CPU: {want} "
+                  f"({time.perf_counter() - t1:.3f} s)")
+            if not all(math.isfinite(v) for v in losses):
+                fail(f"phase 10e: {arch}: losses {losses}")
+            for a_, b_ in zip(losses, want):
+                if not math.isclose(a_, b_, rel_tol=LAUNCH_LOSS_RTOL):
+                    fail(f"phase 10e: {arch}: card losses {losses} and CPU "
+                         f"losses {want} differ beyond rtol "
+                         f"{LAUNCH_LOSS_RTOL}")
+            if tr.cfg.frontend != "tokens" and max(
+                    abs(v - init_loss(tr.cfg)) for v in losses) > \
+                    FIRST_LOSS_WINDOW:
+                # a stub frontend sees `batch_at`'s noise embeddings, which
+                # say nothing of the labels: its loss stays near ln(vocab)
+                fail(f"phase 10e: {arch}: losses {losses} leave "
+                     f"{init_loss(tr.cfg):.4f} +- {FIRST_LOSS_WINDOW}")
+            if not losses[-1] < losses[0]:
+                q8_rise(arch, tr, losses, want)
+            del tr, ref
+    finally:
+        launcher.Trainer = Trainer
+    secs["10e"] = time.perf_counter() - t0
+    print(f"phase 10e: {secs['10e']:.3f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 10: {time.perf_counter() - t_phase:.3f} s; by part "
+          f"{json.dumps({k: round(v, 3) for k, v in secs.items()})}; q8 "
+          f"launches over its training runs {json.dumps(total)}")
+    for k, n_k in total.items():
+        if n_k == 0:
+            fail(f"phase 10: no {k} launch")
+    return total
 
 
 def main() -> int:
@@ -3728,98 +4578,27 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = launch_counts()
-        peak = torch.cuda.max_memory_allocated(dev)
-        losses = [h["loss"] for h in trainer.history]
+        train_report(label, trainer, counts,
+                     torch.cuda.max_memory_allocated(dev))
         secs = [h["seconds"] for h in trainer.history]
-        names = [n for n, _ in trainer.params.named_parameters()]
-        plist = [p_ for _, p_ in trainer.params.named_parameters()]
-        n_wire = sum(1 for p_ in plist if train_step.on_wire(p_))
-        buckets = train_step.wire_buckets(plist)
-        n_buckets = len(buckets)
-        # one grouped launch each way per bucket (per group_capacity()
-        # tensors)
-        n_group = sum(-(-len(b) // qb.group_capacity()) for b in buckets)
         step_s = sum(secs[1:]) / len(secs[1:])
-        print(f"phase {label}: Trainer({LM_ARCH}, batch {TRAIN_BATCH}, seq "
-              f"{TRAIN_SEQ}, lr {TRAIN_LR}, hbm_budget_bytes {hbm:.3g}): "
-              f"plan {trainer.plan.choices}, moments "
-              f"{trainer.opt_cfg.state_codec}, attention chunked; {steps} "
-              f"steps in {wall:.3f} s (with init); losses {losses}; step "
-              f"seconds {secs}")
-        print(f"phase {label}: {step_s:.4f} s per step without step 0; "
-              f"{TRAIN_BATCH * TRAIN_SEQ / step_s:.1f} tokens/s; "
+        names = [n for n, _ in trainer.params.named_parameters()]
+        print(f"phase {label}: {steps} steps in {wall:.3f} s (with init); "
               f"6*N*tokens / (step s * {BF16_PEAK:.4g}) = "
               f"{flops6 / (step_s * BF16_PEAK):.4f} of the bf16 peak "
-              f"(N = {n_lm}); peak device memory {peak} B")
+              f"(N = {n_lm}); the q8 wire's buckets hold at most "
+              f"{train_step.WIRE_BUCKET_BYTES} q8 bytes"
+              + (f"; m and sqrt v of each of {len(names)} parameters as one "
+                 "group" if trainer.opt_cfg.state_codec == "q8" else ""))
         print(f"launches in phase {label}: {json.dumps(counts)}")
-        if not all(math.isfinite(v) for v in losses):
-            fail(f"phase {label}: a loss is not finite: {losses}")
-        if not FIRST_LOSS[0] < losses[0] < FIRST_LOSS[1]:
-            fail(f"phase {label}: first loss {losses[0]} outside "
-                 f"{FIRST_LOSS}")
-        if not losses[-1] < losses[0]:
-            fail(f"phase {label}: the loss did not fall: {losses}")
-        # the wire: a grouped quantize and a grouped dequantize per
-        # bucket; q8 moments: one grouped launch each way per parameter
-        per_param = len(names) if trainer.opt_cfg.state_codec == "q8" \
-            else 0
-        per_step = {"quantize_blockwise": n_group + per_param,
-                    "dequantize_blockwise": n_group + per_param}
-        for k, n_k in per_step.items():
-            if counts[k] != steps * n_k:
-                fail(f"phase {label}: {counts[k]} {k} launches, not {steps} "
-                     f"steps x {n_k}")
-        moments = (f", and m and sqrt v of each of {len(names)} "
-                   "parameters as one group" if per_param else "")
-        print(f"phase {label}: {per_step['quantize_blockwise']} "
-              f"quantize_blockwise and {per_step['dequantize_blockwise']} "
-              f"dequantize_blockwise launches per step ({n_wire} gradient "
-              f"tensors on the q8 wire in {n_buckets} buckets of at most "
-              f"{train_step.WIRE_BUCKET_BYTES} q8 bytes{moments})")
         return trainer, counts, names
-
-    def trace_step(trainer):
-        """One more step under torch.profiler: device busy time against
-        the step's wall time, and the kernels' time by family."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            trainer.run(1)
-        step_us = trainer.history[-1]["seconds"] * 1e6
-        by_name = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                by_name[e.name] = by_name.get(e.name, 0.0) + \
-                    e.time_range.elapsed_us()
-        busy_us = sum(by_name.values())
-        if busy_us <= 0:
-            print("phase 6b trace: torch.profiler recorded no device time")
-            return
-        fams = {}
-        for name, us in by_name.items():
-            low = name.lower()
-            fam = next((f for f, keys in KERNEL_FAMILIES if any(
-                k in low for k in keys)), "other")
-            fams[fam] = fams.get(fam, 0.0) + us
-        print(f"phase 6b trace: one step under torch.profiler: "
-              f"{step_us / 1e3:.3f} ms wall (profiler on), {busy_us / 1e3:.3f}"
-              f" ms of device work in {len(by_name)} kernel names: device "
-              f"busy {busy_us / step_us:.4f}, idle "
-              f"{1 - busy_us / step_us:.4f}")
-        print("phase 6b trace: device ms by family: " + ", ".join(
-            f"{f} {us / 1e3:.3f} ({us / busy_us:.3f})"
-            for f, us in sorted(fams.items(), key=lambda kv: -kv[1])))
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-        print("phase 6b trace: top kernels (device ms): " + "; ".join(
-            f"{short_name(n)} {us / 1e3:.3f}" for n, us in top))
 
     # 6b: 80 GB, float32 moments, the q8 wire
     trainer, launches6b, names6 = train("6b", TRAIN_BUDGETS[0],
                                         TRAIN_STEPS[0])
     if trainer.opt_cfg.state_codec != "f32":
         fail("phase 6b: the plan at 80 GB compresses the moments")
-    trace_step(trainer)
+    trace_step("6b", trainer)
     # the gradients the trainer's next step puts on the q8 wire, from the
     # step's own loss-and-gradient function (bf16 compute copy, remat,
     # chunked attention), for 6d and 4c
@@ -3848,20 +4627,8 @@ def main() -> int:
     del trainer
 
     # 6d: both kernels on the real gradients and moments, bit-equal to plain
-    n6d = 0
-    wire6 = {}
-    for name, g in grads6.items():
-        q_, s_ = qb.quantize_blockwise(g)
-        q_p, s_p = qb.quantize_blockwise_plain(g)
-        if not (bit_equal(q_, q_p) and bit_equal(s_, s_p)):
-            fail(f"phase 6d: quantize_blockwise != plain on the gradient of "
-                 f"{name}")
-        if not bit_equal(qb.dequantize_blockwise(q_, s_),
-                         qb.dequantize_blockwise_plain(q_, s_)):
-            fail(f"phase 6d: dequantize_blockwise != plain on the gradient "
-                 f"of {name}")
-        wire6[name] = (q_, s_)
-        n6d += 1
+    wire6 = q8_on_gradients("phase 6d", grads6)
+    n6d = len(wire6)
     # 6c's moments: single calls, then each parameter's (m, sqrt v) pair
     # as one group each way, as AdamW runs them
     for name, m in moments6.items():
@@ -3890,80 +4657,23 @@ def main() -> int:
                     and bit_equal(s_, s_p)):
                 fail(f"phase 6d: a grouped kernel != plain on the moment "
                      f"pair of {name}")
-    # the grouped quantize and dequantize on the wire's buckets of the
-    # same gradients
-    wire_list = list(wire6.values())
-    grad_list = list(grads6.values())
-    for bucket in train_step.wire_buckets(grad_list):
-        items = [(grad_list[i], torch.empty_like(wire_list[i][0]),
-                  torch.empty_like(wire_list[i][1])) for i in bucket]
-        qb.quantize_blockwise_group(items)
-        for i, (_, q_, s_) in zip(bucket, items):
-            if not (bit_equal(q_, wire_list[i][0])
-                    and bit_equal(s_, wire_list[i][1])):
-                fail(f"phase 6d: quantize_blockwise_group != plain on a "
-                     f"{tuple(q_.shape)} gradient")
-        items = [(*wire_list[i], torch.empty(wire_list[i][0].shape,
-                                             device=dev)) for i in bucket]
-        qb.dequantize_blockwise_group(items)
-        for q_, s_, out in items:
-            if not bit_equal(out, qb.dequantize_blockwise_plain(q_, s_)):
-                fail(f"phase 6d: dequantize_blockwise_group != plain on a "
-                     f"{tuple(q_.shape)} gradient")
     del (moments6, got_d, q_, s_, q_p, s_p, grads6, items, out, outs, pair,
-         wire_list, grad_list, d)
+         d)
     print(f"phase 6d: quantize_blockwise and dequantize_blockwise bit-equal "
           f"to plain on {n6d} real tensors (6b's next step's gradients, "
           f"6c's q8 m and sqrt v); quantize_blockwise_group and "
-          f"dequantize_blockwise_group bit-equal on the {len(wire6)} "
-          f"gradients in the wire's buckets and on each parameter's moment "
+          f"dequantize_blockwise_group bit-equal on each parameter's moment "
           f"pair")
 
     # 6e: the card against the CPU at width 2048, depth 2, float32 compute
     lm6e = dataclasses.replace(lm, name=f"{LM_ARCH}-depth2", n_layers=2)
     p_card = MD.init_params(torch.Generator(dev).manual_seed(0), lm6e,
                             device=dev)
-    p_cpu = MD.init_params(torch.Generator().manual_seed(0), lm6e,
-                           device="cpu")
-    p_cpu.load_state_dict(p_card.state_dict())
-    opt6e = AdamWConfig(lr=TRAIN_LR, state_codec="q8")
-    data6e = DataConfig(vocab=lm.vocab, batch=1, seq=TRAIN_SEQ, seed=0)
-    got6e = {}
-    for where, p_ in (("card", p_card), ("cpu", p_cpu)):
-        t0 = time.perf_counter()
-        st6 = adamw_init(p_, opt6e)
-        step6 = train_step.make_train_step(
-            lm6e, opt6e, remat=True, grad_compression="q8",
-            compute_dtype=None, attn_impl="chunked")
-        losses6 = []
-        for i in range(2):
-            p_, st6, loss6 = step6(p_, st6, batch_at(data6e, i,
-                                                     p_.embed.device))
-            losses6.append(float(loss6))
-        got6e[where] = (losses6, time.perf_counter() - t0)
-    del st6
-    for a_, b_ in zip(got6e["card"][0], got6e["cpu"][0]):
-        if not math.isclose(a_, b_, rel_tol=TRAIN_LOSS_RTOL):
-            fail(f"phase 6e: card losses {got6e['card'][0]} and CPU losses "
-                 f"{got6e['cpu'][0]} differ beyond rtol {TRAIN_LOSS_RTOL}")
-    far = total = 0
-    worst6e = 0.0
-    for (name, pc), pp in zip(p_card.named_parameters(), p_cpu.parameters()):
-        d = (pc.detach().cpu() - pp.detach()).abs()
-        worst6e = max(worst6e, float(d.max()))
-        far += int((d > TRAIN_PARAM_ATOL).sum())
-        total += d.numel()
-    if worst6e > 6 * TRAIN_LR or far > TRAIN_FAR_SHARE * total:
-        fail(f"phase 6e: parameters differ by up to {worst6e} (6 lr = "
-             f"{6 * TRAIN_LR}); {far} of {total} beyond {TRAIN_PARAM_ATOL}")
-    print(f"phase 6e: width {lm6e.d_model}, depth 2, vocab {lm6e.vocab}, "
-          f"batch 1, seq {TRAIN_SEQ} (two attention chunks each way), float32"
-          f" compute, q8 wire and q8 moments, 2 steps: card losses "
-          f"{got6e['card'][0]} ({got6e['card'][1]:.3f} s), CPU losses "
-          f"{got6e['cpu'][0]} ({got6e['cpu'][1]:.3f} s), within rtol "
-          f"{TRAIN_LOSS_RTOL}; parameters within {6 * TRAIN_LR} everywhere "
-          f"(max {worst6e:.3g}), {far} of {total} beyond {TRAIN_PARAM_ATOL}")
-    del p_card, p_cpu
+    train_card_vs_cpu(
+        "phase 6e", f"{lm6e.name} (two attention chunks each way)", lm6e,
+        p_card, family_step(lm6e), family_batches(lm6e, 1, TRAIN_SEQ, 2),
+        dev)
+    del p_card
 
     # ---- phase 4c: the dequantize kernel at phase 6's shapes ------------
     # (and quantize at the same shapes: most of its launches are here):
@@ -4214,6 +4924,14 @@ def main() -> int:
         rec.setdefault("launches_by_phase", {
             "before 9": rec["launches"]})["9"] = n9
         rec["launches"] += n9
+
+    # ---- phase 10: training the remaining families on the card ----------
+    del schema, rec_t, launches9, extras9
+    launches10 = phase_10(dev)
+    for rec in records:
+        if rec["name"] in launches10:
+            rec["launches_by_phase"]["10"] = launches10[rec["name"]]
+            rec["launches"] += launches10[rec["name"]]
 
     print(json.dumps({"kernels": records}))
     print(f"card: {card}")

@@ -58,9 +58,12 @@ def einsum(eq: str, *ts: torch.Tensor) -> torch.Tensor:
 
 
 def _scan(step_fn: Callable, carry, xs: Sequence[torch.Tensor]):
+    # one `unbind` per input, not an index a step: under autograd each
+    # indexed step's backward writes a zero tensor of the whole input, so S
+    # steps cost O(S^2) (an unbind's backward stacks the S gradients once)
     ys = []
-    for t in range(xs[0].shape[0]):
-        carry, y = step_fn(carry, tuple(a[t] for a in xs))
+    for x_t in zip(*(torch.unbind(a) for a in xs)):
+        carry, y = step_fn(carry, x_t)
         ys.append(y)
     return carry, torch.stack(ys)
 
