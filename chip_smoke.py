@@ -200,6 +200,22 @@ Phases (any failure exits non-zero; nothing is caught), run in the order
      on the card at its reference's default size (train_e2e: the fast
      preset, 3 steps), each one's seconds; the phase's launches join the
      advisor kernels' records;
+  11. existing indexes (§5.1) and the what-if API at SF1 (`phase_11`,
+     module level, right after phase 9 on phase 3's data and
+     recommendation): 11a phase 3's compressed, predicate-free indexes
+     (at most 8, the first by label) as the existing design, each sized
+     whole by `samplecf.exact_size` on the card `==` NumPy, the builds'
+     host seconds apart; 11b `EstimationPlanner(existing=...)` planning
+     phase 3's targets at phase 3's (e, q) in one planner_walk launch,
+     held to the NumPy engine's plan (the equal-p tie rule), every
+     existing node EXACT with its bytes, beside the plan without
+     `existing`; 11c that plan executed on the card and through NumPy,
+     every estimate `==`; 11d a card `DesignAdvisor.optimizer`:
+     `workload_cost` within rel 1e-12 of NumPy's `workload_cost_batch`,
+     the card advisor's batch (priced on the host) within rtol 1e-6,
+     `generate_candidates`' estimation targets those phase 3 planned; 11e the walk with exact start ids bit-equal to
+     `planner_walk_plain` on the card; its launches join the advisor
+     kernels' records (`launches_by_phase["11"]`);
   10. the non-dense families trained on the card (`phase_10`, module
      level), every earlier model and the SF1 schema freed: 10a
      granite-moe-3b-a800m at its published size (3.374 B parameters)
@@ -413,6 +429,31 @@ def bit_equal(a, b) -> bool:
     if as_int is not None:
         a, b = a.contiguous().view(as_int), b.contiguous().view(as_int)
     return bool(torch.equal(a, b))
+
+
+def counted(fn, total):
+    """fn() with the launch counters zeroed just before and read just
+    after, the counts added into `total`; returns (result, seconds,
+    launches)."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = launch_counts()
+    for k, v in got.items():
+        total[k] = total.get(k, 0) + v
+    return out, secs, got
+
+
+def timed(fn):
+    """fn() and its host seconds."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
 
 
 def host_copy(params, opt_state=None):
@@ -1798,30 +1839,11 @@ def phase_9(dev, schema, rec3_config):
     from repro_torch.core import estimation_graph as eg
     from repro_torch.core import samplecf as scf
     from repro_torch.core.relation import build_index_data
-    from repro_torch.kernels import (codec_bytes as cb, launch_counts,
-                                     reset_launch_counts)
+    from repro_torch.kernels import codec_bytes as cb
 
     t_phase = time.perf_counter()
     total = {}
     extras = {}
-
-    def counted(fn):
-        """fn() with the launch counters zeroed just before and read just
-        after; returns (result, seconds)."""
-        torch.cuda.synchronize()
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        for k, v in launch_counts().items():
-            total[k] = total.get(k, 0) + v
-        return out, secs
-
-    def timed(fn):
-        t0 = time.perf_counter()
-        out = fn()
-        return out, time.perf_counter() - t0
 
     # ---- 9a: full-index ground truth --------------------------------
     t0 = time.perf_counter()
@@ -1848,8 +1870,8 @@ def phase_9(dev, schema, rec3_config):
         for cols in cases:
             data = built[cols]
             widths = [li.col_by_name[c].width for c in cols]
-            got, s = counted(lambda: scf.compressed_index_bytes(
-                data, widths, method, dev))
+            got, s, _ = counted(lambda: scf.compressed_index_bytes(
+                data, widths, method, dev), total)
             card_s += s
             want, s = timed(lambda: scf.compressed_index_bytes(
                 data, widths, method))
@@ -1858,7 +1880,8 @@ def phase_9(dev, schema, rec3_config):
                 fail(f"phase 9a: {method} on lineitem{cols}: card {got} B "
                      f"!= NumPy {want} B")
         idx = pt.IndexDef("lineitem", (TRUTH_SINGLE[method],), method)
-        sizes, s = counted(lambda: scf.full_index_sizes(li, idx, dev))
+        sizes, s, _ = counted(lambda: scf.full_index_sizes(li, idx, dev),
+                              total)
         data = built[idx.cols]
         want = scf.compressed_index_bytes(
             data, [li.col_by_name[idx.cols[0]].width], method)
@@ -1928,7 +1951,8 @@ def phase_9(dev, schema, rec3_config):
                       group_by=cols)
         full = joined if joins else schema.tables[tbl]
         true = packed_ndv([full.values[c] for c in cols])
-        (smv, ae), s_card = counted(lambda: syn_card.mv_sample(mv, MV_F))
+        (smv, ae), s_card, _ = counted(
+            lambda: syn_card.mv_sample(mv, MV_F), total)
         (smv_n, ae_n), s_np = timed(lambda: syn_np.mv_sample(mv, MV_F))
         if ae != ae_n or smv.nrows != smv_n.nrows or any(
                 not np.array_equal(smv.values[c], smv_n.values[c])
@@ -1936,8 +1960,8 @@ def phase_9(dev, schema, rec3_config):
             fail(f"phase 9b: {mv.name}: card MV sample or n_est != NumPy")
         sizes = []
         for method in MV_METHODS:
-            est, s = counted(lambda: syn_card.mv_index_size(
-                mv, cols, method, MV_F))
+            est, s, _ = counted(lambda: syn_card.mv_index_size(
+                mv, cols, method, MV_F), total)
             s_card += s
             est_n, s = timed(lambda: syn_np.mv_index_size(
                 mv, cols, method, MV_F))
@@ -1979,7 +2003,7 @@ def phase_9(dev, schema, rec3_config):
     for f in eg.F_GRID:
         greedy = []
         for tg in (targets, targets[:8]):
-            got, _ = counted(lambda: card.greedy(tg, f, e, q))
+            got, _, _ = counted(lambda: card.greedy(tg, f, e, q), total)
             ties += plans_match(got, host.greedy(tg, f, e, q), e,
                                 f"phase 9c: greedy f={f} on {len(tg)}")
             greedy.append(got)
@@ -2024,8 +2048,8 @@ def phase_9(dev, schema, rec3_config):
         return sp
 
     torch.cuda.reset_peak_memory_stats(dev)
-    got, s_card = counted(lambda: pt.chunked_config_costs(
-        wl9, sized(dev), configs, chunk_statements=chunk, device=dev))
+    got, s_card, _ = counted(lambda: pt.chunked_config_costs(
+        wl9, sized(dev), configs, chunk_statements=chunk, device=dev), total)
     peak = torch.cuda.max_memory_allocated(dev)
     want, s_np = timed(lambda: pt.chunked_config_costs(
         wl9, sized(None), configs, chunk_statements=chunk))
@@ -2053,7 +2077,7 @@ def phase_9(dev, schema, rec3_config):
             args = argv + (["--checkpoint-dir", d]
                            if name == "train_e2e" else [])
             print(f"phase 9e: examples/torch_{name}.py {' '.join(args)}")
-            _, s = counted(lambda: mod.main(args))
+            _, s, _ = counted(lambda: mod.main(args), total)
         print(f"phase 9e: examples/torch_{name}.py: {s:.3f} s")
     launches = {k: total.get(k, 0) - before.get(k, 0) for k in total}
     print(f"phase 9e: launches {json.dumps(launches)}")
@@ -2096,6 +2120,221 @@ def plans_match(got, want, e, label) -> int:
                 fail(f"{label}: {kg.label()} differs beyond an equal-p tie")
             ties += 1
     return ties
+
+
+# phase 11: existing indexes (§5.1) and the what-if API at SF1
+EXISTING_MAX = 8                 # 11a: phase 3's indexes taken as existing
+WHATIF_REL = 1e-12               # 11d: statement-at-a-time vs the batch
+WHATIF_RTOL = 1e-6               # 11d: the card's batch vs NumPy's
+
+
+def phase_11(dev, schema, rec3_config, rec3_targets):
+    """Phase 11: existing indexes (§5.1) and the what-if API on the card
+    at SF1 (`schema`, phase 3's data; `rec3_config` and `rec3_targets`,
+    phase 3's recommendation and its plan's estimation targets).  11a: phase 3's compressed, predicate-free indexes
+    (at most EXISTING_MAX, the first by label) are the existing design,
+    each sized whole by `samplecf.exact_size` on the card `==` the NumPy
+    route on the same built index (built once on the host for both, its
+    seconds apart); 11b: `EstimationPlanner(
+    existing=..., device=dev).plan` over phase 3's estimation targets at
+    phase 3's (e, q) in one planner_walk launch, held to the NumPy
+    engine's plan with the same `existing` (the equal-p tie rule), every
+    existing node EXACT with its bytes, an existing target EXACT at no
+    cost; its sampled / deduced counts and total cost beside the plan
+    without `existing`; 11c: the card's plan executed on the card and
+    through the NumPy estimation engine, every estimate `==`; 11d: a
+    card `DesignAdvisor`'s `optimizer` over phase 3's workload, sized by
+    11c: `workload_cost` of the base configuration and phase 3's within
+    rel WHATIF_REL of the NumPy route's `workload_cost_batch`, the card
+    advisor's `workload_cost_batch` (`config_costs` runs on the host for
+    every device) within rtol WHATIF_RTOL, `generate_candidates`' estimation
+    targets those phase 3's recommendation planned; 11e: the walk of 11b, with its
+    exact start ids, bit-equal to `planner_walk_plain` on the card.
+    Returns the phase's launch counts."""
+    import torch
+    from repro_torch import core as pt
+    from repro_torch.core import estimation_graph as eg
+    from repro_torch.core import samplecf as scf
+    from repro_torch.kernels import planner_score as ps
+
+    t_phase = time.perf_counter()
+    total = {}
+
+    # ---- 11a: the existing design, sized whole -----------------------
+    t0 = time.perf_counter()
+    chosen = sorted((i for i in rec3_config.indexes
+                     if i.compression is not None and i.predicate is None),
+                    key=lambda i: i.label())[:EXISTING_MAX]
+    if not chosen:
+        fail("phase 11a: phase 3 recommended no compressed index")
+    build = scf.build_index_data
+    build_s = [0.0]
+    built = {}
+
+    def timed_build(table, idx):
+        """The index built on the host once, for both routes (timed)."""
+        if idx.key not in built:
+            t = time.perf_counter()
+            built.clear()
+            built[idx.key] = build(table, idx)
+            build_s[0] += time.perf_counter() - t
+        return built[idx.key]
+    existing = {}
+    card_s = np_s = 0.0
+    scf.build_index_data = timed_build
+    try:
+        for idx in chosen:
+            table = schema.tables[idx.table]
+            built0 = build_s[0]
+            est, s, _ = counted(lambda: scf.exact_size(table, idx, dev),
+                                total)
+            card_s += s - (build_s[0] - built0)
+            want, np_s_i = timed(lambda: scf.exact_size(table, idx))
+            np_s += np_s_i
+            if (est.est_bytes, est.cf) != (want.est_bytes, want.cf) or \
+                    est.method != "exact" or est.cost_pages != 0.0:
+                fail(f"phase 11a: exact_size({idx.label()}) card "
+                     f"{est.est_bytes!r} B != NumPy {want.est_bytes!r} B")
+            existing[pt.NodeKey(idx.table, idx.cols, idx.compression)] = \
+                est.est_bytes
+            print(f"phase 11a: {idx.label()} ({table.nrows} rows): "
+                  f"{est.est_bytes!r} B, cf {est.cf!r} == NumPy")
+    finally:
+        scf.build_index_data = build
+        built.clear()
+    print(f"phase 11a: {len(existing)} existing indexes sized whole: card "
+          f"{card_s:.3f} s, NumPy {np_s:.3f} s, the builds {build_s[0]:.3f} "
+          f"s of host time apart; launches {json.dumps(total)}")
+    print(f"phase 11a: {time.perf_counter() - t0:.3f} s")
+
+    # ---- 11b: the plan with existing indexes -------------------------
+    t0 = time.perf_counter()
+    wl = pt.make_tpch_workload(schema, insert_weight=0.1)
+    opts = pt.AdvisorOptions(backend="torch", device=dev.type)
+    e, q = opts.e, opts.q
+    adv = pt.DesignAdvisor(wl, opts)
+    universe = adv.generate_candidates()
+    tkey_to_defs = adv.estimation_targets(universe)
+    targets = list(tkey_to_defs)
+    card = pt.EstimationPlanner(schema.tables, existing=existing, device=dev)
+    host = pt.EstimationPlanner(schema.tables, existing=existing)
+    walks = []
+    walk = ps.planner_walk
+
+    def recording(g, *a):
+        walks.append((g, a, walk(g, *a)))
+        return walks[-1][2]
+    ps.planner_walk = recording
+    try:
+        plan, plan_s, launches = counted(
+            lambda: card.plan(targets, e, q), total)
+    finally:
+        ps.planner_walk = walk
+    if launches.get("planner_walk", 0) != 1 or len(walks) != 1:
+        fail(f"phase 11b: planner launches {launches}, not one walk")
+    want, host_s = timed(lambda: host.plan(targets, e, q))
+    ties = plans_match(plan, want, e, "phase 11b")
+    for k, size in existing.items():
+        n = plan.nodes.get(k)
+        if n is None or n.state is not eg.State.EXACT or \
+                n.exact_bytes != size:
+            fail(f"phase 11b: existing {k.label()} is not EXACT with its "
+                 f"{size!r} B")
+    exact_targets = [t for t in targets if t in existing]
+    bare, _, _ = counted(lambda: pt.EstimationPlanner(
+        schema.tables, device=dev).plan(targets, e, q), total)
+    print(f"phase 11b: {len(targets)} targets ({len(exact_targets)} of them "
+          f"existing), e={e} q={q}: with existing f={plan.f} sampled="
+          f"{plan.n_sampled()} deduced={plan.n_deduced()} exact="
+          f"{len(existing)} total cost {plan.total_cost!r}; without f="
+          f"{bare.f} sampled={bare.n_sampled()} deduced={bare.n_deduced()} "
+          f"total cost {bare.total_cost!r}; == NumPy ({ties} equal-p ties)"
+          f"; card {plan_s:.3f} s, NumPy {host_s:.3f} s")
+    print(f"phase 11b: {time.perf_counter() - t0:.3f} s")
+
+    # ---- 11c: executing the plan -------------------------------------
+    t0 = time.perf_counter()
+    ests, card_s, launches = counted(lambda: card.execute(
+        plan, pt.EstimationEngine(schema.tables,
+                                  pt.SampleManager(schema.tables, seed=0),
+                                  dev)), total)
+    want, np_s = timed(lambda: host.execute(plan, pt.EstimationEngine(
+        schema.tables, pt.SampleManager(schema.tables, seed=0))))
+    if list(ests) != list(want):
+        fail("phase 11c: the executed nodes differ from NumPy's")
+    for k, est in ests.items():
+        if est.est_bytes != want[k].est_bytes:
+            fail(f"phase 11c: {k.label()}: card {est.est_bytes!r} B != "
+                 f"NumPy {want[k].est_bytes!r} B")
+    for k in exact_targets:
+        if ests[k].est_bytes != existing[k] or ests[k].cost_pages != 0.0:
+            fail(f"phase 11c: existing target {k.label()} not exact at no "
+                 "cost")
+    print(f"phase 11c: {len(ests)} estimates (SampleCF on "
+          f"{plan.n_sampled()} nodes at f={plan.f}) == NumPy; card "
+          f"{card_s:.3f} s, NumPy {np_s:.3f} s; launches "
+          f"{json.dumps(launches)}")
+    print(f"phase 11c: {time.perf_counter() - t0:.3f} s")
+
+    # ---- 11d: the what-if API ----------------------------------------
+    t0 = time.perf_counter()
+    for k, defs in tkey_to_defs.items():
+        for idx in defs:
+            adv.sizes.register(idx, ests[k].est_bytes)
+    configs = [pt.base_configuration(schema), rec3_config]
+    opt = adv.optimizer
+    scalar, scalar_s = timed(lambda: [opt.workload_cost(c)
+                                      for c in configs])
+    want, np_s = timed(lambda: pt.WhatIfOptimizer(
+        wl, adv.sizes).workload_cost_batch(configs))
+    got, card_s, launches = counted(
+        lambda: opt.workload_cost_batch(configs), total)
+    for what, a, b in zip(("base", "phase 3's"), scalar, want):
+        if abs(a - b) > WHATIF_REL * abs(b):
+            fail(f"phase 11d: workload_cost({what}) {a!r} beyond rel "
+                 f"{WHATIF_REL} of NumPy's batch {b!r}")
+    if not all(abs(a - b) <= WHATIF_RTOL * abs(b) for a, b in zip(got, want)):
+        fail(f"phase 11d: the card's workload_cost_batch {got.tolist()} "
+             f"against NumPy's {want.tolist()}")
+    if tuple(adv.estimation_targets(universe)) != tuple(rec3_targets):
+        fail("phase 11d: generate_candidates()' estimation targets differ "
+             "from those phase 3's recommendation planned")
+    keys = {i.key for i in universe}
+    base_keys = {i.key for i in configs[0].indexes}
+    if not all(i.key in keys or i.key in base_keys
+               for i in rec3_config.indexes):
+        fail("phase 11d: phase 3's configuration holds an index outside "
+             "the candidate universe")
+    print(f"phase 11d: {len(wl.statements)} statements, "
+          f"{len(universe)} candidates, their {len(rec3_targets)} "
+          f"estimation targets == phase 3's plan's; "
+          f"workload_cost base {float(scalar[0])!r}, phase 3's "
+          f"{float(scalar[1])!r} "
+          f"({opt.calls} statement costs, {scalar_s:.3f} s); NumPy batch "
+          f"{want.tolist()} ({np_s:.3f} s); the card advisor's batch "
+          f"{got.tolist()}, priced on the host ({card_s:.3f} s, launches "
+          f"{json.dumps(launches)})")
+    print(f"phase 11d: {time.perf_counter() - t0:.3f} s")
+
+    # ---- 11e: the walk with exact ids against its plain version ------
+    t0 = time.perf_counter()
+    g, args_, res = walks[0]
+    if g.exact is None or sorted(g.exact.tolist()) != sorted(
+            card.engine._node_id[k] for k in existing):
+        fail("phase 11e: the walk was not given the existing indexes' ids")
+    plain = ps.planner_walk_plain(g, *args_)
+    torch.cuda.synchronize()
+    for name, a, b in zip(ps.WalkResult._fields, res, plain):
+        if not bit_equal(a, b):
+            fail(f"phase 11e: the walk's {name} differs from "
+                 "planner_walk_plain on the card")
+    print(f"phase 11e: planner_walk ({g.tid.numel()} records, "
+          f"{g.dm.numel()} candidates, {g.scost.shape[0]} nodes with the "
+          f"pad, {g.exact.numel()} exact) bit-equal to planner_walk_plain "
+          f"on the card ({time.perf_counter() - t0:.3f} s)")
+    print(f"phase 11: {time.perf_counter() - t_phase:.3f} s; launches "
+          f"{json.dumps(total)}")
+    return total
 
 
 # phase 10: training the remaining families on the card
@@ -4925,8 +5164,16 @@ def main() -> int:
             "before 9": rec["launches"]})["9"] = n9
         rec["launches"] += n9
 
+    # ---- phase 11: existing indexes and the what-if API at SF1 ----------
+    launches11 = phase_11(dev, schema, rec_t.config,
+                          rec_t.estimation_plan.targets)
+    for rec in records:
+        n11 = launches11.get(rec["name"], 0)
+        rec["launches_by_phase"]["11"] = n11
+        rec["launches"] += n11
+
     # ---- phase 10: training the remaining families on the card ----------
-    del schema, rec_t, launches9, extras9
+    del schema, rec_t, launches9, extras9, launches11
     launches10 = phase_10(dev)
     for rec in records:
         if rec["name"] in launches10:

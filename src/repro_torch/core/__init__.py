@@ -24,8 +24,8 @@ from .relation import ColumnDef, IndexDef, Predicate, Table
 from .samplecf import EstimateCache, SampleManager, SizeEstimate, sample_cf
 from .session import AdvisorSession, SessionSnapshot, SnapshotCorrupt
 from .synopses import ForeignKey, MVDef, Schema, SynopsisManager
-from .whatif import Configuration, SizeProvider, base_configuration, \
-    storage_used
+from .whatif import Configuration, SizeProvider, WhatIfOptimizer, \
+    base_configuration, storage_used
 from .workload import BulkInsert, Query, Workload, WorkloadDelta, \
     make_scaled_workload, make_tpch_like, make_tpch_workload
 from .workload_compression import ClusterIndex, CompressedWorkload, \
@@ -45,7 +45,8 @@ __all__ = [
     "ColumnDef", "IndexDef", "Predicate", "Table",
     "EstimateCache", "SampleManager", "SizeEstimate", "sample_cf",
     "ForeignKey", "MVDef", "Schema", "SynopsisManager",
-    "Configuration", "SizeProvider", "base_configuration", "storage_used",
+    "Configuration", "SizeProvider", "WhatIfOptimizer",
+    "base_configuration", "storage_used",
     "BulkInsert", "Query", "Workload", "WorkloadDelta",
     "make_scaled_workload",
     "make_tpch_like", "make_tpch_workload",

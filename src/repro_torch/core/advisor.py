@@ -40,8 +40,8 @@ from .estimation_engine import EstimationEngine
 from .estimation_graph import EstimationPlanner, NodeKey, Plan
 from .relation import IndexDef
 from .samplecf import SampleManager
-from .whatif import (Configuration, SizeProvider, base_configuration,
-                     storage_used)
+from .whatif import (Configuration, SizeProvider, WhatIfOptimizer,
+                     base_configuration, storage_used)
 from .workload import Workload
 from .workload_compression import CompressedWorkload, compress_workload
 
@@ -161,6 +161,9 @@ class DesignAdvisor:
         self.opt = options or AdvisorOptions()
         self.device = resolve_device(self.opt.backend, self.opt.device)
         self.sizes = SizeProvider(self.schema)
+        # statement-at-a-time what-if costs over the advisor's sizes (the
+        # pipeline itself costs through `build_engine`)
+        self.optimizer = WhatIfOptimizer(workload, self.sizes, self.device)
         self.samples = SampleManager(self.schema.tables,
                                      seed=self.opt.sample_seed)
         # set by `recommend` when workload compression engages
@@ -205,6 +208,9 @@ class DesignAdvisor:
         merged_exp = cand.expand_with_compression(merged, self.opt.methods)
         all_cands = cand.expand_with_compression(raw, self.opt.methods)
         return per_query_exp, merged_exp, all_cands
+
+    def generate_candidates(self) -> List[IndexDef]:
+        return self._candidate_universe()[2]
 
     # ------------------------------------------------------------------
     @staticmethod

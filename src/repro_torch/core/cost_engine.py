@@ -860,6 +860,10 @@ class CostEngine:
             total += self.table_eval(config, table).total
         return total
 
+    def config_costs(self, configs: Sequence[Configuration]) -> np.ndarray:
+        """`config_cost` of each configuration, as a float64 array."""
+        return np.array([self.config_cost(c) for c in configs])
+
     # -- per-query candidate costing (candidate selection, §6.1) ----------
     def candidate_query_costs(self, query: Query, base: Configuration,
                               cands: Sequence[IndexDef]) -> np.ndarray:

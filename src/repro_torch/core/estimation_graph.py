@@ -39,7 +39,7 @@ class State(enum.Enum):
     NONE = "NONE"
     DEDUCED = "DEDUCED"
     SAMPLED = "SAMPLED"
-    EXACT = "EXACT"  # known exactly (§5.1); marks the planner's pad node
+    EXACT = "EXACT"  # existing index: true size known from catalog (§5.1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +88,7 @@ class Node:
     state: State = State.NONE
     chosen: Optional[Deduction] = None
     rv: err.ErrorRV = err.EXACT
+    exact_bytes: Optional[float] = None
 
 
 @dataclasses.dataclass
@@ -97,6 +98,9 @@ class Plan:
     targets: Tuple[NodeKey, ...]
     total_cost: float
     feasible: bool
+
+    def states(self) -> Dict[NodeKey, State]:
+        return {k: n.state for k, n in self.nodes.items()}
 
     def n_sampled(self) -> int:
         return sum(1 for n in self.nodes.values() if n.state is State.SAMPLED)
@@ -191,17 +195,23 @@ def _deduction_rv(key: NodeKey, d: Deduction,
 
 class EstimationPlanner:
     """Runs the greedy state assignment through the batched
-    `planner_engine.PlannerEngine`.  `device` selects the engine's scoring
-    backend: None scores in float64 NumPy (bit-identical to the JAX
-    package's numpy backend), a torch device with the float32
-    planner-score kernels.  `record`, `max_nodes`, `max_replay` and
-    `faults` go to the engine: an online session's planner replays
-    decisions across rounds within those bounds (see `planner_engine`)."""
+    `planner_engine.PlannerEngine`.  `existing` maps the NodeKeys of
+    indexes that already exist to their true bytes (§5.1, e.g. from
+    `samplecf.exact_size`): they enter every plan EXACT, at no sampling
+    cost and no error.  `device` selects the engine's scoring backend:
+    None scores in float64 NumPy (bit-identical to the JAX package's
+    numpy backend), a torch device with the float32 planner-score
+    kernels.  `record`, `max_nodes`, `max_replay` and `faults` go to the
+    engine: an online session's planner replays decisions across rounds
+    within those bounds (see `planner_engine`)."""
 
-    def __init__(self, tables: Dict[str, Table], device=None,
-                 record: bool = False, max_nodes: Optional[int] = None,
+    def __init__(self, tables: Dict[str, Table],
+                 existing: Optional[Dict[NodeKey, float]] = None,
+                 device=None, record: bool = False,
+                 max_nodes: Optional[int] = None,
                  max_replay: Optional[int] = None, faults=None):
         self.tables = tables
+        self.existing = dict(existing or {})
         self.device = device
         self.record = record
         self.max_nodes = max_nodes
@@ -216,7 +226,8 @@ class EstimationPlanner:
         if self._engine is None:
             from .planner_engine import PlannerEngine
             self._engine = PlannerEngine(
-                self.tables, device=self.device, record=self.record,
+                self.tables, self.existing, device=self.device,
+                record=self.record,
                 max_nodes=self.max_nodes, max_replay=self.max_replay,
                 faults=self.faults)
         return self._engine
@@ -251,6 +262,9 @@ class EstimationPlanner:
         targets = list(targets)
         if len(targets) > max_nodes:
             raise ValueError("optimal(): too many targets (exponential)")
+        base_nodes: Dict[NodeKey, Node] = {
+            k: Node(k, State.EXACT, rv=err.EXACT, exact_bytes=size)
+            for k, size in self.existing.items()}
 
         # Universe: targets + all their (recursive) potential children.
         universe: Dict[NodeKey, List[Deduction]] = {}
@@ -259,7 +273,8 @@ class EstimationPlanner:
             k = frontier.pop()
             if k in universe:
                 continue
-            cands = candidate_deductions(k, list(universe) + list(targets))
+            cands = candidate_deductions(
+                k, list(universe) + list(base_nodes) + list(targets))
             universe[k] = cands
             for d in cands:
                 for c in d.children:
@@ -273,7 +288,7 @@ class EstimationPlanner:
             if best[0] is not None and cost >= best[0].total_cost:
                 return  # prune
             if not remaining:
-                nodes: Dict[NodeKey, Node] = {}
+                nodes = dict(base_nodes)
                 # resolve rvs narrow->wide
                 for k in sorted(states, key=lambda k: (len(k.cols), k.cols)):
                     st, d = states[k]
@@ -303,8 +318,8 @@ class EstimationPlanner:
             # option 2: each deduction; children must be decided too
             for d in universe.get(k, []):
                 new_children = [c for c in d.children
-                                if c not in states and c not in rest
-                                and c != k]
+                                if c not in states and c not in base_nodes
+                                and c not in rest and c != k]
                 recurse({**states, k: (State.DEDUCED, d)},
                         rest + new_children, cost)
 
@@ -359,7 +374,12 @@ class EstimationPlanner:
                 return out[k]
             node = plan.nodes[k]
             table = self.tables[k.table]
-            if node.state is State.SAMPLED:
+            if node.state is State.EXACT:
+                est = SizeEstimate(
+                    index=IndexDef(k.table, k.cols, k.method),
+                    est_bytes=float(node.exact_bytes), method="exact",
+                    cost_pages=0.0, cf=0.0)
+            elif node.state is State.SAMPLED:
                 est = sampled_est(k)
             else:  # DEDUCED
                 d = node.chosen

@@ -5,12 +5,14 @@ shared deduction graph**:
 
 * **Graph build (f-independent, built once).**  The node universe and each
   target's candidate-deduction set do not depend on f: ColSet mates can only
-  be targets, never nodes materialized mid-walk — a materialized child is
-  strictly narrower than its creator, and the walk is narrow-to-wide, so
-  it can never share a column set with a later target.  The build records, per target in processing
-  order, the candidate `Deduction`s with their children packed into
-  (ncand, K) id arrays (EXACT-padded), plus the deduction-error term of
-  each candidate.
+  be pre-existing nodes (existing indexes, §5.1, and targets), never nodes
+  materialized mid-walk — a materialized child is strictly narrower than
+  its creator, and the walk is narrow-to-wide, so it can never share a
+  column set with a later target.  Existing indexes enter the universe
+  first and start every run EXACT (zero cost, zero error).  The build
+  records, per target in processing order, the candidate `Deduction`s
+  with their children packed into (ncand, K) id arrays (EXACT-padded),
+  plus the deduction-error term of each candidate.
 
 * **Per-(node, f) state arrays.**  Node state / error-RV mean / error-RV
   std live in (nnodes, nf) arrays.  One pass over the targets then scores
@@ -90,6 +92,27 @@ def _kind_code(method: str) -> int:
     return 1 if METHODS[method].order_dependent else 0
 
 
+def assert_plan_identical(ref: Plan, got: Plan, label: str = "") -> None:
+    """Plan identity: the same f, targets and nodes, each with the same
+    state, chosen deduction, error RV and exact size, the same total_cost
+    and feasibility (the JAX package's contract between its planners)."""
+    tag = f"{label}: " if label else ""
+    assert got.f == ref.f and got.targets == ref.targets, \
+        tag + "plan identity (f / targets) diverged"
+    assert set(got.nodes) == set(ref.nodes), f"{tag}node sets diverged"
+    for k, na in ref.nodes.items():
+        nb = got.nodes[k]
+        assert na.state is nb.state, f"{tag}state diverged at {k.label()}"
+        assert na.chosen == nb.chosen, \
+            f"{tag}chosen deduction diverged at {k.label()}"
+        assert na.rv == nb.rv, f"{tag}error RV diverged at {k.label()}"
+        assert na.exact_bytes == nb.exact_bytes, \
+            f"{tag}exact size diverged at {k.label()}"
+    assert got.total_cost == ref.total_cost, \
+        f"{tag}total_cost {got.total_cost} != {ref.total_cost}"
+    assert got.feasible == ref.feasible, tag + "feasibility diverged"
+
+
 @dataclasses.dataclass
 class _TargetRec:
     """One target's candidate-deduction set, packed for array scoring.
@@ -130,10 +153,12 @@ class _TargetRec:
 @dataclasses.dataclass
 class _Graph:
     """One round's view of the engine's LIVE append-only node universe
-    (`node_keys` / `node_id`, ids stable across target-set deltas) and the
-    round's target records in processing order."""
+    (`node_keys` / `node_id`, ids stable across target-set deltas), the
+    existing indexes as (node id, key, bytes), and the round's target
+    records in processing order."""
     node_keys: List[NodeKey]
     node_id: Dict[NodeKey, int]
+    exact: List[Tuple[int, NodeKey, float]]
     recs: List[_TargetRec]
 
 
@@ -173,16 +198,21 @@ class _RunState:
 class PlannerEngine:
     """Runs the §5.2 greedy for a whole f grid over one shared graph.
 
+    `existing` maps the NodeKeys of existing indexes to their bytes: they
+    are EXACT in every plan (§5.1).  It is fixed for the engine's life, so
+    no stored walk or decision of one `existing` can serve another.
     `record` turns on the cross-run replay of a long-lived engine;
     `max_nodes` / `max_replay` bound its universe and replay store;
     `faults` is an optional `faults.FaultInjector` (site
     "planner_replay")."""
 
-    def __init__(self, tables: Dict, device: Optional[torch.device] = None,
+    def __init__(self, tables: Dict, existing: Optional[Dict] = None,
+                 device: Optional[torch.device] = None,
                  record: bool = False, max_nodes: Optional[int] = None,
                  max_replay: Optional[int] = None, faults=None):
         self.device = device
         self.tables = tables
+        self.existing = dict(existing or {})
         self.record = record
         self.max_nodes = max_nodes
         self.max_replay = max_replay
@@ -190,9 +220,11 @@ class PlannerEngine:
         self._graphs: Dict[Tuple[NodeKey, ...], _Graph] = {}
         self._scost: Dict[Tuple[str, Tuple[str, ...], float], float] = {}
         self._pcache: Dict[Tuple[float, float, float], float] = {}
-        # append-only node universe
+        # append-only node universe, the existing indexes first
         self._node_keys: List[NodeKey] = []
         self._node_id: Dict[NodeKey, int] = {}
+        self._exact: List[Tuple[int, NodeKey, float]] = [
+            (self._add_node(k), k, size) for k, size in self.existing.items()]
         # (target, mate-group version) -> packed _TargetRec
         self._recs: Dict[Tuple[NodeKey, int], _TargetRec] = {}
         # (table, column set, method) -> [mates tuple, ids, pos map,
@@ -284,9 +316,11 @@ class PlannerEngine:
                           cx_dm, cx_msq, cx_vt, all_ids, ver, pos)
 
     def _build_graph(self, targets: Sequence[NodeKey]) -> _Graph:
-        # ColSet mate groups: (table, column set, method) -> members in
-        # first-seen target order
+        # ColSet mate groups: (table, column set, method) -> members, the
+        # existing indexes first, then targets in first-seen order
         by_set: Dict[Tuple[str, frozenset, str], List[NodeKey]] = {}
+        for _, k, _ in self._exact:
+            by_set.setdefault(k.gkey(), []).append(k)
         seen = set()
         for t in targets:
             self._add_node(t)
@@ -333,7 +367,8 @@ class PlannerEngine:
             else:
                 self.rec_hits += 1
             recs.append(rec)
-        return _Graph(self._node_keys, self._node_id, recs)
+        return _Graph(self._node_keys, self._node_id, list(self._exact),
+                      recs)
 
     def _evict_universe(self) -> None:
         """Epoch eviction: reset the node universe and everything keyed by
@@ -350,6 +385,8 @@ class PlannerEngine:
         self._walks.clear()
         self._node_keys = []
         self._node_id = {}
+        self._exact = [(self._add_node(k), k, size)
+                       for k, size in self.existing.items()]
         self.universe_evictions += 1
 
     def _graph(self, targets: Sequence[NodeKey]) -> _Graph:
@@ -714,6 +751,8 @@ class PlannerEngine:
         buf = np.zeros((n + 1, 4, nf))
         buf[:, 1, :] = 1.0                        # default rv = EXACT
         buf[pad, 0, :] = _EXACT
+        for nid, _, _ in g.exact:
+            buf[nid, 0, :] = _EXACT
         buf[:n, 3, :] = self._scost_matrix(g, f_grid)
         state = buf[:, 0, :]
         scost = buf[:, 3, :]
@@ -999,13 +1038,15 @@ class PlannerEngine:
         tid = np.array([r.tid for r in recs], dtype=np.int64)
         kind = np.array([r.kind for r in recs], dtype=np.int64)
         tg = np.array([g.node_id[t] for t in targets], dtype=np.int64)
-        ints = to_device([tid, kind, off, child, nchild, tg], np.int32,
+        ex = np.array([nid for nid, _, _ in g.exact], dtype=np.int64)
+        ints = to_device([tid, kind, off, child, nchild, tg, ex], np.int32,
                          self.device)
         dm, vt, mq = to_device(list(fac), np.float32, self.device)
         doubles = to_device([scost, samp_mean, samp_std], np.float64,
                             self.device)
         wg = _ps.WalkGraph(*ints[:5], dm, vt, mq, *doubles, targets=ints[5],
-                           max_cands=int(ncand.max(initial=0)))
+                           max_cands=int(ncand.max(initial=0)),
+                           exact=ints[6])
         return wg, off, child
 
     def _walk(self, g: _Graph, targets: Sequence[NodeKey],
@@ -1047,7 +1088,7 @@ class PlannerEngine:
     def _assemble_one(self, st: "_RunState", fi: int,
                       feasible: bool) -> Plan:
         """Materialize fraction `fi`'s `Plan` (§5.2 lines 13-14 cleanup:
-        keep only targets and used children)."""
+        keep only targets, used children and the EXACT existing nodes)."""
         g = st.g
         f = st.f_grid[fi]
         n = st.state.shape[0] - 1   # nodes at run time (universe may grow)
@@ -1059,6 +1100,8 @@ class PlannerEngine:
         m_col = st.mean[:, fi].tolist()
         s_col = st.std[:, fi].tolist()
         nodes: Dict[NodeKey, Node] = {}
+        for _, k, size in g.exact:
+            nodes[k] = Node(k, State.EXACT, rv=err.EXACT, exact_bytes=size)
         for nid in np.nonzero(st.used[:n, fi] | is_target)[0].tolist():
             k = g.node_keys[nid]
             if k in nodes:

@@ -154,6 +154,9 @@ class SampleManager:
         self._samples: Dict[Tuple[str, float], Table] = {}
         self.sampling_calls = 0  # how many fresh samples were drawn
 
+    def add_table(self, table: Table) -> None:
+        self.tables[table.name] = table
+
     def _rng_for(self, table_name: str, f: float) -> np.random.Generator:
         # the f quantization MUST match the sample-cache key below: a
         # finer-grained seed would reintroduce draw-order dependence for
@@ -191,6 +194,16 @@ def full_index_sizes(table: Table, idx: IndexDef,
     if idx.compression is None:
         return s, s
     return s, compressed_index_bytes(data, widths, idx.compression, device)
+
+
+def exact_size(table: Table, idx: IndexDef,
+               device: Optional[torch.device] = None) -> SizeEstimate:
+    """Size of an index that already exists: zero cost, zero error
+    (§5.1), from the whole index built and sized on `device`
+    (`full_index_sizes`)."""
+    s, sc = full_index_sizes(table, idx, device)
+    return SizeEstimate(index=idx, est_bytes=float(sc), method="exact",
+                        cost_pages=0.0, cf=sc / max(s, 1))
 
 
 def compressed_index_bytes(data: np.ndarray, widths: Sequence[int],

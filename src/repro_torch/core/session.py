@@ -57,7 +57,7 @@ from .estimation_graph import EstimationPlanner, NodeKey, Plan, State
 from .faults import FaultInjector
 from .relation import IndexDef
 from .samplecf import EstimateCache, SampleManager, SizeEstimate
-from .whatif import SizeProvider, base_configuration
+from .whatif import SizeProvider, WhatIfOptimizer, base_configuration
 from .workload import Query, Statement, Workload, WorkloadDelta
 from .workload_compression import ClusterIndex, CompressedWorkload
 
@@ -232,6 +232,8 @@ class AdvisorSession:
             self.compression_bypasses = 0
             return
         self.sizes = SizeProvider(self.schema)
+        self.optimizer = WhatIfOptimizer(self.workload, self.sizes,
+                                         self.device)
         self.planner = EstimationPlanner(
             self.schema.tables, device=self.device, record=True,
             max_nodes=self.opt.max_planner_nodes,
@@ -351,6 +353,10 @@ class AdvisorSession:
             self._queries.pop(name, None)
             self._selections.pop(name, None)
         self.workload = new_wl
+        # the optimizer prices the new workload; its batched engine, if
+        # built, holds the old one and is rebuilt at its next use
+        self.optimizer.workload = new_wl
+        self.optimizer._engine = None
         return self
 
     def add_statements(self, statements: Iterable[Statement]
@@ -666,6 +672,12 @@ class AdvisorSession:
         t2 = time.perf_counter()
         engine = self.engine
         engine.sync_sizes()
+        if changed:
+            # the optimizer memoizes statement costs by (statement,
+            # config); re-registered sizes invalidate those entries
+            self.optimizer._cache.clear()
+            if self.optimizer._engine is not None:
+                self.optimizer._engine.sync_sizes()
         base_cost = engine.config_cost(base)
 
         pre, self._cost_results = self._cost_results, None

@@ -7,19 +7,23 @@ fed by the estimation framework (§4-§5); uncompressed sizes are analytic.
 Statement costs under a configuration come from the batched
 `cost_engine.CostEngine`.  The scalar float64 `query_cost` and
 `update_statement_cost` price one statement at a time; the workload
-compression certificate (`workload_compression`) uses them.  The JAX
-package's cached `WhatIfOptimizer` is not ported.
+compression certificate (`workload_compression`) uses them, and
+`WhatIfOptimizer` (the Figure-1 optimizer extension) caches and sums them
+per statement beside its batched `workload_cost_batch`.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, FrozenSet, Iterable, Optional, Tuple
 
+import numpy as np
+import torch
+
 from . import cost_model as cm
 from .compression import uncompressed_payload_bytes
 from .relation import IndexDef, Table
 from .synopses import Schema
-from .workload import BulkInsert, Query
+from .workload import BulkInsert, Query, Statement, Workload
 
 
 class SizeProvider:
@@ -78,6 +82,9 @@ class Configuration:
 
     def add(self, idx: IndexDef) -> "Configuration":
         return Configuration(self.indexes | {idx})
+
+    def remove(self, idx: IndexDef) -> "Configuration":
+        return Configuration(self.indexes - {idx})
 
     def replace(self, old: IndexDef, new: IndexDef) -> "Configuration":
         return Configuration((self.indexes - {old}) | {new})
@@ -195,3 +202,70 @@ def update_statement_cost(stmt: BulkInsert, config: Configuration,
         total += cm.update_cost(sizes.size(idx), sizes.nrows(idx), rows,
                                 idx.compression)
     return total
+
+
+_SAME = object()   # `WhatIfOptimizer.engine`: keep the current engine
+
+
+class WhatIfOptimizer:
+    """Cached what-if cost API (the Figure-1 'query optimizer extension').
+
+    `statement_cost` / `workload_cost` price a statement at a time in
+    float64 on the host, cached by (statement, the table's indexes);
+    `calls` counts the statements actually priced.  `workload_cost_batch`
+    scores many configurations at once through the batched
+    `cost_engine.CostEngine` on `device` (None: the float64 NumPy route;
+    a torch device: its float32 scorers, where a path has them).
+    """
+
+    def __init__(self, workload: Workload, sizes: SizeProvider,
+                 device: Optional[torch.device] = None):
+        self.workload = workload
+        self.sizes = sizes
+        self.device = device
+        self._cache: Dict[Tuple, float] = {}
+        self._engine = None
+        self.calls = 0
+
+    def statement_cost(self, stmt: Statement, config: Configuration) -> float:
+        relevant = config.for_table(stmt.table)
+        key = (stmt.name, tuple(i.key for i in relevant))
+        if key not in self._cache:
+            self.calls += 1
+            if isinstance(stmt, Query):
+                c = query_cost(stmt, config, self.sizes)
+            else:
+                c = update_statement_cost(stmt, config, self.sizes)
+            self._cache[key] = c
+        return self._cache[key]
+
+    def workload_cost(self, config: Configuration) -> float:
+        return sum(s.weight * self.statement_cost(s, config)
+                   for s in self.workload.statements)
+
+    def engine(self, device=_SAME):
+        """The batched cost engine bound to this optimizer's sizes.
+
+        Built lazily, on the optimizer's device, so every size registered
+        on the SizeProvider before the first batched call is picked up
+        (sizes registered afterwards are not, as with the statement
+        cache).  `engine()` reuses the current engine; `engine(device=d)`
+        with another device than the current engine's REBUILDS it from the
+        provider's current sizes (registered columns and statement deltas
+        do not carry over)."""
+        from .cost_engine import CostEngine  # deferred: avoids a cycle
+        if device is _SAME:
+            if self._engine is None:
+                self._engine = CostEngine(self.workload, self.sizes,
+                                          device=self.device)
+        elif self._engine is None or self._engine.device != device:
+            self._engine = CostEngine(self.workload, self.sizes,
+                                      device=device)
+        return self._engine
+
+    def workload_cost_batch(self, configs: Iterable[Configuration]
+                            ) -> np.ndarray:
+        """Workload cost of each configuration (float64, aligned with
+        `configs`), from the batched engine; `workload_cost` is the
+        statement-at-a-time yardstick (the same sums in another order)."""
+        return self.engine().config_costs(list(configs))

@@ -150,8 +150,10 @@ __global__ void fused_score_kernel(
 // child ids child[c][0 ..] (K a row; pads are the EXACT node n1 - 1) and
 // its deduction factors dm / vt / mq[c].  scost: (nf, n1) float64 sampling
 // costs; samp_mean / samp_std: (2, nf) float64 SampleCF error RVs.
-// targets: (T,) the plan's target node ids.  Outputs: state / mean / std
-// (nf, n1), win (R, nf), total (nf,), p (T, nf), feasible (nf,).
+// targets: (T,) the plan's target node ids; exact: (X,) node ids that
+// start EXACT with RV (1, 0), the existing indexes.  Outputs: state /
+// mean / std (nf, n1), win (R, nf), total (nf,), p (T, nf), feasible
+// (nf,).
 template <bool SMEM>
 __global__ void __launch_bounds__(kWalkThreads)
 planner_walk_kernel(const int* __restrict__ tid, const int* __restrict__ kind,
@@ -159,6 +161,7 @@ planner_walk_kernel(const int* __restrict__ tid, const int* __restrict__ kind,
                     const int* __restrict__ child,
                     const int* __restrict__ nchild,
                     const int* __restrict__ targets,
+                    const int* __restrict__ exact,
                     const float* __restrict__ dm,
                     const float* __restrict__ vt,
                     const float* __restrict__ mq,
@@ -171,8 +174,8 @@ planner_walk_kernel(const int* __restrict__ tid, const int* __restrict__ kind,
                     double* __restrict__ total_out,
                     float* __restrict__ p_out,
                     uint8_t* __restrict__ feasible_out, int nrec, int k,
-                    int n1, int nf, int max_cands, int ntargets, float lo,
-                    float hi, double q, double q_feas) {
+                    int n1, int nf, int max_cands, int ntargets, int nexact,
+                    float lo, float hi, double q, double q_feas) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int f = blockIdx.x;
   const int t = threadIdx.x;
@@ -201,6 +204,18 @@ planner_walk_kernel(const int* __restrict__ tid, const int* __restrict__ kind,
     mu[i] = 1.0;
     sd[i] = 0.0;
     st[i] = i == n1 - 1 ? kExact : kNone;
+  }
+  if (nexact > 0) {
+    // existing indexes, once every thread's NONE is written (an id may
+    // lie in another thread's stride of the loop above); st is this
+    // block's node state, in shared memory in the SMEM instance
+    __syncthreads();
+    for (int i = t; i < nexact; i += blockDim.x) {
+      const int id = exact[i];
+      st[id] = kExact;
+      mu[id] = 1.0;
+      sd[id] = 0.0;
+    }
   }
   __syncthreads();
   const double smean[2] = {samp_mean[f], samp_mean[nf + f]};
@@ -414,13 +429,14 @@ int fused_score_launch(const void* m, const void* s, const void* dm,
 int planner_walk_launch(const void* tid, const void* kind,
                         const void* cand_off, const void* child,
                         const void* nchild, const void* targets,
-                        const void* dm, const void* vt, const void* mq,
+                        const void* exact, const void* dm, const void* vt,
+                        const void* mq,
                         const void* scost, const void* samp_mean,
                         const void* samp_std, void* state, void* mean,
                         void* std, void* win, void* total, void* p,
                         void* feasible, int nrec, int k, int n1, int nf,
-                        int max_cands, int ntargets, float lo, float hi,
-                        double q, double q_feas, void* stream) {
+                        int max_cands, int ntargets, int nexact, float lo,
+                        float hi, double q, double q_feas, void* stream) {
   size_t optin = 0;
   const cudaError_t e0 = walk_optin(&optin);
   if (e0 != cudaSuccess) return static_cast<int>(e0);
@@ -439,14 +455,15 @@ int planner_walk_launch(const void* tid, const void* kind,
       static_cast<const int*>(tid), static_cast<const int*>(kind),
       static_cast<const int*>(cand_off), static_cast<const int*>(child),
       static_cast<const int*>(nchild), static_cast<const int*>(targets),
-      static_cast<const float*>(dm), static_cast<const float*>(vt),
-      static_cast<const float*>(mq), static_cast<const double*>(scost),
+      static_cast<const int*>(exact), static_cast<const float*>(dm),
+      static_cast<const float*>(vt), static_cast<const float*>(mq),
+      static_cast<const double*>(scost),
       static_cast<const double*>(samp_mean),
       static_cast<const double*>(samp_std), static_cast<uint8_t*>(state),
       static_cast<double*>(mean), static_cast<double*>(std),
       static_cast<int*>(win), static_cast<double*>(total),
       static_cast<float*>(p), static_cast<uint8_t*>(feasible), nrec, k, n1,
-      nf, max_cands, ntargets, lo, hi, q, q_feas);
+      nf, max_cands, ntargets, nexact, lo, hi, q, q_feas);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -88,7 +88,7 @@ def _load():
         lib.fused_score_launch.argtypes = [vp] * 10 + [ci, ci, ci,
                                                        cf, cf, cf, vp]
         lib.fused_score_launch.restype = ci
-        lib.planner_walk_launch.argtypes = [vp] * 19 + [ci] * 6 + [
+        lib.planner_walk_launch.argtypes = [vp] * 20 + [ci] * 7 + [
             cf, cf, ctypes.c_double, ctypes.c_double, vp]
         lib.planner_walk_launch.restype = ci
         lib.planner_walk_in_smem.argtypes = [ci, ci]
@@ -140,7 +140,9 @@ class WalkGraph:
     class and fraction;
     targets (T,) int32 -- the plan's target nodes, whose final RVs judge
     its feasibility;
-    max_cands -- the most candidates of a record.
+    max_cands -- the most candidates of a record;
+    exact (X,) int32 -- nodes that start EXACT with RV (1, 0): existing
+    indexes (§5.1), known at no cost; None for none.
     """
     tid: torch.Tensor
     kind: torch.Tensor
@@ -155,6 +157,7 @@ class WalkGraph:
     samp_std: torch.Tensor
     targets: torch.Tensor
     max_cands: int
+    exact: Optional[torch.Tensor] = None
 
 
 class WalkResult(NamedTuple):
@@ -251,6 +254,8 @@ def planner_walk_plain(g: WalkGraph, e: float, q: float,
     k = g.child.shape[1]
     state = torch.zeros((n1, nf), dtype=torch.uint8, device=dev)
     state[n1 - 1] = EXACT
+    if g.exact is not None:
+        state[g.exact.long()] = EXACT
     mean = torch.ones((n1, nf), dtype=torch.float64, device=dev)
     std = torch.zeros((n1, nf), dtype=torch.float64, device=dev)
     total = torch.zeros(nf, dtype=torch.float64, device=dev)
@@ -427,7 +432,9 @@ def planner_walk(g: WalkGraph, e: float, q: float,
     nt = g.targets.numel()
     nc = g.dm.numel()
     k = g.child.shape[1]
-    ints = (g.tid, g.kind, g.cand_off, g.child, g.nchild, g.targets)
+    exact = g.exact if g.exact is not None else torch.empty(
+        0, dtype=torch.int32, device=g.scost.device)
+    ints = (g.tid, g.kind, g.cand_off, g.child, g.nchild, g.targets, exact)
     floats = (g.dm, g.vt, g.mq)
     doubles = (g.scost, g.samp_mean, g.samp_std)
     if any(t.dtype != torch.int32 for t in ints) or \
@@ -439,8 +446,11 @@ def planner_walk(g: WalkGraph, e: float, q: float,
             g.child.shape[0] != nc or g.nchild.shape != (nc,) or \
             g.vt.shape != (nc,) or g.mq.shape != (nc,) or k < 1 or \
             g.samp_mean.shape != (2, nf) or g.samp_std.shape != (2, nf) \
-            or g.targets.shape != (nt,):
+            or g.targets.shape != (nt,) or exact.dim() != 1:
         raise ValueError("planner_walk: inconsistent packed graph")
+    if exact.numel() and not bool(((exact >= 0) & (exact < n1)).all()):
+        raise ValueError("planner_walk: an exact id outside the graph's "
+                         "nodes")
     dev = g.scost.device
     if any(t.device != dev for t in ints + floats + doubles):
         raise ValueError("all inputs must be on one device")
@@ -450,7 +460,8 @@ def planner_walk(g: WalkGraph, e: float, q: float,
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     if g.max_cands >= WALK_LINE9 or nc * k >= 2 ** 31 or \
-            n1 * nf >= 2 ** 31 or nt * nf >= 2 ** 31:
+            n1 * nf >= 2 ** 31 or nt * nf >= 2 ** 31 or \
+            exact.numel() >= 2 ** 31:
         raise ValueError("planner_walk: graph outside the kernel's sizes")
     ins = [t.contiguous() for t in ints + floats]
     scost_t = g.scost.t().contiguous()
@@ -471,7 +482,8 @@ def planner_walk(g: WalkGraph, e: float, q: float,
         *(t.data_ptr() for t in ins), scost_t.data_ptr(),
         *(t.data_ptr() for t in samp),
         *(t.data_ptr() for t in (state, mean, std, win, total, p, feasible)),
-        nrec, k, n1, nf, max(g.max_cands, 1), nt, lo, hi, float(q),
+        nrec, k, n1, nf, max(g.max_cands, 1), nt, exact.numel(), lo, hi,
+        float(q),
         float(q_feas), torch.cuda.current_stream(dev).cuda_stream)
     _launch_check(err, "planner_walk")
     LAUNCHES["planner_walk"] += 1

@@ -12,7 +12,8 @@ IEEE float ops; only CUDA's erff and PyTorch's erf may differ by an ulp);
 winners equal; prob consistency bitwise; the planner walk bit-equal to
 its plain version (which scores each record with the fused_score kernel)
 on hand-built graphs, random graphs in both of its state layouts and the
-TPC-H scale=1 graph, launched once per plan.  Blockwise quantization bit-equal
+TPC-H scale=1 graph, launched once per plan, also with exact start
+ids (existing indexes) in both layouts.  Blockwise quantization bit-equal
 (q and scales: the same IEEE divisions and round-half-even);
 dequant-matmul within rtol and atol 1e-4 of the plain version's IEEE
 float32 product (another summation order; the tensor-core route's a in
@@ -40,6 +41,8 @@ to per-job costing on the card.  A q8 checkpoint written from the card is
 byte-identical to its CPU copy's, and its restore on the card equals the
 plain dequantize of the plain quantize.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -225,6 +228,33 @@ def test_cuda_planner_walk_equals_plain_in_both_state_layouts(cuda, n,
     assert launch_counts()["planner_walk"] == before["planner_walk"] + 1
     walk_bit_equal(got, ps.planner_walk_plain(g, 0.5, 0.9))
     assert int((got.win >= ps.WALK_LINE9).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, in_smem", [(600, True), (12_000, False)])
+def test_cuda_planner_walk_with_exact_ids_equals_plain(cuda, n, in_smem):
+    """Existing indexes (§5.1): the walk with exact start ids, some of
+    them record targets and some children, bit-equal to the plain walk
+    in both state layouts; their rows EXACT (1, 0) and their records
+    skipped."""
+    g = walk_graph(walk_synthetic(n, 450, 5, 3, used=600), cuda)
+    assert ps.walk_in_shared_memory(g) is in_smem
+    r = np.random.default_rng(11)
+    tids = np.unique(g.tid.cpu().numpy())
+    kids = np.unique(g.child.cpu().numpy())
+    kids = kids[kids < n]
+    ex = np.unique(np.concatenate([r.choice(tids, 20, replace=False),
+                                   r.choice(kids, 40, replace=False)]))
+    g = dataclasses.replace(g, exact=torch.as_tensor(
+        ex, dtype=torch.int32, device=cuda))
+    before = launch_counts()
+    got = ps.planner_walk(g, 0.5, 0.9)
+    assert launch_counts()["planner_walk"] == before["planner_walk"] + 1
+    walk_bit_equal(got, ps.planner_walk_plain(g, 0.5, 0.9))
+    exl = g.exact.long()
+    assert bool((got.state[exl] == ps.EXACT).all())
+    assert bool((got.mean[exl] == 1.0).all() and (got.std[exl] == 0.0).all())
+    assert bool((got.win[torch.isin(g.tid, g.exact)] == ps.WALK_SKIP).all())
 
 
 @pytest.mark.cuda
