@@ -6,7 +6,7 @@ distribution.
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught), run in the order
-1, 2, 3, 3b, 3c, 3d, 3e, 4, 5, 4b, 6, 4c, 6f, 7, 8, 9, 10:
+1, 2, 3, 3b, 3c, 3d, 3e, 4, 5, 4b, 6, 4c, 6f, 7, 8, 9, 11, 12, 10:
   1. print the card (nvidia-smi name, power limit) and build the eighteen
      hand-written kernels from the sources under src/repro_torch/kernels/
      (four libraries, one nvcc per source, all started together);
@@ -21,7 +21,9 @@ Phases (any failure exits non-zero; nothing is caught), run in the order
      each of its three layouts (a block's shared memory, a cluster's,
      global memory), blockwise quantization
      (single calls and groups: mixed ranks and types, unaligned views,
-     other blocks, .5 boundaries, a group longer than one launch takes)
+     other blocks, .5 boundaries, a group longer than one launch takes;
+     quantize_kv at TinyLlama-1.1B's per-layer KV cache, head dimension 64
+     in a block of 128)
      and blockwise dequantization (float32 and bfloat16 output; single
      calls and groups, one of them longer than one launch takes)
      bit-equal;
@@ -216,6 +218,25 @@ Phases (any failure exits non-zero; nothing is caught), run in the order
      `generate_candidates`' estimation targets those phase 3 planned; 11e the walk with exact start ids bit-equal to
      `planner_walk_plain` on the card; its launches join the advisor
      kernels' records (`launches_by_phase["11"]`);
+  12. the statement-at-a-time oracle paths at SF1 (`phase_12`, module
+     level, right after phase 11 on phase 3's workload, budget, numpy and
+     torch/cuda recommendations and card estimates, and phase 3c's numpy
+     staged recommendation), each run a torch/cuda `recommend` with one
+     `AdvisorOptions` switch off and its launches counted: 12a
+     `use_batched_planner=False`, the scalar §5.2 greedy's plan identical
+     to the numpy engine's, its equal-p ties against phase 3's card walk
+     counted, the recommendation identical to phase 3's torch/cuda one
+     where there are none; 12b `use_batched_estimation=False`, every
+     SAMPLED node's host `sample_cf` `==` phase 3's batched card estimate
+     (the NS and LDICT kernels against the scalar oracle), the
+     recommendation identical to phase 3's; 12c `use_engine=False`, the
+     float64 scalar enumeration: numpy's configuration or an equal-cost
+     tie, the cost within rel 1e-12 of numpy's, the steps beside numpy's
+     and torch/cuda's; 12d all three off, then `staged_recommend(
+     use_engine=False)` with 3c's five codecs, held to numpy's the same
+     way; each run's seconds, steps and launches; the phase fails beyond
+     30 s; its launches join the advisor kernels' records
+     (`launches_by_phase["12"]`);
   10. the non-dense families trained on the card (`phase_10`, module
      level), every earlier model and the SF1 schema freed: 10a
      granite-moe-3b-a800m at its published size (3.374 B parameters)
@@ -2337,6 +2358,189 @@ def phase_11(dev, schema, rec3_config, rec3_targets):
     return total
 
 
+# phase 12: the statement-at-a-time oracle paths at SF1
+SCALAR_REL = 1e-12               # 12c, 12d: scalar cost vs the numpy engine's
+PHASE_12_LIMIT_S = 30.0          # 12a-12d together, seconds of host time
+ALL_SCALAR = dict(use_engine=False, use_batched_estimation=False,
+                  use_batched_planner=False)
+
+
+def phase_12(dev, wl, budget, rec3_t, rec3_n, price3_n, est3, rec3c_n):
+    """Phase 12: the reference's statement-at-a-time paths beside the
+    batched ones at SF1, on phase 3's workload `wl` and `budget`, every
+    run on backend="torch", device="cuda" with its launches counted.
+    `rec3_t` / `rec3_n` are phase 3's torch/cuda and numpy
+    recommendations, `price3_n` the numpy pipeline's cost oracle,
+    `est3` phase 3's batched card estimates ({NodeKey: SizeEstimate}),
+    `rec3c_n` phase 3c's numpy staged recommendation (with FIVE).  12a `use_batched_planner=False`: the scalar greedy's plan
+    identical to the numpy engine's (states, deductions, RVs, f, total
+    cost), its node labels against phase 3's card walk (equal-p ties
+    counted), the recommendation identical to phase 3's torch/cuda one
+    where there are no ties; 12b `use_batched_estimation=False`: each
+    SAMPLED node's host `sample_cf` estimate `==` phase 3's card estimate,
+    the recommendation identical to phase 3's; 12c `use_engine=False`: the
+    float64 scalar enumeration, its configuration phase 3's numpy one or
+    an equal-cost tie, its cost within rel SCALAR_REL of numpy's, its
+    steps beside numpy's and torch/cuda's; 12d all three off, then
+    `staged_recommend(use_engine=False)` with 3c's five codecs, each held
+    to numpy's in the same way.  Fails beyond PHASE_12_LIMIT_S.  Returns
+    the phase's launch counts."""
+    from repro_torch import core as pt
+    from repro_torch.core import estimation_graph as eg
+    from repro_torch.core.planner_engine import assert_plan_identical
+
+    t_phase = time.perf_counter()
+    total = {}
+    e = pt.AdvisorOptions(backend="numpy").e
+
+    def labels(rec):
+        return sorted(i.label() for i in rec.config.indexes)
+
+    def same_rec(label, got, want):
+        if (labels(got), got.cost, got.used_bytes) != \
+                (labels(want), want.cost, want.used_bytes):
+            fail(f"{label}: the recommendation differs from phase 3's "
+                 f"torch/cuda one: cost {float(got.cost)!r} vs "
+                 f"{float(want.cost)!r}, used bytes "
+                 f"{float(got.used_bytes)!r} vs {float(want.used_bytes)!r}")
+
+    def near_numpy(label, got, want, prices):
+        """Phase 3's rule against numpy: the same configuration or an
+        equal-cost tie by `prices` (the numpy pipeline's costs of both
+        configurations); the cost within rel SCALAR_REL."""
+        if labels(got) != labels(want):
+            judged, mine = prices(got.config, want.config)
+            print(f"{label}: configs differ from numpy's; numpy prices the "
+                  f"scalar config at {judged!r} vs its own {mine!r}")
+            if not math.isclose(judged, mine, rel_tol=1e-6):
+                fail(f"{label}: configurations differ and are not an "
+                     "equal-cost tie")
+        if abs(got.cost - want.cost) > SCALAR_REL * abs(want.cost):
+            fail(f"{label}: cost {float(got.cost)!r} beyond rel "
+                 f"{SCALAR_REL} of numpy's {float(want.cost)!r}")
+
+    def price3(*configs):
+        return [price3_n(c) for c in configs]
+
+    def staged_prices(*configs):
+        # phase 3c's judge: the numpy pipeline sizes every compressed
+        # index of the configurations at once, then its engine prices them
+        judge = pt.DesignAdvisor(wl, pt.AdvisorOptions(backend="numpy",
+                                                       methods=FIVE))
+        judge.estimate_sizes([i for c in configs for i in c.indexes])
+        engine = judge.build_engine()
+        return [engine.config_cost(c) for c in configs]
+
+    def run(label, **switches):
+        opts = pt.AdvisorOptions(backend="torch", device=dev.type,
+                                 **switches)
+        rec, secs, launches = counted(
+            lambda: pt.DesignAdvisor(wl, opts).recommend(budget), total)
+        print(f"{label}: {json.dumps(switches)}: {secs:.3f} s, "
+              f"{len(rec.steps)} steps, cost {float(rec.cost)!r}, used bytes "
+              f"{float(rec.used_bytes)!r}, plan f={rec.estimation_plan.f} "
+              f"sampled={rec.n_sampled} deduced={rec.n_deduced}; launches "
+              f"{json.dumps(launches)}")
+        return rec, secs, launches
+
+    def kernels_ran(label, launches, walk, codecs):
+        """The walk's launches as expected, and codec launches or none."""
+        ran = sum(launches.get(n, 0) for n in CODECS)
+        if launches.get("planner_walk", 0) != walk or (ran > 0) != codecs:
+            fail(f"{label}: launches {launches}: expected {walk} walk(s) "
+                 f"and {'some' if codecs else 'no'} codec launches")
+
+    # ---- 12a: the scalar §5.2 planner --------------------------------
+    rec_a, secs_a, launches = run("phase 12a", use_batched_planner=False)
+    kernels_ran("phase 12a", launches, 0, True)
+    try:
+        assert_plan_identical(rec3_n.estimation_plan, rec_a.estimation_plan)
+    except AssertionError as err:
+        fail(f"phase 12a: the scalar plan differs from the numpy "
+             f"engine's: {err}")
+    if list(rec_a.estimation_plan.nodes) != \
+            list(rec3_n.estimation_plan.nodes):
+        fail("phase 12a: the scalar plan's node order differs from numpy's")
+    ties = plans_match(rec3_t.estimation_plan, rec_a.estimation_plan, e,
+                       "phase 12a")
+    print(f"phase 12a: the scalar plan == the numpy engine's "
+          f"({len(rec_a.estimation_plan.nodes)} nodes); {ties} node labels "
+          f"differ from phase 3's card walk plan (equal-p ties)")
+    if ties == 0:
+        same_rec("phase 12a", rec_a, rec3_t)
+        print("phase 12a: recommendation identical to phase 3's torch/cuda")
+
+    # ---- 12b: per-node SampleCF on the host --------------------------
+    scalar_ests = {}
+    execute_scalar = eg.EstimationPlanner.execute_scalar
+
+    def keeping(self, plan, manager):
+        out = execute_scalar(self, plan, manager)
+        scalar_ests.update(out)
+        return out
+    eg.EstimationPlanner.execute_scalar = keeping
+    try:
+        rec_b, secs_b, launches = run("phase 12b",
+                                      use_batched_estimation=False)
+    finally:
+        eg.EstimationPlanner.execute_scalar = execute_scalar
+    kernels_ran("phase 12b", launches, 1, False)
+    sampled = [k for k, n in rec_b.estimation_plan.nodes.items()
+               if n.state is eg.State.SAMPLED]
+    if not sampled:
+        fail("phase 12b: the plan samples no node")
+    by_method = {}
+    for k in sampled:
+        got, want = scalar_ests[k], est3.get(k)
+        if want is None or (got.est_bytes, got.cf, got.cost_pages) != \
+                (want.est_bytes, want.cf, want.cost_pages):
+            fail(f"phase 12b: {k.label()}: host sample_cf "
+                 f"{got.est_bytes!r} B != phase 3's card estimate "
+                 f"{None if want is None else want.est_bytes!r} B")
+        by_method[k.method] = by_method.get(k.method, 0) + 1
+    print(f"phase 12b: {len(sampled)} SAMPLED nodes at f="
+          f"{rec_b.estimation_plan.f}, each host sample_cf == phase 3's "
+          f"card estimate (by method {json.dumps(by_method)})")
+    same_rec("phase 12b", rec_b, rec3_t)
+    print("phase 12b: recommendation identical to phase 3's torch/cuda")
+
+    # ---- 12c: the float64 scalar enumeration -------------------------
+    rec_c, secs_c, launches = run("phase 12c", use_engine=False)
+    kernels_ran("phase 12c", launches, 1, True)
+    near_numpy("phase 12c", rec_c, rec3_n, price3)
+    tie = "==" if labels(rec_c) == labels(rec3_n) else "an equal-cost tie of"
+    print(f"phase 12c: config {tie} numpy's, cost {float(rec_c.cost)!r} vs "
+          f"numpy {float(rec3_n.cost)!r} (rel "
+          f"{abs(rec_c.cost - rec3_n.cost) / abs(rec3_n.cost):.3g}); steps "
+          f"scalar {len(rec_c.steps)}, numpy {len(rec3_n.steps)}, "
+          f"torch/cuda {len(rec3_t.steps)}")
+
+    # ---- 12d: all three off, then the staged baseline ----------------
+    rec_d, secs_d, launches = run("phase 12d", **ALL_SCALAR)
+    kernels_ran("phase 12d", launches, 0, False)
+    near_numpy("phase 12d", rec_d, rec3_n, price3)
+    if rec_d.steps != rec_c.steps:
+        print(f"phase 12d: steps differ from 12c's ({len(rec_d.steps)} vs "
+              f"{len(rec_c.steps)})")
+    opts = pt.AdvisorOptions(backend="torch", device=dev.type,
+                             use_engine=False)
+    rec_s, secs_s, launches = counted(lambda: pt.staged_recommend(
+        wl, budget, methods=FIVE, options=opts), total)
+    kernels_ran("phase 12d staged", launches, 1, True)
+    near_numpy("phase 12d staged", rec_s, rec3c_n, staged_prices)
+    print(f"phase 12d staged: use_engine=False, methods {FIVE}: "
+          f"{secs_s:.3f} s, cost {float(rec_s.cost)!r} vs numpy "
+          f"{float(rec3c_n.cost)!r}, used bytes {float(rec_s.used_bytes)!r}; "
+          f"launches {json.dumps(launches)}")
+    secs = time.perf_counter() - t_phase
+    print(f"phase 12: {secs:.3f} s (runs: 12a {secs_a:.3f}, 12b "
+          f"{secs_b:.3f}, 12c {secs_c:.3f}, 12d {secs_d:.3f}, staged "
+          f"{secs_s:.3f}); launches {json.dumps(total)}")
+    if secs > PHASE_12_LIMIT_S:
+        fail(f"phase 12 took {secs:.3f} s, beyond {PHASE_12_LIMIT_S} s")
+    return total
+
+
 # phase 10: training the remaining families on the card
 # 10a: granite-moe-3b-a800m at its published size through the launcher, at
 # phase 6's batch and context
@@ -3164,6 +3368,22 @@ def main() -> int:
     if qb.quantize_blockwise(f32(half))[0][0, 1:9].tolist() != \
             [0, 2, 2, 0, -2, -2, 126, -126]:
         fail("quantize_blockwise does not round half to even")
+    # quantize_kv at TinyLlama-1.1B's per-layer KV cache (phase 5's slots
+    # and length, its KV heads and head dimension): each head row is one
+    # block of 128 with 64 masked, as the JAX package zero-pads it
+    from repro_torch.configs import get_config
+    lm_cfg = get_config(LM_ARCH)
+    kv = f32(np.random.default_rng(31).standard_normal(
+        (LM_SLOTS, LM_MAX_LEN, lm_cfg.n_kv_heads, lm_cfg.d_head)) * 2)
+    kv_q, kv_s = qb.quantize_kv(kv)
+    kv_qp, kv_sp = qb.quantize_blockwise_plain(kv)
+    torch.cuda.synchronize()
+    if not (torch.equal(kv_q, kv_qp) and bit_equal(kv_s, kv_sp)) or \
+            kv_s.shape[-1] != 1:
+        fail("quantize_kv != plain at TinyLlama-1.1B's KV shape")
+    print(f"LM kernels: quantize_kv bit-equal to plain at {tuple(kv.shape)}"
+          f" (block {qb.DEFAULT_BLOCK}, head dimension {lm_cfg.d_head})")
+    del kv, kv_q, kv_s, kv_qp, kv_sp
 
     # grouped quantization, bit-equal to plain in one launch per
     # group_capacity() items: a mixed list (ranks 1-4, ragged last blocks,
@@ -3495,8 +3715,20 @@ def main() -> int:
         return secs
 
     opts = pt.AdvisorOptions(backend="torch", device="cuda")
-    rec_t, wall_t, launches3 = walked(
-        "phase 3", lambda: pt.DesignAdvisor(wl, opts).recommend(budget))
+    # the run's batched card estimates, kept for phase 12b
+    est3 = {}
+    execute = pt.EstimationPlanner.execute
+
+    def keeping(self, plan, engine):
+        out = execute(self, plan, engine)
+        est3.update(out)
+        return out
+    pt.EstimationPlanner.execute = keeping
+    try:
+        rec_t, wall_t, launches3 = walked(
+            "phase 3", lambda: pt.DesignAdvisor(wl, opts).recommend(budget))
+    finally:
+        pt.EstimationPlanner.execute = execute
     need_launches("phase 3", launches3, ("ns_bytes", "ldict_bytes",
                                          "planner_walk"))
     check_walk("phase 3")
@@ -3560,17 +3792,17 @@ def main() -> int:
     need_launches("phase 3c", launches3c, ("planner_walk",))
     check_walk("phase 3c")
     t0 = time.perf_counter()
-    rec_sn = pt.staged_recommend(wl, budget, methods=FIVE,
-                                 options=pt.AdvisorOptions(backend="numpy"))
-    wall_sn = time.perf_counter() - t0
+    staged_n = pt.staged_recommend(wl, budget, methods=FIVE,
+                                   options=pt.AdvisorOptions(backend="numpy"))
+    wall_stn = time.perf_counter() - t0
     for label, rec, wall in (("torch/cuda", rec_st, wall_st),
-                             ("numpy", rec_sn, wall_sn)):
+                             ("numpy", staged_n, wall_stn)):
         print(f"staged {label}: {wall:.3f} s; cost={rec.cost!r} "
               f"used_bytes={rec.used_bytes!r}; "
               f"{len(rec.config.indexes)} indexes")
-    if not math.isclose(rec_st.cost, rec_sn.cost, rel_tol=1e-6):
+    if not math.isclose(rec_st.cost, staged_n.cost, rel_tol=1e-6):
         fail(f"phase 3c: cost differs beyond rtol 1e-6: {rec_st.cost!r} vs "
-             f"{rec_sn.cost!r}")
+             f"{staged_n.cost!r}")
 
     def staged_price(config):
         # the numpy pipeline's sizes for every compressed index of both
@@ -3578,9 +3810,9 @@ def main() -> int:
         judge = pt.DesignAdvisor(wl, pt.AdvisorOptions(backend="numpy",
                                                        methods=FIVE))
         judge.estimate_sizes(list(rec_st.config.indexes)
-                             + list(rec_sn.config.indexes))
+                             + list(staged_n.config.indexes))
         return judge.build_engine().config_cost(config)
-    judge_config("phase 3c", rec_st, rec_sn, staged_price)
+    judge_config("phase 3c", rec_st, staged_n, staged_price)
 
     # ---- phase 3d: the online session at SF1 ---------------------------
     # each round of a session held to a fresh torch/cuda recommend on the
@@ -5172,8 +5404,17 @@ def main() -> int:
         rec["launches_by_phase"]["11"] = n11
         rec["launches"] += n11
 
+    # ---- phase 12: the statement-at-a-time oracle paths at SF1 ----------
+    launches12 = phase_12(dev, wl, budget, rec_t, rec_n,
+                          adv_n.build_engine().config_cost, est3, staged_n)
+    for rec in records:
+        n12 = launches12.get(rec["name"], 0)
+        rec["launches_by_phase"]["12"] = n12
+        rec["launches"] += n12
+
     # ---- phase 10: training the remaining families on the card ----------
-    del schema, rec_t, launches9, extras9, launches11
+    del schema, rec_t, launches9, extras9, launches11, launches12, est3, \
+        adv_n, rec_n, staged_n
     launches10 = phase_10(dev)
     for rec in records:
         if rec["name"] in launches10:

@@ -27,7 +27,8 @@ from .synopses import ForeignKey, MVDef, Schema, SynopsisManager
 from .whatif import Configuration, SizeProvider, WhatIfOptimizer, \
     base_configuration, storage_used
 from .workload import BulkInsert, Query, Workload, WorkloadDelta, \
-    make_scaled_workload, make_tpch_like, make_tpch_workload
+    make_scaled_workload, make_scaled_workload_reference, make_tpch_like, \
+    make_tpch_workload
 from .workload_compression import ClusterIndex, CompressedWorkload, \
     compress_workload
 
@@ -48,7 +49,7 @@ __all__ = [
     "Configuration", "SizeProvider", "WhatIfOptimizer",
     "base_configuration", "storage_used",
     "BulkInsert", "Query", "Workload", "WorkloadDelta",
-    "make_scaled_workload",
+    "make_scaled_workload", "make_scaled_workload_reference",
     "make_tpch_like", "make_tpch_workload",
     "ClusterIndex", "CompressedWorkload", "compress_workload",
 ]

@@ -18,6 +18,15 @@ card, with the hand-written kernels; `device="cpu"` runs their plain
 PyTorch versions; `backend="numpy"` is the float64 host path, equal to the
 JAX package's numpy backend.
 
+Three switches, all on by default, each move ONE phase to its
+statement-at-a-time reference on the host (float64 Python and NumPy,
+whatever the backend), as the caller's explicit choice:
+`use_batched_planner=False` plans with the scalar §5.2 greedy,
+`use_batched_estimation=False` runs one `sample_cf` per SAMPLED node, and
+`use_engine=False` costs candidates and enumerates with the
+`WhatIfOptimizer` (`greedy_enumerate_scalar`).  Every other phase stays on
+the backend's device.
+
 Large workloads: `AdvisorOptions.compression_budget = N` advises on at
 most ~N weighted representative statements instead of the raw workload
 (`repro_torch.core.workload_compression`), and the Recommendation carries
@@ -35,7 +44,8 @@ from . import candidates as cand
 from .backend import resolve_device
 from .compression import DEFAULT_ADVISOR_METHODS
 from .cost_engine import CostEngine
-from .enumeration import EnumerationResult, greedy_enumerate
+from .enumeration import (EnumerationResult, greedy_enumerate,
+                          greedy_enumerate_scalar)
 from .estimation_engine import EstimationEngine
 from .estimation_graph import EstimationPlanner, NodeKey, Plan
 from .relation import IndexDef
@@ -66,6 +76,10 @@ class AdvisorOptions:
     sample_seed: int = 0
     backend: str = "torch"                 # "torch" | "numpy"
     device: str = "cuda"                   # torch backend: "cuda" | "cpu"
+    use_engine: bool = True                # batched cost engine (else the
+                                           # WhatIfOptimizer's scalar path)
+    use_batched_estimation: bool = True    # batched SampleCF (§4-§5)
+    use_batched_planner: bool = True       # batched §5.2 planner engine
     # advise on <= ~N weighted representatives (workload compression);
     # None disables, and budget >= n_statements is an exact bypass
     compression_budget: Optional[int] = None
@@ -112,13 +126,20 @@ def pool_with_merged(pool: Dict[Tuple, IndexDef],
 
 def enumerate_pool(sizes: SizeProvider, options: AdvisorOptions,
                    pool: Dict[Tuple, IndexDef], base: Configuration,
-                   budget_bytes: float,
-                   engine: CostEngine) -> EnumerationResult:
-    """§6.2 greedy enumeration over the selected pool; shared by the
-    one-shot advisor and the online session (their bit-exact parity
-    depends on running the same code here)."""
-    return greedy_enumerate(engine, sizes, list(pool.values()), base,
-                            budget_bytes, variant=options.enumeration)
+                   budget_bytes: float, engine: Optional[CostEngine],
+                   optimizer: Optional[WhatIfOptimizer] = None
+                   ) -> EnumerationResult:
+    """§6.2 greedy enumeration over the selected pool: the batched greedy
+    on `engine`, or the scalar greedy over `optimizer` where `engine` is
+    None (`use_engine=False`); shared by the one-shot advisor and the
+    online session (their bit-exact parity depends on running the same
+    code here)."""
+    if engine is not None:
+        return greedy_enumerate(engine, sizes, list(pool.values()), base,
+                                budget_bytes, variant=options.enumeration)
+    return greedy_enumerate_scalar(optimizer, sizes, list(pool.values()),
+                                   base, budget_bytes,
+                                   variant=options.enumeration)
 
 
 @dataclasses.dataclass
@@ -162,7 +183,8 @@ class DesignAdvisor:
         self.device = resolve_device(self.opt.backend, self.opt.device)
         self.sizes = SizeProvider(self.schema)
         # statement-at-a-time what-if costs over the advisor's sizes (the
-        # pipeline itself costs through `build_engine`)
+        # pipeline costs through `build_engine`, or through this optimizer
+        # with `use_engine=False`)
         self.optimizer = WhatIfOptimizer(workload, self.sizes, self.device)
         self.samples = SampleManager(self.schema.tables,
                                      seed=self.opt.sample_seed)
@@ -241,6 +263,7 @@ class DesignAdvisor:
         if not targets:
             return 0.0, None, 0, 0
         planner = EstimationPlanner(self.schema.tables, device=self.device,
+                                    use_engine=self.opt.use_batched_planner,
                                     record=False)
         if self.opt.use_deduction:
             plan = planner.plan(targets, self.opt.e, self.opt.q)
@@ -248,9 +271,11 @@ class DesignAdvisor:
             # "All": SampleCF on every target (the paper's baseline)
             plan = planner.plan_all_sampled(targets, self.opt.e, self.opt.q)
         t1 = time.perf_counter()
-        engine = EstimationEngine(self.schema.tables, self.samples,
-                                  device=self.device)
-        ests = planner.execute(plan, engine)
+        if self.opt.use_batched_estimation:
+            ests = planner.execute(plan, EstimationEngine(
+                self.schema.tables, self.samples, device=self.device))
+        else:
+            ests = planner.execute_scalar(plan, self.samples)
         # execute() also resolves intermediate plan nodes; only register
         # sizes for defs that were actually requested as targets.
         for k, est in ests.items():
@@ -262,15 +287,19 @@ class DesignAdvisor:
         return plan.total_cost, plan, plan.n_sampled(), plan.n_deduced()
 
     # ------------------------------------------------------------------
-    def build_engine(self) -> CostEngine:
-        """The batched what-if engine over the current sizes.  Built after
-        size estimation so every compressed candidate is scored with its
-        estimated size."""
+    def build_engine(self) -> Optional[CostEngine]:
+        """The batched what-if engine over the current sizes (None with
+        `use_engine=False`: the pipeline then costs through
+        `self.optimizer`).  Built after size estimation so every
+        compressed candidate is scored with its estimated size."""
+        if not self.opt.use_engine:
+            return None
         return CostEngine(self.workload, self.sizes, device=self.device)
 
     def select_pool(self, per_query_exp: Dict[str, List[IndexDef]],
                     merged_all: Sequence[IndexDef], base: Configuration,
-                    engine: CostEngine) -> Tuple[Dict[Tuple, IndexDef], int]:
+                    engine: Optional[CostEngine]
+                    ) -> Tuple[Dict[Tuple, IndexDef], int]:
         """Per-query candidate costing + §6.1 selection; merged candidates
         enter the pool directly (Figure 1: Merging sits between candidate
         selection and enumeration)."""
@@ -278,7 +307,8 @@ class DesignAdvisor:
         n_cand = 0
         for q in self.workload.queries():
             costed = cand.cost_candidates(q, per_query_exp[q.name], base,
-                                          self.sizes, engine)
+                                          self.sizes, engine,
+                                          optimizer=self.optimizer)
             n_cand += len(costed)
             for c in select_candidates(costed, self.opt):
                 pool.setdefault(c.index.key, c.index)
@@ -286,10 +316,10 @@ class DesignAdvisor:
 
     def enumerate_pool(self, pool: Dict[Tuple, IndexDef],
                        base: Configuration, budget_bytes: float,
-                       engine: CostEngine) -> EnumerationResult:
+                       engine: Optional[CostEngine]) -> EnumerationResult:
         """§6.2 greedy enumeration over the selected pool."""
         return enumerate_pool(self.sizes, self.opt, pool, base,
-                              budget_bytes, engine)
+                              budget_bytes, engine, self.optimizer)
 
     def _recommend_full(self, budget_bytes: float) -> Recommendation:
         """The uncompressed pipeline (every statement advised directly)."""
@@ -303,7 +333,8 @@ class DesignAdvisor:
 
         t2 = time.perf_counter()
         engine = self.build_engine()
-        base_cost = engine.config_cost(base)
+        base_cost = (engine.config_cost(base) if engine is not None
+                     else self.optimizer.workload_cost(base))
         pool, n_cand = self.select_pool(per_query_exp, merged_all, base,
                                         engine)
         t3 = time.perf_counter()
@@ -363,19 +394,23 @@ def staged_recommend(workload: Workload, budget_bytes: float,
     footprint.
 
     Stage 1 inherits the caller's (e, q), sample seed, clustered-candidate
-    switch, backend and device; stage 2 plans the compressed sizes at the
-    caller's (e, q) and runs their SampleCF on the advisor's device, so on
-    the card PREFIX / RLE / LDICT / NS sizes come from the kernels.  (The
-    JAX package's stage 2 runs SampleCF on NumPy whatever its backend; the
-    sizes are the same integers either way.)  The recompression loop is
-    costed by the batched `CostEngine.config_cost`."""
+    switch, backend, device and the three `use_*` switches; stage 2 plans
+    the compressed sizes at the caller's (e, q) and runs their SampleCF on
+    the advisor's device, so on the card PREFIX / RLE / LDICT / NS sizes
+    come from the kernels.  (The JAX package's stage 2 runs SampleCF on
+    NumPy whatever its backend; the sizes are the same integers either
+    way.)  The recompression loop is costed by the batched
+    `CostEngine.config_cost`, or with `use_engine=False` by stage 1's
+    `WhatIfOptimizer.workload_cost`."""
     opt = options or AdvisorOptions()
     if methods is None:
         methods = opt.methods
     stage1 = AdvisorOptions.dta(
         e=opt.e, q=opt.q, sample_seed=opt.sample_seed,
         include_clustered=opt.include_clustered, backend=opt.backend,
-        device=opt.device)
+        device=opt.device, use_engine=opt.use_engine,
+        use_batched_estimation=opt.use_batched_estimation,
+        use_batched_planner=opt.use_batched_planner)
     adv = DesignAdvisor(workload, stage1)
     rec = adv.recommend(budget_bytes)
     # stage 2: size the compressed variants of every chosen secondary index
@@ -386,16 +421,23 @@ def staged_recommend(workload: Workload, budget_bytes: float,
                if i.compression is not None]
     if targets:
         planner = EstimationPlanner(adv.schema.tables, device=adv.device,
+                                    use_engine=opt.use_batched_planner,
                                     record=False)
         plan = planner.plan(targets, opt.e, opt.q)
-        engine = EstimationEngine(adv.schema.tables, adv.samples,
-                                  device=adv.device)
-        for k, est in planner.execute(plan, engine).items():
+        if opt.use_batched_estimation:
+            ests = planner.execute(plan, EstimationEngine(
+                adv.schema.tables, adv.samples, device=adv.device))
+        else:
+            ests = planner.execute_scalar(plan, adv.samples)
+        for k, est in ests.items():
             sizes.register(IndexDef(k.table, k.cols, k.method),
                            est.est_bytes)
     # the recompression loop's cost oracle, built AFTER the compressed
     # sizes are registered so variants score with their estimated sizes
-    cost_fn = CostEngine(workload, sizes, device=adv.device).config_cost
+    if opt.use_engine:
+        cost_fn = CostEngine(workload, sizes, device=adv.device).config_cost
+    else:
+        cost_fn = adv.optimizer.workload_cost
     config = rec.config
     for idx in chosen:
         best = (cost_fn(config), config)

@@ -11,10 +11,10 @@ with the what-if optimizer, and then select either:
 from __future__ import annotations
 
 import dataclasses
-from typing import TYPE_CHECKING, Dict, List, Sequence, Tuple
+from typing import TYPE_CHECKING, Dict, List, Optional, Sequence, Tuple
 
 from .relation import IndexDef, Table
-from .whatif import Configuration, SizeProvider
+from .whatif import Configuration, SizeProvider, WhatIfOptimizer
 from .workload import Query
 
 if TYPE_CHECKING:  # pragma: no cover - typing only, avoids an import cycle
@@ -74,15 +74,26 @@ def expand_with_compression(indexes: Sequence[IndexDef],
 
 def cost_candidates(query: Query, cands: Sequence[IndexDef],
                     base: Configuration, sizes: SizeProvider,
-                    engine: "CostEngine",
-                    precomputed=None) -> List[Candidate]:
-    """Cost each single-index configuration for `query`: the whole
-    candidate list is scored in one vectorized `CostEngine` pass.
+                    engine: Optional["CostEngine"] = None,
+                    precomputed=None,
+                    optimizer: Optional[WhatIfOptimizer] = None
+                    ) -> List[Candidate]:
+    """Cost each single-index configuration for `query`: with `engine`,
+    the whole candidate list is scored in one vectorized `CostEngine`
+    pass; without it, `optimizer.statement_cost` prices each candidate's
+    configuration (the base plus the candidate, a clustered candidate
+    replacing the table's clustered layout) in float64 on the host.
     `precomputed` (an array aligned with `cands`, prefetched by the caller)
     short-circuits the engine call; the caller owns the contract that it
     holds exactly the values the engine would return."""
-    costs = (precomputed if precomputed is not None
-             else engine.candidate_query_costs(query, base, cands))
+    if precomputed is not None:
+        costs = precomputed
+    elif engine is not None:
+        costs = engine.candidate_query_costs(query, base, cands)
+    elif optimizer is None:
+        raise ValueError("cost_candidates needs an engine or an optimizer")
+    else:
+        costs = None
     out = []
     for k, idx in enumerate(cands):
         if idx.clustered:
@@ -91,7 +102,15 @@ def cost_candidates(query: Query, cands: Sequence[IndexDef],
             size = sizes.size(idx) - (sizes.size(old) if old else 0.0)
         else:
             size = sizes.size(idx)
-        out.append(Candidate(index=idx, size=size, cost=float(costs[k])))
+        if costs is not None:
+            cost = float(costs[k])
+        elif idx.clustered:
+            old = base.clustered(idx.table)
+            cfg = base.replace(old, idx) if old else base.add(idx)
+            cost = optimizer.statement_cost(query, cfg)
+        else:
+            cost = optimizer.statement_cost(query, base.add(idx))
+        out.append(Candidate(index=idx, size=size, cost=cost))
     return out
 
 

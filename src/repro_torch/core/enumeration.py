@@ -12,10 +12,15 @@ Three variants:
 Clustered candidates replace the table's current clustered layout instead of
 being added alongside it.
 
-The greedy drives a repro_torch.core.cost_engine.CostEngine and scores the
-whole pool per greedy step with a few vectorized ops, using incremental
-delta evaluation — a candidate on table T only re-evaluates statements on
-T.  The JAX package's statement-at-a-time scalar reference is not ported.
+Two execution paths:
+
+* `greedy_enumerate` drives a repro_torch.core.cost_engine.CostEngine and
+  scores the whole pool per greedy step with a few vectorized ops, using
+  incremental delta evaluation — a candidate on table T only re-evaluates
+  statements on T;
+* `greedy_enumerate_scalar` is the statement-at-a-time reference: each
+  candidate configuration is priced by a `WhatIfOptimizer`, in float64 on
+  the host.
 """
 from __future__ import annotations
 
@@ -26,7 +31,8 @@ import numpy as np
 
 from .cost_engine import CostEngine, TableEval
 from .relation import IndexDef
-from .whatif import Configuration, SizeProvider, storage_used
+from .whatif import (Configuration, SizeProvider, WhatIfOptimizer,
+                     storage_used)
 
 
 @dataclasses.dataclass
@@ -51,6 +57,17 @@ def _variants_of(idx: IndexDef, pool: Sequence[IndexDef]) -> List[IndexDef]:
             and p.clustered == idx.clustered and p.predicate == idx.predicate
             and p.compression != idx.compression
             and p.compression is not None]
+
+
+def _already_present(config: Configuration, idx: IndexDef) -> bool:
+    """An index of the configuration has idx's table, columns, predicate
+    and clustering (any method)."""
+    for i in config.indexes:
+        if (i.table == idx.table and i.cols == idx.cols
+                and i.predicate == idx.predicate
+                and i.clustered == idx.clustered):
+            return True
+    return False
 
 
 MAX_STEPS = 64                  # greedy steps taken at most
@@ -223,6 +240,76 @@ def greedy_enumerate(engine: CostEngine, sizes: SizeProvider,
                              steps=steps)
 
 
+def greedy_enumerate_scalar(optimizer: WhatIfOptimizer, sizes: SizeProvider,
+                            pool: Sequence[IndexDef], base: Configuration,
+                            budget_bytes: float, variant: str = "backtrack",
+                            max_indexes: int = MAX_STEPS
+                            ) -> EnumerationResult:
+    """The statement-at-a-time greedy: every step prices each candidate's
+    configuration with `optimizer.workload_cost` (float64, on the host)
+    and takes the best by `variant`'s rule, `greedy_enumerate`'s choices
+    and costs up to the summation order."""
+    if variant not in ("pure", "density", "backtrack"):
+        raise ValueError(f"unknown enumeration variant {variant!r}")
+    config = base
+    cost = optimizer.workload_cost(config)
+    steps: List[str] = []
+
+    for _ in range(max_indexes):
+        used = storage_used(config, base, sizes)
+        best_feasible: Optional[Tuple[float, IndexDef, Configuration]] = None
+        best_any: Optional[Tuple[float, IndexDef, Configuration]] = None
+
+        for idx in pool:
+            if _already_present(config, idx):
+                continue
+            cfg2 = _apply(config, idx)
+            used2 = storage_used(cfg2, base, sizes)
+            cost2 = optimizer.workload_cost(cfg2)
+            benefit = cost - cost2
+            if benefit <= 1e-9:
+                continue
+            delta_size = max(used2 - used, 1.0)
+            score = benefit / delta_size if variant == "density" else benefit
+            entry = (score, idx, cfg2)
+            if used2 <= budget_bytes:
+                if best_feasible is None or score > best_feasible[0]:
+                    best_feasible = entry
+            if best_any is None or score > best_any[0]:
+                best_any = entry
+
+        chosen: Optional[Tuple[IndexDef, Configuration]] = None
+        if variant == "backtrack" and best_any is not None and (
+                best_feasible is None or best_any[1] != best_feasible[1]):
+            # The greedy-best choice is oversized: attempt recovery by
+            # swapping members for compressed variants (Figure 8).
+            recovered = _recover_oversized(
+                best_any[2], base, pool, sizes, optimizer.workload_cost,
+                budget_bytes)
+            cand_cost = optimizer.workload_cost(recovered) \
+                if recovered is not None else float("inf")
+            feas_cost = optimizer.workload_cost(best_feasible[2]) \
+                if best_feasible is not None else float("inf")
+            if recovered is not None and cand_cost < min(feas_cost, cost):
+                chosen = (best_any[1], recovered)
+                steps.append(f"backtrack-recovered via {best_any[1].label()}")
+            elif best_feasible is not None:
+                chosen = (best_feasible[1], best_feasible[2])
+        elif best_feasible is not None:
+            chosen = (best_feasible[1], best_feasible[2])
+
+        if chosen is None:
+            break
+        config = chosen[1]
+        new_cost = optimizer.workload_cost(config)
+        steps.append(f"add {chosen[0].label()}  cost {cost:.1f}->{new_cost:.1f}")
+        cost = new_cost
+
+    return EnumerationResult(config=config, cost=cost,
+                             used_bytes=storage_used(config, base, sizes),
+                             steps=steps)
+
+
 def _recover_oversized(config: Configuration, base: Configuration,
                        pool: Sequence[IndexDef], sizes: SizeProvider,
                        cost_fn: Callable[[Configuration], float],
@@ -231,7 +318,8 @@ def _recover_oversized(config: Configuration, base: Configuration,
 
     Considers replacing each index (including repeatedly, cheapest-cost-loss
     first) and returns the fastest configuration that fits, or None.
-    `cost_fn` prices a configuration (the engine's `config_cost`).
+    `cost_fn` prices a configuration (the engine's `config_cost` or the
+    optimizer's `workload_cost`).
     """
     best: Optional[Tuple[float, Configuration]] = None
     frontier = [config]

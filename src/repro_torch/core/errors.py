@@ -122,6 +122,15 @@ def goodman_fold(means: np.ndarray, stds: np.ndarray, axis: int = -1
     return e_prod, v_term, e2_term
 
 
+def compose_batch(means: np.ndarray, stds: np.ndarray, axis: int = -1
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """`compose` over stacks: Goodman's formula along `axis`, bit-identical
+    to folding the scalar `compose` over the factors in axis order."""
+    e_prod, v_term, e2_term = goodman_fold(means, stds, axis)
+    var = np.maximum(v_term - e2_term, 0.0)
+    return e_prod, np.sqrt(var)
+
+
 _SQRT2 = math.sqrt(2.0)
 # np.frompyfunc(math.erf) rather than scipy's erf: the numpy backend's
 # planner decisions must be bit-identical to the JAX package's numpy

@@ -13,6 +13,13 @@ batched SampleCF `EstimationEngine` (`execute_cached` estimates only the
 engine at one fraction, and `optimal` is the exponential Optimal
 recursion of Appendix D (host Python; the paper's quality yardstick,
 Table 4), which falls back to `greedy` where no plan meets the bound.
+
+Beside each batched path stands its statement-at-a-time oracle, float64
+Python on the host: `greedy_scalar` scores each (target, candidate) pair
+on its own (`EstimationPlanner(use_engine=False)` routes `greedy`, `plan`
+and `plan_all_sampled` through it), and `execute_scalar` runs one
+`samplecf.sample_cf` per SAMPLED node.  The batched paths' numpy
+backend is plan-identical and byte-identical to them.
 """
 from __future__ import annotations
 
@@ -26,7 +33,7 @@ from . import errors as err
 from .compression import METHODS
 from .estimation_engine import EstimationEngine
 from .relation import IndexDef, Table, uncompressed_pages
-from .samplecf import SizeEstimate
+from .samplecf import SampleManager, SizeEstimate, sample_cf
 
 F_GRID = (0.01, 0.025, 0.05, 0.075, 0.10)
 
@@ -201,18 +208,21 @@ class EstimationPlanner:
     cost and no error.  `device` selects the engine's scoring backend:
     None scores in float64 NumPy (bit-identical to the JAX package's
     numpy backend), a torch device with the float32 planner-score
-    kernels.  `record`, `max_nodes`, `max_replay` and `faults` go to the
-    engine: an online session's planner replays decisions across rounds
-    within those bounds (see `planner_engine`)."""
+    kernels.  `use_engine=False` plans with the scalar reference
+    `greedy_scalar` on the host instead, whatever the device.  `record`,
+    `max_nodes`, `max_replay` and `faults` go to the engine: an online
+    session's planner replays decisions across rounds within those
+    bounds (see `planner_engine`)."""
 
     def __init__(self, tables: Dict[str, Table],
                  existing: Optional[Dict[NodeKey, float]] = None,
-                 device=None, record: bool = False,
+                 device=None, use_engine: bool = True, record: bool = False,
                  max_nodes: Optional[int] = None,
                  max_replay: Optional[int] = None, faults=None):
         self.tables = tables
         self.existing = dict(existing or {})
         self.device = device
+        self.use_engine = use_engine
         self.record = record
         self.max_nodes = max_nodes
         self.max_replay = max_replay
@@ -238,21 +248,182 @@ class EstimationPlanner:
     def greedy(self, targets: Sequence[NodeKey], f: float, e: float,
                q: float) -> Plan:
         """One greedy run at fraction `f` (§5.2): the engine's pass with
-        the single fraction (one `planner_walk` launch on a device)."""
+        the single fraction (one `planner_walk` launch on a device), or
+        `greedy_scalar` without the engine."""
+        if not self.use_engine:
+            return self.greedy_scalar(targets, f, e, q)
         return self.engine.greedy_batch(targets, e, q, (f,))[0]
+
+    def greedy_scalar(self, targets: Sequence[NodeKey], f: float, e: float,
+                      q: float) -> Plan:
+        """The scalar §5.2 reference: per-(target, candidate) Python
+        scoring in float64 on the host.  The engine's numpy backend is
+        plan-identical to it (states, chosen deductions, total_cost) at
+        every f; its torch backend agrees up to equal-p ties."""
+        nodes: Dict[NodeKey, Node] = {}
+        # (table, column set, method) -> nodes, in insertion order: the
+        # ColSet mate lookup without scanning the whole node dict
+        by_set: Dict[Tuple[str, frozenset, str], List[NodeKey]] = {}
+
+        def index_key(k: NodeKey) -> None:
+            by_set.setdefault((k.table, frozenset(k.cols), k.method),
+                              []).append(k)
+
+        # line 1: existing indexes enter known (EXACT: zero error, no cost)
+        for k, size in self.existing.items():
+            nodes[k] = Node(k, State.EXACT, rv=err.EXACT, exact_bytes=size)
+            index_key(k)
+        # line 2: targets start as NONE
+        for t in targets:
+            if t not in nodes:
+                nodes[t] = Node(t)
+                index_key(t)
+
+        def ensure(k: NodeKey) -> Node:
+            n = nodes.get(k)
+            if n is None:
+                n = nodes[k] = Node(k)
+                index_key(k)
+            return n
+
+        def known(n: Node) -> bool:
+            return n.state in (State.SAMPLED, State.DEDUCED, State.EXACT)
+
+        total_cost = 0.0
+        feasible = True
+        used_as_child: set = set()
+        # line 3: narrower to wider
+        order = sorted(targets, key=lambda k: (len(k.cols), k.cols))
+        for t in order:
+            node = nodes[t]
+            if known(node):
+                continue
+            # lines 4-5: materialize candidate deductions and children
+            mates = by_set.get((t.table, frozenset(t.cols), t.method), ())
+            cands = _colset_deductions(t, mates) + list(_colext_deductions(t))
+            for d in cands:
+                for c in d.children:
+                    ensure(c)
+
+            # lines 6-7: an already-enabled deduction that satisfies e, q
+            best_d, best_p = None, -1.0
+            for d in cands:
+                if all(known(nodes[c]) for c in d.children):
+                    rv = _deduction_rv(t, d, nodes)
+                    p = err.prob_within(rv, e)
+                    if p >= q and p > best_p:
+                        best_d, best_p = d, p
+            if best_d is not None:
+                node.state = State.DEDUCED
+                node.chosen = best_d
+                node.rv = _deduction_rv(t, best_d, nodes)
+                used_as_child.update(best_d.children)
+                continue
+
+            # lines 8-9: enable a deduction by sampling its unknown
+            # children where that is cheaper than sampling this node
+            my_cost = self._sampling_cost(t, f)
+            best_d, best_cost = None, my_cost
+            for d in cands:
+                unknown = [c for c in d.children if not known(nodes[c])]
+                if not unknown:
+                    continue  # handled above (did not satisfy constraint)
+                extra = sum(self._sampling_cost(c, f) for c in unknown)
+                if extra >= best_cost:
+                    continue
+                # hypothetical RVs with the unknown children sampled
+                trial = {c: err.samplecf_error(c.method, f) for c in unknown}
+                child_rvs = tuple(trial.get(c, nodes[c].rv)
+                                  for c in d.children)
+                drv = (err.colset_error() if d.kind == "colset"
+                       else err.colext_error(t.method, len(d.children)))
+                rv = _compose_cached(child_rvs + (drv,))
+                if err.prob_within(rv, e) >= q:
+                    best_d, best_cost = d, extra
+            if best_d is not None:
+                for c in best_d.children:
+                    cn = nodes[c]
+                    if not known(cn):
+                        cn.state = State.SAMPLED
+                        cn.rv = err.samplecf_error(c.method, f)
+                        total_cost += self._sampling_cost(c, f)
+                node.state = State.DEDUCED
+                node.chosen = best_d
+                node.rv = _deduction_rv(t, best_d, nodes)
+                used_as_child.update(best_d.children)
+                continue
+
+            # lines 10-11: fall back to SampleCF on this node
+            node.state = State.SAMPLED
+            node.rv = err.samplecf_error(t.method, f)
+            total_cost += my_cost
+            if not err.satisfies(node.rv, e, q):
+                feasible = False  # even sampling cannot satisfy the bound
+
+        # lines 13-14: cleanup, dropping nodes neither targeted nor used
+        tset = set(targets)
+        for k in sorted(list(nodes), key=lambda k: -len(k.cols)):
+            n = nodes[k]
+            if k in tset or k in used_as_child or n.state is State.EXACT:
+                continue
+            if n.state is State.SAMPLED:
+                total_cost -= self._sampling_cost(k, f)
+            del nodes[k]
+
+        for t in targets:
+            if not err.satisfies(nodes[t].rv, e, q):
+                feasible = False
+        return Plan(f=f, nodes=nodes, targets=tuple(targets),
+                    total_cost=total_cost, feasible=feasible)
 
     def plan(self, targets: Sequence[NodeKey], e: float, q: float) -> Plan:
         """Outer loop over the sampling fractions of F_GRID (§5.2 last
         paragraph): one batched pass over the shared graph scores every
-        fraction; only the winning plan is materialized."""
-        return self.engine.plan_batch(targets, e, q)
+        fraction and only the winning plan is materialized; without the
+        engine, `greedy_scalar` at each fraction, the cheapest feasible
+        plan (else the cheapest)."""
+        if self.use_engine:
+            return self.engine.plan_batch(targets, e, q)
+        best: Optional[Plan] = None
+        fallback: Optional[Plan] = None
+        for f in F_GRID:
+            p = self.greedy_scalar(targets, f, e, q)
+            if p.feasible and (best is None or p.total_cost < best.total_cost):
+                best = p
+            if fallback is None or p.total_cost < fallback.total_cost:
+                fallback = p
+        return best if best is not None else fallback
+
+    def plan_scalar(self, targets: Sequence[NodeKey], e: float,
+                    q: float) -> Plan:
+        """`plan` on the scalar reference greedy, whatever `use_engine`."""
+        saved = self.use_engine
+        try:
+            self.use_engine = False
+            return self.plan(targets, e, q)
+        finally:
+            self.use_engine = saved
 
     def plan_all_sampled(self, targets: Sequence[NodeKey], e: float,
                          q: float) -> Plan:
         """The paper's "All" baseline: SampleCF on every target, no
         deductions; the first grid fraction whose all-sampled plan meets
-        (e, q), else the cheapest all-sampled plan, flagged infeasible."""
-        return self.engine.plan_all_sampled_batch(targets, e, q)
+        (e, q), else the cheapest all-sampled plan, flagged infeasible.
+        (Sampling is forced by a greedy under FORCE_ALL_Q, feasibility
+        then judged against the caller's q.)"""
+        if self.use_engine:
+            return self.engine.plan_all_sampled_batch(targets, e, q)
+        fallback: Optional[Plan] = None
+        for f in F_GRID:
+            p = self.greedy_scalar(targets, f, e, FORCE_ALL_Q)
+            feasible = all(err.satisfies(p.nodes[t].rv, e, q)
+                           for t in targets)
+            p = dataclasses.replace(p, feasible=feasible)
+            if feasible:
+                return p
+            if fallback is None or p.total_cost < fallback.total_cost:
+                fallback = p
+        return fallback
 
     # ------------------------------------------------------------------
     # Optimal exact algorithm (Appendix D) — exponential; experiments only.
@@ -338,18 +509,28 @@ class EstimationPlanner:
         pre = engine.estimate_batch(sampled, plan.f)
         return self._resolve_plan(plan, pre.__getitem__)
 
+    def execute_scalar(self, plan: Plan, manager: SampleManager
+                       ) -> Dict[NodeKey, SizeEstimate]:
+        """The reference executor: one `sample_cf` call per SAMPLED node,
+        in NumPy on the host; `execute` is byte-identical to it."""
+        return self._resolve_plan(
+            plan, lambda k: sample_cf(
+                manager, IndexDef(k.table, k.cols, k.method), plan.f))
+
     def execute_cached(self, plan: Plan,
                        cache: MutableMapping[Tuple[NodeKey, float],
                                              SizeEstimate],
-                       engine: EstimationEngine
+                       engine: EstimationEngine, scalar: bool = False
                        ) -> Dict[NodeKey, SizeEstimate]:
         """`execute` with SAMPLED estimates cached by (NodeKey, f), the
         online session's path: an estimate is a pure function of (node,
         f) over the engine's order-independent samples, so only the cache
-        misses are estimated, in one batched call.  The plan resolves from
-        a LOCAL snapshot of this call's estimates, never back through
-        `cache`: a bounded cache (`samplecf.EstimateCache`) may evict an
-        entry this plan still needs while inserting."""
+        misses are estimated, in one batched call (with `scalar`, one
+        `sample_cf` each over the engine's `SampleManager`, on the host).
+        The plan resolves from a LOCAL snapshot of this call's estimates,
+        never back through `cache`: a bounded cache
+        (`samplecf.EstimateCache`) may evict an entry this plan still
+        needs while inserting."""
         local: Dict[NodeKey, SizeEstimate] = {}
         missing = []
         for k, n in plan.nodes.items():
@@ -360,7 +541,12 @@ class EstimationPlanner:
                 missing.append(k)
             else:
                 local[k] = est
-        if missing:
+        if missing and scalar:
+            for k in missing:
+                local[k] = cache[(k, plan.f)] = sample_cf(
+                    engine.manager, IndexDef(k.table, k.cols, k.method),
+                    plan.f)
+        elif missing:
             for k, est in engine.estimate_batch(missing, plan.f).items():
                 local[k] = cache[(k, plan.f)] = est
         return self._resolve_plan(plan, local.__getitem__)

@@ -79,6 +79,10 @@ class Table:
             self._stats_cache[key] = (int(v.min()), int(v.max()))
         return self._stats_cache[key]
 
+    def width_of(self, cols: Sequence[str]) -> int:
+        """Summed byte width of `cols`."""
+        return sum(self.col_by_name[c].width for c in cols)
+
     def take(self, rows: np.ndarray, name: Optional[str] = None) -> "Table":
         vals = {c.name: self.values[c.name][rows] for c in self.columns}
         return Table(name or f"{self.name}#sample", self.columns, vals)
@@ -123,6 +127,9 @@ class IndexDef:
         return (self.table, self.cols, self.compression, self.clustered,
                 self.predicate)
 
+    def uncompressed(self) -> "IndexDef":
+        return dataclasses.replace(self, compression=None)
+
     def with_compression(self, method: Optional[str]) -> "IndexDef":
         return dataclasses.replace(self, compression=method)
 
@@ -151,6 +158,14 @@ def build_index_data(table: Table, idx: IndexDef) -> np.ndarray:
     keys = [sub[c] for c in reversed(idx.cols)]
     order = np.lexsort(keys) if keys else np.arange(table.nrows)
     return np.stack([sub[c][order] for c in idx.cols], axis=1)
+
+
+def uncompressed_bytes(nrows: int, widths: Sequence[int]) -> int:
+    """Size of an uncompressed index with the page model."""
+    rw = sum(widths)
+    rpp = rows_per_page(rw)
+    npages = -(-nrows // rpp) if nrows else 0
+    return npages * PAGE_BYTES
 
 
 def uncompressed_pages(nrows: int, widths: Sequence[int]) -> int:

@@ -30,7 +30,11 @@ a fresh `DesignAdvisor` with the same options on the resulting workload,
 on each backend: every stage runs the one-shot advisor's code or reuses
 values that are pure functions of the same inputs.  A session runs where
 its options say (`backend` / `device`), on the card unless the caller
-asks for the CPU.
+asks for the CPU.  The options' `use_*` switches move their phase to its
+statement-at-a-time reference here as in `DesignAdvisor`: the planner to
+`greedy_scalar`, SampleCF misses to one `sample_cf` each, and costing and
+enumeration (with `use_engine=False`, no `CostEngine` is kept) to the
+session's `WhatIfOptimizer`.
 
 `snapshot` / `restore` checkpoint a session (the workload, options,
 retired names, version and the warm estimates; no tensor), and
@@ -235,11 +239,13 @@ class AdvisorSession:
         self.optimizer = WhatIfOptimizer(self.workload, self.sizes,
                                          self.device)
         self.planner = EstimationPlanner(
-            self.schema.tables, device=self.device, record=True,
+            self.schema.tables, device=self.device,
+            use_engine=self.opt.use_batched_planner, record=True,
             max_nodes=self.opt.max_planner_nodes,
             max_replay=self.opt.max_replay_entries, faults=faults)
-        self.engine = CostEngine(self.workload, self.sizes,
-                                 device=self.device)
+        self.engine: Optional[CostEngine] = (
+            CostEngine(self.workload, self.sizes, device=self.device)
+            if self.opt.use_engine else None)
         # incremental caches
         self._queries: Dict[str, _QueryEntry] = {}
         self._selections: Dict[str, _Selection] = {}
@@ -346,8 +352,9 @@ class AdvisorSession:
             self.workload = new_wl
             self._pending.append(delta)
             return self
-        self.engine.apply_delta(delta)
-        self.engine.workload = new_wl
+        if self.engine is not None:
+            self.engine.apply_delta(delta)
+            self.engine.workload = new_wl
         for name in delta.removed:
             self._retired.add(name)
             self._queries.pop(name, None)
@@ -477,8 +484,8 @@ class AdvisorSession:
         `recommend()` would recompute.  Runs the estimation stage once
         (memoized by `workload_version` and consumed verbatim by the next
         `recommend()`) and syncs the engine.  Returns [] in compressed
-        (outer) mode."""
-        if self._compressed_mode:
+        (outer) mode and without a cost engine (`use_engine=False`)."""
+        if self._compressed_mode or self.engine is None:
             return []
         self.peek_estimation_plan()
         ver, universe, tkey_to_defs, plan = self._peeked
@@ -536,8 +543,9 @@ class AdvisorSession:
         misses = sum(1 for k, n in plan.nodes.items()
                      if n.state is State.SAMPLED
                      and (k, plan.f) not in self._sampled_est)
-        ests = self.planner.execute_cached(plan, self._sampled_est,
-                                           self.est_engine)
+        ests = self.planner.execute_cached(
+            plan, self._sampled_est, self.est_engine,
+            scalar=not self.opt.use_batched_estimation)
         self.samplecf_cache_misses += misses
         self.samplecf_cache_hits += plan.n_sampled() - misses
         for k, est in ests.items():
@@ -556,14 +564,17 @@ class AdvisorSession:
                 changed)
 
     # ------------------------------------------------------------------
+    def _inner_options(self) -> AdvisorOptions:
+        """The inner session's options: the outer's, uncompressed."""
+        return dataclasses.replace(self.opt, compression_budget=None)
+
     def _make_inner(self, workload: Workload) -> "AdvisorSession":
         """A fresh inner session sharing the outer SampleManager, its
         estimation engine (so samples stay on the device across rebuilds)
         and the (NodeKey, f) estimate cache, all order-independent, so
         transplanting them cannot change any estimate."""
-        inner = AdvisorSession(
-            workload, dataclasses.replace(self.opt, compression_budget=None),
-            samples=self.samples, faults=self.faults)
+        inner = AdvisorSession(workload, self._inner_options(),
+                               samples=self.samples, faults=self.faults)
         inner.est_engine = self.est_engine
         self._est_cache.update(inner._sampled_est)
         inner._sampled_est = self._est_cache
@@ -671,14 +682,16 @@ class AdvisorSession:
             self.faults.check("costing")
         t2 = time.perf_counter()
         engine = self.engine
-        engine.sync_sizes()
+        if engine is not None:
+            engine.sync_sizes()
         if changed:
             # the optimizer memoizes statement costs by (statement,
             # config); re-registered sizes invalidate those entries
             self.optimizer._cache.clear()
             if self.optimizer._engine is not None:
                 self.optimizer._engine.sync_sizes()
-        base_cost = engine.config_cost(base)
+        base_cost = (engine.config_cost(base) if engine is not None
+                     else self.optimizer.workload_cost(base))
 
         pre, self._cost_results = self._cost_results, None
         pre_costs = (pre[1] if pre is not None
@@ -694,7 +707,8 @@ class AdvisorSession:
                 if pre_q is not None:
                     self.cost_prefetch_consumed += 1
                 costed = cand.cost_candidates(q, entry.exp, base, self.sizes,
-                                              engine, precomputed=pre_q)
+                                              engine, precomputed=pre_q,
+                                              optimizer=self.optimizer)
                 sel = _Selection(select_candidates(costed, self.opt),
                                  len(costed))
                 self._selections[q.name] = sel
@@ -709,7 +723,7 @@ class AdvisorSession:
         phases["costing"] = t3 - t2
 
         res = enumerate_pool(self.sizes, self.opt, pool, base, budget_bytes,
-                             engine)
+                             engine, self.optimizer)
         t4 = time.perf_counter()
         phases["enumeration"] = t4 - t3
         n_full = len(self.workload.statements)
@@ -748,9 +762,10 @@ class AdvisorSession:
         if isinstance(self._sampled_est, EstimateCache):
             out.update(samplecf_cache_evictions=self._sampled_est.evictions,
                        samplecf_cache_maxsize=self._sampled_est.maxsize)
-        out.update(engine_rows_added=self.engine.rows_added,
-                   engine_rows_removed=self.engine.rows_removed,
-                   engine_cols_refreshed=self.engine.cols_refreshed)
+        if self.engine is not None:
+            out.update(engine_rows_added=self.engine.rows_added,
+                       engine_rows_removed=self.engine.rows_removed,
+                       engine_cols_refreshed=self.engine.cols_refreshed)
         peng = self.planner._engine
         if peng is not None:
             out.update(graph_builds=peng.graph_builds,

@@ -4,7 +4,8 @@ Statements are single-table analytic SELECTs (range/equality filters +
 aggregated columns) and bulk-load INSERTs, with weights that skew the mix
 SELECT-intensive or INSERT-intensive exactly as in the paper's experiments.
 
-`make_tpch_like` and `make_scaled_workload` draw from the same NumPy
+`make_tpch_like`, `make_scaled_workload` and its statement-at-a-time
+reference `make_scaled_workload_reference` draw from the same NumPy
 generator in the same order as the JAX package's, so equal arguments give
 equal data and statements.  A `WorkloadDelta` (the online session's unit
 of change) turns a workload into the one a fresh advisor would be given:
@@ -318,6 +319,58 @@ def make_tpch_workload(schema: Schema, insert_weight: float = 0.1,
     qs.append(BulkInsert("load_orders", "orders",
                          max(od.nrows // 50, 50), weight=insert_weight))
     return Workload(schema=schema, statements=qs)
+
+
+def make_scaled_workload_reference(schema: Schema, n_statements: int = 200,
+                                   insert_fraction: float = 0.1, seed: int = 0,
+                                   insert_weight: float = 0.1) -> Workload:
+    """The statement-at-a-time generator (one rng call per draw, per
+    statement), the behavioural reference for `make_scaled_workload`: the
+    same draw ranges and branch probabilities, the same statement names
+    and query / insert split, but the draws land in another stream order,
+    so individual statements differ for the same seed.  Its draws are the
+    JAX package's reference generator's, in its order, so equal arguments
+    give equal statements.  Too slow beyond a few thousand statements.
+    """
+    rng = np.random.default_rng(seed)
+    tables = list(schema.tables.values())
+    # weight table choice by row count: fact tables dominate, like TPC-H
+    p = np.array([t.nrows for t in tables], dtype=np.float64)
+    p /= p.sum()
+    n_inserts = int(round(n_statements * insert_fraction))
+    n_queries = n_statements - n_inserts
+    stmts: List[Statement] = []
+    for k in range(n_queries):
+        t = tables[int(rng.choice(len(tables), p=p))]
+        cols = [c.name for c in t.columns]
+        nf = int(rng.integers(1, min(3, len(cols)) + 1))
+        fcols = list(rng.choice(len(cols), size=nf, replace=False))
+        filters = []
+        for ci in fcols:
+            name = cols[int(ci)]
+            mn, mx = t.minmax(name)
+            if mx <= mn or rng.random() < 0.25:      # equality predicate
+                v = int(rng.integers(mn, mx + 1))
+                filters.append(Predicate(name, v, v))
+            else:                                    # range predicate
+                frac = float(rng.uniform(0.01, 0.6))
+                lo = int(rng.integers(mn, max(mn, int(mx - (mx - mn) * frac))
+                                      + 1))
+                hi = min(mx, lo + max(1, int((mx - mn) * frac)))
+                filters.append(Predicate(name, lo, hi))
+        rest = [c for c in cols if c not in {f.col for f in filters}]
+        nu = int(rng.integers(1, min(4, max(1, len(rest))) + 1))
+        used = [rest[int(i)] for i in
+                rng.choice(len(rest), size=min(nu, len(rest)),
+                           replace=False)] if rest else [filters[0].col]
+        stmts.append(Query(f"s{k:04d}", t.name, tuple(filters), tuple(used),
+                           weight=float(rng.uniform(0.5, 2.0))))
+    for k in range(n_inserts):
+        t = tables[int(rng.choice(len(tables), p=p))]
+        stmts.append(BulkInsert(f"ins{k:03d}", t.name,
+                                max(t.nrows // 50, 50),
+                                weight=insert_weight))
+    return Workload(schema=schema, statements=stmts)
 
 
 def make_scaled_workload(schema: Schema, n_statements: int = 200,

@@ -11,6 +11,8 @@ the dictionary the scale.
   last dimension (the ragged last block is masked, which equals the JAX
   package's zero padding).  Returns (q int8 of x's shape, scales float32
   of shape x.shape[:-1] + (ceil(N / block),)).
+* `quantize_kv(x, block)` -- the same scheme over a KV cache's head
+  dimension.
 * `quantize_blockwise_group(items, block)` -- the same for a list of (x,
   q, scales) triples, written into each q and scales, in one launch per
   `group_capacity()` items.
@@ -140,6 +142,14 @@ def quantize_blockwise(x: torch.Tensor, block: int = DEFAULT_BLOCK
     _launch_check(err, "quantize_blockwise")
     LAUNCHES["quantize_blockwise"] += 1
     return q, scales
+
+
+def quantize_kv(x: torch.Tensor, block: int = DEFAULT_BLOCK
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """KV-cache quantization: `quantize_blockwise`'s scheme over the head
+    dimension (a head dimension below `block` is one masked block, as the
+    JAX package's zero padding)."""
+    return quantize_blockwise(x, block)
 
 
 def _check_quantize_input(x: torch.Tensor, block: int) -> None:

@@ -23,15 +23,13 @@ from repro.core import samplecf as ref_scf
 from repro.core.estimation_graph import (EstimationPlanner as RefPlanner,
                                          FORCE_ALL_Q, NodeKey as RefKey)
 import repro_torch.core as pt
-from repro_torch.core import errors as E
 from repro_torch.core import samplecf as scf
-from repro_torch.core.estimation_graph import (F_GRID, Deduction,
-                                               EstimationPlanner, Node,
-                                               NodeKey, Plan, State)
-from repro_torch.core.planner_engine import (PlannerEngine,
-                                             assert_plan_identical)
+from repro_torch.core.estimation_graph import (F_GRID, EstimationPlanner,
+                                               NodeKey, State)
+from repro_torch.core.planner_engine import PlannerEngine
 from repro_torch.kernels import planner_score as ps
-from torch_port_util import (assert_plans_match, port_schema, walk_graph,
+from torch_port_util import (assert_identical, assert_plans_match,
+                             port_key, port_schema, walk_graph,
                              walk_synthetic, WALK_TIES)
 
 CPU = torch.device("cpu")
@@ -93,33 +91,6 @@ def make_targets(key_cls, method="NS", n=4):
             ("orders", ("o_orderdate",)),
             ("orders", ("o_orderdate", "o_totalprice"))]
     return [key_cls(t, c, method) for t, c in cols[:n]]
-
-
-def port_key(k) -> NodeKey:
-    return NodeKey(k.table, tuple(k.cols), k.method)
-
-
-def port_plan(ref) -> Plan:
-    """A reference Plan in the port's types (the nodes in their order)."""
-    nodes = {}
-    for k, n in ref.nodes.items():
-        d = n.chosen
-        chosen = None if d is None else Deduction(
-            d.kind, tuple(port_key(c) for c in d.children),
-            tuple(tuple(p) for p in d.parts))
-        nodes[port_key(k)] = Node(port_key(k), State(n.state.value), chosen,
-                                  E.ErrorRV(n.rv.mean, n.rv.std),
-                                  n.exact_bytes)
-    return Plan(ref.f, nodes, tuple(port_key(t) for t in ref.targets),
-                ref.total_cost, ref.feasible)
-
-
-def assert_identical(got, ref, label=""):
-    """`assert_plan_identical` against the reference's plan, and the same
-    node order."""
-    want = port_plan(ref)
-    assert_plan_identical(want, got, label)
-    assert list(got.nodes) == list(want.nodes), label
 
 
 def assert_route_matches(got, ref, route, e, existing):

@@ -377,6 +377,36 @@ def midflight_tokens(engine_mod, params, cfg, midflight: bool, **kw):
     return eng.finished[0].out_tokens
 
 
+def port_key(k) -> "pt.NodeKey":
+    return pt.NodeKey(k.table, tuple(k.cols), k.method)
+
+
+def port_plan(ref) -> "pt.Plan":
+    """A reference Plan in the port's types (the nodes in their order)."""
+    from repro_torch.core.estimation_graph import Deduction, Node
+    nodes = {}
+    for k, n in ref.nodes.items():
+        d = n.chosen
+        chosen = None if d is None else Deduction(
+            d.kind, tuple(port_key(c) for c in d.children),
+            tuple(tuple(p) for p in d.parts))
+        nodes[port_key(k)] = Node(port_key(k), pt.State(n.state.value),
+                                  chosen,
+                                  pt.errors.ErrorRV(n.rv.mean, n.rv.std),
+                                  n.exact_bytes)
+    return pt.Plan(ref.f, nodes, tuple(port_key(t) for t in ref.targets),
+                   ref.total_cost, ref.feasible)
+
+
+def assert_identical(got, ref, label=""):
+    """`assert_plan_identical` against the reference's plan, and the same
+    node order."""
+    from repro_torch.core.planner_engine import assert_plan_identical
+    want = port_plan(ref)
+    assert_plan_identical(want, got, label)
+    assert list(got.nodes) == list(want.nodes), label
+
+
 PLAN_P_ATOL = 5e-5    # fused_score p against the reference (float32, its erf)
 
 
