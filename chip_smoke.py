@@ -46,7 +46,12 @@ Phases (any failure exits non-zero; nothing is caught), run in the order
      port's numpy backend and compare the two;
   3b. the same for the large-workload path: make_scaled_workload(10,000
      statements) on the same data, all five codecs, compression_budget=128
-     (workload compression, paper Section 7), budget 25 %;
+     (workload compression, paper Section 7), budget 25 %; then the
+     greedy-step scorers' calls of both measured runs (3 and 3b, kept by
+     wrapping `cost_engine._score_secondary_torch` /
+     `_score_replace_torch`) bit-equal to the same function on CPU copies
+     of their operands at every distinct (scorer, nq, m, ns), which are
+     printed (`check_scorer_order`);
   3c. staged_recommend (Example 1) with the five codecs on phase 3's
      workload, torch/cuda against numpy;
   3d. the online AdvisorSession on phase 3's data and budget, each round
@@ -475,6 +480,68 @@ def timed(fn):
     t0 = time.perf_counter()
     out = fn()
     return out, time.perf_counter() - t0
+
+
+SCORERS = {"_score_secondary_torch": "sec", "_score_replace_torch": "rep"}
+SCORER_CHECKS = 32               # scorer calls held to the CPU after 3b
+
+
+def keeping_scorer_calls(make, calls):
+    """make() with the advisor's greedy-step scorers wrapped: each call's
+    (name, operands, output) appended to `calls`."""
+    from repro_torch.core import cost_engine as ce
+    orig = {n: getattr(ce, n) for n in SCORERS}
+
+    def wrap(name):
+        def run(*args):
+            out = orig[name](*args)
+            calls.append((name, args, out))
+            return out
+        return run
+    for n in SCORERS:
+        setattr(ce, n, wrap(n))
+    try:
+        return make()
+    finally:
+        for n, f in orig.items():
+            setattr(ce, n, f)
+
+
+def check_scorer_order(label, calls):
+    """The scorers' outputs on the card bit-equal to the same function on
+    CPU copies of the operands (the CPU sum is the one the tests hold to
+    the JAX package's): every distinct (scorer, nq, m, ns) once, then more
+    calls, the largest first, up to SCORER_CHECKS."""
+    import torch
+    from repro_torch.core import cost_engine as ce
+    t0 = time.perf_counter()
+    by_shape = {}
+    for name, args, out in calls:
+        sec = name == "_score_secondary_torch"
+        nq, m = args[1].shape if sec else args[0].shape
+        key = (SCORERS[name], nq, m, 0 if sec else args[1].shape[1])
+        by_shape.setdefault(key, []).append((key, name, args, out))
+    picked = [v[0] for v in by_shape.values()]
+    rest = sorted((c for v in by_shape.values() for c in v[1:]),
+                  key=lambda c: -c[0][1] * c[0][2] * max(c[0][3], 1))
+    picked += rest[:max(0, SCORER_CHECKS - len(picked))]
+    # small tensors: one host thread is the quickest
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for key, name, args, out in picked:
+            want = getattr(ce, name)(*[a.cpu() for a in args])
+            if not bit_equal(out.cpu(), want):
+                fail(f"{label}: {name} at (scorer, nq, m, ns) {key} "
+                     "differs between the card and the CPU")
+    finally:
+        torch.set_num_threads(threads)
+    shapes = ", ".join(f"{k[0]} ({k[1]}, {k[2]}, {k[3]}) x{len(v)}"
+                       for k, v in sorted(by_shape.items()))
+    print(f"{label}: {len(calls)} scorer calls, {len(by_shape)} distinct "
+          f"(scorer, nq, m, ns): {shapes}")
+    print(f"{label}: {len(picked)} scorer calls (every distinct shape) "
+          f"bit-equal card vs CPU in {time.perf_counter() - t0:.3f} s")
 
 
 def host_copy(params, opt_state=None):
@@ -3715,6 +3782,9 @@ def main() -> int:
         return secs
 
     opts = pt.AdvisorOptions(backend="torch", device="cuda")
+    # the greedy-step scorers' calls of phases 3 and 3b, held to the CPU
+    # after 3b
+    scorer_calls = []
     # the run's batched card estimates, kept for phase 12b
     est3 = {}
     execute = pt.EstimationPlanner.execute
@@ -3726,7 +3796,9 @@ def main() -> int:
     pt.EstimationPlanner.execute = keeping
     try:
         rec_t, wall_t, launches3 = walked(
-            "phase 3", lambda: pt.DesignAdvisor(wl, opts).recommend(budget))
+            "phase 3", lambda: keeping_scorer_calls(
+                lambda: pt.DesignAdvisor(wl, opts).recommend(budget),
+                scorer_calls))
     finally:
         pt.EstimationPlanner.execute = execute
     need_launches("phase 3", launches3, ("ns_bytes", "ldict_bytes",
@@ -3755,7 +3827,9 @@ def main() -> int:
     opts5 = pt.AdvisorOptions(backend="torch", device="cuda", methods=FIVE,
                               compression_budget=COMPRESSION_BUDGET)
     rec_t5, wall_t5, launches3b = walked(
-        "phase 3b", lambda: pt.DesignAdvisor(wl_big, opts5).recommend(budget))
+        "phase 3b", lambda: keeping_scorer_calls(
+            lambda: pt.DesignAdvisor(wl_big, opts5).recommend(budget),
+            scorer_calls))
     need_launches("phase 3b", launches3b,
                   [n for n in ADVISOR_KERNELS if n != "gdict_bytes"])
     # the plain walk scores each record with the fused_score kernel:
@@ -3781,6 +3855,8 @@ def main() -> int:
         fail("phase 3b: equal configurations with different error bounds")
     chosen = sorted({i.compression for i in rec_t5.config.indexes} - {None})
     print(f"phase 3b: methods in the recommendation {chosen}")
+    check_scorer_order("phases 3 and 3b", scorer_calls)
+    del scorer_calls
 
     # ---- phase 3c: the staged baseline (Example 1) ---------------------
     rec_st, wall_st, launches3c = walked(

@@ -27,11 +27,12 @@ greedy-step scoring functions — add-secondary, replace-clustered and
 per-query candidate costing — run as float32 torch ops on the device (the
 op sequences of the JAX package's `jax.jit` scorers).  The weighted sum
 `q_w @ new_q` is not a BLAS call: XLA's CPU dot sums a vector-matrix
-product in an order LLVM picks by shape (a chain of float32 fused
-multiply-adds in query order, or 8 FMA lanes and a tree), and a BLAS
-library picks its own order per CPU branch, which moves the greedy's
-near-zero benefits across its threshold.  `_xla_sum_order` is that
-order as a rule of the shapes, read off XLA's dumps, and `_fma_chain` /
+product in an order LLVM picks by shape (its vectorized query loop:
+lanes of float32 fused multiply-adds, interleaved accumulators, a vector
+epilogue, a scalar chain), and a BLAS library picks its own order per
+CPU branch, which moves the greedy's near-zero benefits across its
+threshold.  `_xla_sum_order` describes that loop for each shape, read
+off XLA's dumps, and `_fma_chain` /
 `_rid_f32` compute it exactly, with the same ops on the CPU and the card,
 so the totals are the JAX package's bit for bit where the rule holds.
 The cost matrices themselves stay on the host, as in the reference, and
@@ -56,7 +57,8 @@ Not ported yet: chunked costing.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import (Dict, Iterable, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -591,99 +593,255 @@ def _rid_f32(r, npages, beta, ncols, form: str) -> torch.Tensor:
     return _fma32(beta * r, ncols, inner)
 
 
-def _xla_sum_order(scorer: str, nq: int, m: int, ns: int
-                   ) -> Tuple[str, str, int, int]:
-    """How XLA's CPU code (x86, 8-wide float32 vectors) orders a scorer's
-    fused `q_w @ new_q`: (rid form of the lane part, rid form of the
-    chain, lanes, nv).  The first nv queries (a multiple of `lanes`) are
-    summed in `lanes` accumulators, query i into lane i mod lanes by FMA,
-    and the lanes added as a halving tree (8 lanes: ((l0+l4)+(l2+l6)) +
-    ((l1+l5)+(l3+l7))); the rest continue as a sequential FMA chain from
-    that sum.  nv = 0 is the chain alone.  `_rid_f32` gives the forms.
+class _Part(NamedTuple):
+    """`n` consecutive queries of `q_w @ new_q` as one loop of XLA's CPU
+    code sums them: `lanes` float32 lanes (1: a scalar chain), `accs`
+    interleaved accumulators of them, the vector loop fully `unrolled` or
+    not, and the RID term in `form` (`_rid_f32`)."""
+    lanes: int
+    accs: int
+    n: int
+    unrolled: bool
+    form: str
 
-    The rule is read off XLA's dumps (`*.ir-with-opt.ll`, the object code)
-    of the JAX package's `_jax_score_secondary` / `_jax_score_replace`
-    (scorer "sec" / "rep"), nq queries, m candidates, ns kept
-    secondaries:
-      * LLVM fully unrolls the replace scorer's query loop while nq *
-        (11 + 13 ns) <= 300 and vectorizes across the candidates: a chain
-        with CPU_ROW * r a broadcast scalar (form A; scalar code, form B,
-        for a single candidate).
-      * A query loop of 16 or more is vectorized 8 wide.  Candidate
-        columns of stride m <= 8 make the strided loads an interleaved
-        group with gaps, which needs a scalar epilogue: nv = 8 * ((nq - 1)
-        // 8); a wider stride does not: nv = 8 * (nq // 8).
-      * The replace scorer's query loop of 4 or 8 that is not unrolled is
-        one vector of that width, no epilogue.
-      * Otherwise the query loop stays scalar: a chain in form B.
-    Classes this rule does not reproduce stay listed in ROADMAP (Queue C),
-    for example vector epilogues of 4 and 2 lanes (nq = 23) and the
-    replace scorer at m = 2."""
-    grouped = m <= 8
-    if scorer == "rep":
-        if nq * (11 + 13 * ns) <= 300:
-            # a single candidate leaves nothing to vectorize: scalar code
-            return ("B", "B", 8, 0) if m == 1 else ("A", "A", 8, 0)
-        if nq in (4, 8):
-            return ("A" if 2 <= ns <= 8 else "B"), "B", nq, nq
-        if nq < 16:
-            return "B", "B", 8, 0
-        if grouped:
-            return ("B" if ns == 1 else "A"), "B", 8, 8 * ((nq - 1) // 8)
-        return "A", "A", 8, 8 * (nq // 8)
+
+_UNIT, _G56, _WIDE = (1, 1, 1, 1), (2, 2, 2, 1), (2, 3, 2, 1)
+
+
+def _loop_class(scorer: str, m: int, ns: int
+                ) -> Tuple[Tuple[int, ...], int, int, int]:
+    """The query loop's class, read off XLA's dumps as `_xla_sum_order`
+    says: (LLVM's loop-vectorizer cost of one iteration at VF 1, 2, 4 and
+    8; its most interleaved accumulators; the most accumulators x vector
+    iterations LLVM still fully unrolls, without and with a vector
+    epilogue).  The costs are the smallest integers that give the factors
+    LLVM chose at every nq from 16 to 200 (only comparisons count).  The
+    strided candidate loads set the class: m = 1 unit stride, m = 2..8 an
+    interleave group (5 and 6 cost apart), m > 8 one load a lane ("wide");
+    the replace scorer's ns kept secondaries set the loop body, and so its
+    interleave count and unroll limits."""
+    wide = m > 8
+    if scorer == "sec" or ns == 1:
+        costs = _WIDE if wide else _G56 if m in (5, 6) else _UNIT
+        if scorer == "sec":
+            unroll = 4 if wide else 8 if m >= 7 else 12
+        else:
+            unroll = 8 if wide else 12
+        return costs, 4, unroll, unroll
+    if ns == 2:
+        return _WIDE, 2, (4 if wide else 6), (4 if wide else 6)
+    if ns == 3:
+        return (1, 2, 1, 1), 2, 4, 4
+    if ns <= 6:
+        unroll = {4: 3 if wide else 4,
+                  5: 2 if wide or m >= 7 else 3, 6: 2}[ns]
+        return _UNIT, 1, unroll, unroll
+    if ns <= 8:
+        unroll = 1 if 2 <= m <= 8 else 0
+        return (3, 2, 2, 2), 1, unroll, unroll
+    return _WIDE, 2, (0 if 2 <= m <= 8 else 2), 0
+
+
+def _pick_vf(tc: int, costs: Sequence[int], vfs: Sequence[int]) -> int:
+    """LLVM's choice of a vectorization factor for a known trip count: from
+    vfs[0] on, a later factor replaces the choice where its cost (vector
+    iterations, then the scalar remainder) is strictly lower."""
+    def cost(vf):
+        return costs[vf.bit_length() - 1] * (tc // vf) + costs[0] * (tc % vf)
+    best = vfs[0]
+    for vf in vfs[1:]:
+        if cost(vf) < cost(best):
+            best = vf
+    return best
+
+
+def _vector_plan(nq: int, costs, gaps: int, max_ic: int
+                 ) -> Tuple[int, int, int, int, int]:
+    """LLVM's vectorized query loop for a trip count of nq >= 16: (VF,
+    interleave count, queries in the main vector loop, epilogue VF, queries
+    in the vector epilogue).  An interleave group with gaps (stride 2..8,
+    gaps = 1) leaves at least one query to the scalar remainder.  The main
+    VF starts from the scalar loop, the epilogue's from its narrowest
+    candidate."""
+    vf = _pick_vf(nq, costs, (1, 2, 4, 8))
+    avail = nq - gaps
+
+    def floor2(x):
+        return 1 << (max(1, x).bit_length() - 1)
+    ub = floor2(min(avail // vf, max_ic))
+    lb = floor2(min(avail // (2 * vf), max_ic))
+    ic = ub if ub != lb and avail % (vf * ub) == avail % (vf * lb) else lb
+    n = avail // (vf * ic) * vf * ic
+    evf = n_epi = 0
+    rem = nq % (vf * ic)                      # LLVM's remainder, gaps aside
+    if vf * ic >= 16 and rem >= 2:
+        evf = _pick_vf(rem, costs, [e for e in (2, 4, 8) if e <= min(vf, rem)])
+        n_epi = (nq - n - gaps) // evf * evf
+    return vf, ic, n, evf, n_epi
+
+
+def _xla_sum_order(scorer: str, nq: int, m: int, ns: int
+                   ) -> Tuple[_Part, ...]:
+    """How XLA's CPU code (x86, AVX-512, 8-wide float32 vectors) sums a
+    scorer's fused `q_w @ new_q` over nq < 4,096 queries: consecutive
+    `_Part`s, the first from 0, each continuing from the total before it
+    (`_xla_dot`).
+
+    Read off XLA's dumps (`XLA_FLAGS=--xla_dump_to`, `*.ir-with-opt.ll` and
+    the object code; jax 0.9.0 on x86 with AVX-512F) of the JAX package's
+    `_jax_score_secondary` / `_jax_score_replace` (scorer "sec" / "rep", m
+    candidates, ns kept secondaries) at nq 1-200 and up to 4,095, m 1-9,
+    16, 40, ns 1-24.  XLA emits the dot as a column loop over the m
+    candidates around a query loop, and LLVM vectorizes the query loop as
+    its loop vectorizer does for a known trip count (`_vector_plan`, with
+    the class costs of `_loop_class`): a main loop of VF lanes and IC
+    interleaved accumulators, a vector epilogue of fewer lanes when VF x IC
+    >= 16, then the scalar remainder.  Below 16 queries the loop is a
+    chain, except where LLVM unrolled it first and vectorized across the
+    candidates (a chain too), m = 1 at 14 and 15 queries (one 8-lane vector
+    with its tail masked) and the replace scorer's loops of 4 and 8 (one
+    vector).  The replace scorer's loop is not vectorized at ns >= 18.
+
+    The RID term's form: the secondary scorer's is "B" (its ridr differs
+    per candidate).  The replace scorer's CPU_ROW * ridr is the same for
+    every candidate, so where the query loop's code is straight (an
+    unrolled loop or remainder) inside a column loop that LLVM keeps, it is
+    hoisted out of that loop and form "A" follows; elsewhere "B".  LLVM
+    keeps the column loop at m > 8 and at m (ns + 1) > 16.
+
+    Left open (ROADMAP Queue C): nq >= 4,096, where XLA calls an unfused
+    dot; the replace scorer where XLA unrolls both loops into scalar code
+    (m >= 2 and m nq (11 + 13 ns) <= 432), at 9 or more kept secondaries,
+    and at m 2..8 beyond ~300 queries, where LLVM keeps or partly unrolls
+    the column loop at sizes not modelled here."""
+    wide = m > 8
+    kept = m > 1 and (wide or m * (ns + 1) > 16)
+
+    def form(straight: bool) -> str:
+        return "A" if scorer == "rep" and kept and straight else "B"
+
+    def chain(f: str) -> Tuple[_Part, ...]:
+        return (_Part(1, 1, nq, False, f),)
+    if scorer == "rep" and (nq * (11 + 13 * ns) <= 300
+                            or (m == 2 and ns == 1 and nq == 13)):
+        # unrolled before vectorization, then vectorized across the
+        # candidates.  (13, 2, 1), 312 units, is the one shape seen unrolled
+        # past the budget, and (4, 2, 5), 304, stays rolled: no budget for
+        # m = 2 holds both, and a size a query of its own (8 + 14 ns holds
+        # both) unrolls (1, 2, 21) and (1, 2, 22), which the totals there
+        # rule out
+        return chain("B" if m == 1 else "A")
     if nq < 16:
-        return "B", "B", 8, 0
-    return "B", "B", 8, 8 * ((nq - 1) // 8 if grouped else nq // 8)
+        if m == 1 and ns <= 1 and nq >= 14:
+            return (_Part(8, 1, nq, True, "B"),)
+        if scorer == "rep" and nq in (4, 8) and ns < 18:
+            return (_Part(nq, 1, nq, True,
+                          "A" if kept and 2 <= ns <= 8 else "B"),)
+        return chain("B")
+    if scorer == "rep" and ns >= 18:
+        return chain("B")
+    costs, max_ic, unroll, unroll_epi = _loop_class(scorer, m, ns)
+    vf, ic, n, evf, n_epi = _vector_plan(nq, costs, int(2 <= m <= 8), max_ic)
+    if vf * ic >= 16 and nq % (vf * ic) >= 2:
+        unroll = unroll_epi
+    unrolled = n // vf <= unroll
+    parts = [_Part(vf, ic, n, unrolled, form(unrolled))]
+    if n_epi:
+        parts.append(_Part(evf, 1, n_epi, True, form(ns <= 8)))
+    rest = nq - n - n_epi
+    if rest:
+        # LLVM unrolls a scalar remainder of up to 18 // ns queries (9 at
+        # ns <= 2)
+        parts.append(_Part(1, 1, rest, False,
+                           form(rest <= 18 // max(ns, 2))))
+    return tuple(parts)
 
 
 def _sec_edge_form(nq: int, m: int) -> Optional[str]:
     """The secondary scorer's ninth candidate column at m = 9, in scalar
-    code past the 8-wide vector: form A at nq = 2, 5 and 7 (read off the
-    dumps as `_xla_sum_order`), else the other columns' form (None)."""
+    code past the 8-wide vector across the candidates: form A at nq = 2, 5
+    and 7 (read off the dumps as `_xla_sum_order`), else the other columns'
+    form (None)."""
     return "A" if m == 9 and nq in (2, 5, 7) else None
 
 
-def _xla_dot(q_w: torch.Tensor, new_q: torch.Tensor, lanes: int, nv: int
-             ) -> torch.Tensor:
-    """`q_w @ new_q` in the order `_xla_sum_order` gives (nv queries summed
-    in `lanes` lanes, then the chain)."""
-    acc = None
-    if nv:
-        part = _fma_chain(q_w[:nv].reshape(-1, lanes),
-                          new_q[:nv].reshape(nv // lanes, lanes, -1))
-        while part.shape[0] > 1:                    # the halving tree
-            h = part.shape[0] // 2
-            part = part[:h] + part[h:]
-        acc = part[0]
-        if nv == new_q.shape[0]:
-            return acc
-    return _fma_chain(q_w[nv:], new_q[nv:], init=acc)
+def _xla_dot(q_w: torch.Tensor, new_q: torch.Tensor,
+             order: Sequence[_Part]) -> torch.Tensor:
+    """`q_w @ new_q` (nq,) x (nq, m) -> (m,) float32 in `order`.
+
+    A vector part: query t*lanes*accs + j*lanes + l goes to lane l of
+    accumulator j by FMA (the total so far starts lane 0 of accumulator 0),
+    the accumulators are added in order and the lanes summed as a halving
+    tree (8 lanes: ((l0+l4)+(l2+l6)) + ((l1+l5)+(l3+l7))).  In one
+    iteration, or in a fully unrolled loop, LLVM's DAG combiner folds each
+    accumulator into that sum instead: one FMA chain a lane, accumulator 0
+    in iteration order, then each next one in the order 1, 0, 2, 3, ...  A
+    part shorter than its vector masks its tail (products of 0).  A chain
+    part continues the total by FMA, query by query."""
+    total = None
+    b = 0
+    for lanes, accs, n, unrolled, _ in order:
+        w, x = q_w[b:b + n], new_q[b:b + n]
+        b += n
+        if lanes == 1:
+            total = _fma_chain(w, x, init=total)
+            continue
+        pad = -n % (lanes * accs)
+        if pad:
+            w = torch.cat([w, w.new_zeros(pad)])
+            x = torch.cat([x, x.new_zeros((pad,) + x.shape[1:])])
+        its = (n + pad) // (lanes * accs)
+        w = w.reshape(its, accs, lanes)
+        x = x.reshape(its, accs, lanes, new_q.shape[1])
+        init = torch.zeros(x.shape[2:], dtype=torch.float32, device=x.device)
+        if total is not None:
+            init[0] = total
+        if its == 1:
+            acc = _fma_chain(w[0], x[0], init=init)
+        else:
+            acc = _fma_chain(w[:, 0], x[:, 0], init=init)
+            if accs > 1 and unrolled:
+                t = [1, 0] + list(range(2, its))
+                acc = _fma_chain(w[t, 1:].transpose(0, 1).reshape(-1, lanes),
+                                 x[t, 1:].transpose(0, 1).reshape(
+                                     -1, lanes, new_q.shape[1]), init=acc)
+            elif accs > 1:
+                for part in _fma_chain(w[:, 1:], x[:, 1:]).unbind(0):
+                    acc = part + acc
+        while acc.shape[0] > 1:                     # the halving tree
+            h = acc.shape[0] // 2
+            acc = acc[:h] + acc[h:]
+        total = acc[0]
+    return total
 
 
-def _by_form(nv: int, lane_form: str, tail_form: str, f) -> torch.Tensor:
-    """new_q rows from `f(form)`: rows below nv in the lane part's form,
-    the rest in the chain's."""
-    if lane_form == tail_form or nv == 0:
-        return f(tail_form)
-    lane, tail = f(lane_form), f(tail_form)
-    return torch.cat([lane[:nv], tail[nv:]])
+def _by_form(order: Sequence[_Part], f) -> torch.Tensor:
+    """new_q rows from `f(form)`, each part's rows in its own form."""
+    forms = {p.form for p in order}
+    if len(forms) == 1:
+        return f(forms.pop())
+    rows = {form: f(form) for form in forms}
+    out, b = [], 0
+    for p in order:
+        out.append(rows[p.form][b:b + p.n])
+        b += p.n
+    return torch.cat(out)
 
 
 def _score_secondary_torch(cur_q, cov, seek, ridr, size_c, beta_c,
                            ncols_used, q_w):
     """New weighted query totals when each candidate secondary is added."""
     npages = _pages_f32(size_c)
-    lane_form, tail_form, lanes, nv = _xla_sum_order(
-        "sec", cov.shape[0], cov.shape[1], 0)
+    order = _xla_sum_order("sec", cov.shape[0], cov.shape[1], 0)
 
     def new_q(form):
         rid = _rid_f32(ridr, npages, beta_c, ncols_used[:, None], form)
         return torch.minimum(cur_q[:, None], torch.minimum(cov, seek + rid))
-    x = _by_form(nv, lane_form, tail_form, new_q)
+    x = _by_form(order, new_q)
     edge = _sec_edge_form(cov.shape[0], cov.shape[1])
     if edge is not None:
         x = torch.cat([x[:, :8], new_q(edge)[:, 8:]], dim=1)
-    return _xla_dot(q_w, x, lanes, nv)
+    return _xla_dot(q_w, x, order)
 
 
 def _score_replace_torch(scanc_c, cov, seek, ridr, size_c, beta_c,
@@ -694,15 +852,14 @@ def _score_replace_torch(scanc_c, cov, seek, ridr, size_c, beta_c,
     the candidate layouts' RID coupling."""
     npages = _pages_f32(size_c)                                   # (m,)
     r3 = ridr[:, :, None]
-    lane_form, tail_form, lanes, nv = _xla_sum_order(
-        "rep", scanc_c.shape[0], scanc_c.shape[1], cov.shape[1])
+    order = _xla_sum_order("rep", scanc_c.shape[0], scanc_c.shape[1],
+                           cov.shape[1])
 
     def new_q(form):
         rid = _rid_f32(r3, npages, beta_c, ncols_used[:, None, None], form)
         path = torch.minimum(cov[:, :, None], seek[:, :, None] + rid)
         return torch.minimum(scanc_c, path.amin(dim=1))
-    return _xla_dot(q_w, _by_form(nv, lane_form, tail_form, new_q), lanes,
-                    nv)
+    return _xla_dot(q_w, _by_form(order, new_q), order)
 
 
 def _own_path_torch(cov, seek, ridr, size_c, beta_c, ncq, is_sec):

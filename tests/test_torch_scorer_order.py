@@ -49,7 +49,8 @@ from repro.core import cost_engine as ref_ce
 import repro_torch.core as pt
 from repro_torch.core import cost_engine as ce
 from repro_torch.core import cost_model as cm
-from torch_port_util import port_schema, port_workload
+from torch_port_util import (f32_bits as _bits, port_schema, port_workload,
+                             scorer_args)
 
 ROOT = Path(__file__).resolve().parents[1]
 BUDGET = 2_000_000          # the session test's
@@ -74,10 +75,6 @@ def _chain_exact(w: np.ndarray, x: np.ndarray) -> np.ndarray:
                               + Fraction(float(w[i])) * Fraction(float(x[i, k])))
         out[k] = acc
     return out
-
-
-def _bits(a) -> np.ndarray:
-    return np.asarray(a, np.float32).view(np.int32)
 
 
 @pytest.mark.parametrize("seed", range(5))
@@ -188,9 +185,9 @@ def test_unchanged_paths_give_the_unchanged_total(session_calls):
             continue
         seen += int(neutral.sum())
         nq, m = t[1].shape
-        _, _, lanes, nv = ce._xla_sum_order("sec", nq, m, 0)
-        own = ce._xla_dot(t[7], t[0][:, None].expand(nq, m), lanes,
-                          nv).numpy()[0]
+        order = ce._xla_sum_order("sec", nq, m, 0)
+        own = ce._xla_dot(t[7], t[0][:, None].expand(nq, m),
+                          order).numpy()[0]
         assert set(_bits(out[neutral]).tolist()) == {int(_bits(own))}
         want = np.asarray(ref_ce._jax_score_secondary(
             *[jnp.asarray(a) for a in args]))
@@ -257,28 +254,11 @@ SHAPES = sorted(
     | {("sec", nq, m, 0) for nq, m in GRID_SEC})
 
 
-def _random_args(scorer, nq, m, ns, rng):
-    """float32 scorer operands whose paths mostly win through seek + RID
-    (scan and covering costs 500-3000, RID terms of comparable size), so
-    every rounding of the RID term and of the sum shows."""
-    def u(lo, hi, *shape):
-        return rng.uniform(lo, hi, shape).astype(np.float32)
-    q_w = u(0.1, 10, nq)
-    ncols = rng.integers(1, 8, nq).astype(np.float32)
-    if scorer == "rep":
-        return [u(500, 3000, nq, m), u(500, 3000, nq, ns),
-                u(0.01, 5, nq, ns), u(0, 300, nq, ns), u(1e5, 3e6, m),
-                u(0, 0.3, m), ncols, q_w]
-    return [u(500, 3000, nq), u(500, 3000, nq, m), u(0.01, 5, nq, m),
-            u(0, 300, nq, m), np.float32(rng.uniform(1e5, 3e6)),
-            np.float32(rng.uniform(0, 0.3)), ncols, q_w]
-
-
 @pytest.mark.parametrize("scorer,nq,m,ns", SHAPES,
                          ids=lambda v: str(v))
 def test_scorers_bit_equal_reference_on_random_inputs(scorer, nq, m, ns):
     rng = np.random.default_rng([nq, m, ns, scorer == "rep"])
-    args = _random_args(scorer, nq, m, ns, rng)
+    args = scorer_args(scorer, nq, m, ns, rng)
     name = {"rep": "_score_replace_torch",
             "sec": "_score_secondary_torch"}[scorer]
     got = getattr(ce, name)(*[torch.as_tensor(a) for a in args])
@@ -286,15 +266,19 @@ def test_scorers_bit_equal_reference_on_random_inputs(scorer, nq, m, ns):
     np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
 
 
+P = ce._Part
+
+
 @pytest.mark.parametrize("shape,order", [
-    (("rep", 8, 8, 2), ("A", "A", 8, 0)),      # unrolled: the chain
-    (("rep", 8, 8, 3), ("A", "B", 8, 8)),      # one 8-lane vector
-    (("rep", 8, 16, 3), ("A", "B", 8, 8)),
-    (("rep", 16, 16, 2), ("A", "A", 8, 16)),   # two blocks, no epilogue
-    (("rep", 24, 8, 3), ("A", "B", 8, 16)),    # stride 8: a scalar epilogue
-    (("rep", 9, 9, 4), ("B", "B", 8, 0)),      # a scalar loop
-    (("sec", 15, 40, 0), ("B", "B", 8, 0)),
-    (("sec", 16, 8, 0), ("B", "B", 8, 8)),
-    (("sec", 33, 16, 0), ("B", "B", 8, 32))])
+    (("rep", 8, 8, 2), (P(1, 1, 8, False, "A"),)),    # unrolled: the chain
+    (("rep", 8, 8, 3), (P(8, 1, 8, True, "A"),)),     # one 8-lane vector
+    (("rep", 8, 16, 3), (P(8, 1, 8, True, "A"),)),
+    (("rep", 16, 16, 2), (P(8, 2, 16, True, "A"),)),  # two blocks, no epilogue
+    (("rep", 24, 8, 3), (P(8, 2, 16, True, "A"),      # stride 8: a scalar
+                         P(1, 1, 8, False, "B"))),    # epilogue
+    (("rep", 9, 9, 4), (P(1, 1, 9, False, "B"),)),    # a scalar loop
+    (("sec", 15, 40, 0), (P(1, 1, 15, False, "B"),)),
+    (("sec", 16, 8, 0), (P(8, 1, 8, True, "B"), P(1, 1, 8, False, "B"))),
+    (("sec", 33, 16, 0), (P(8, 4, 32, True, "B"), P(1, 1, 1, False, "B")))])
 def test_xla_sum_order_classes(shape, order):
     assert ce._xla_sum_order(*shape) == order

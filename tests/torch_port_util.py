@@ -9,6 +9,7 @@ import re
 from pathlib import Path
 
 import numpy as np
+import torch
 
 import repro_torch.core as pt
 
@@ -464,3 +465,43 @@ def example_output(fn, *args) -> str:
     with contextlib.redirect_stdout(buf):
         fn(*args)
     return buf.getvalue()
+
+
+def scorer_args(scorer: str, nq: int, m: int, ns: int, rng) -> list:
+    """float32 operands of a greedy-step scorer ("sec": add a secondary,
+    "rep": replace the clustered layout) whose paths mostly win through
+    seek + RID (scan and covering costs 500-3000, RID terms of comparable
+    size), so every rounding of the RID term and of the sum shows: nq
+    queries, m candidates, ns kept secondaries."""
+    def u(lo, hi, *shape):
+        return rng.uniform(lo, hi, shape).astype(np.float32)
+    q_w = u(0.1, 10, nq)
+    ncols = rng.integers(1, 8, nq).astype(np.float32)
+    if scorer == "rep":
+        return [u(500, 3000, nq, m), u(500, 3000, nq, ns),
+                u(0.01, 5, nq, ns), u(0, 300, nq, ns), u(1e5, 3e6, m),
+                u(0, 0.3, m), ncols, q_w]
+    return [u(500, 3000, nq), u(500, 3000, nq, m), u(0.01, 5, nq, m),
+            u(0, 300, nq, m), np.float32(rng.uniform(1e5, 3e6)),
+            np.float32(rng.uniform(0, 0.3)), ncols, q_w]
+
+
+def f32_bits(a) -> np.ndarray:
+    """float32 values as their int32 bit patterns, to compare bitwise."""
+    return np.asarray(a, np.float32).view(np.int32)
+
+
+def scorer_bits_differ(scorer: str, nq: int, m: int, ns: int, rng) -> int:
+    """How many totals of a greedy-step scorer differ in bits between the
+    port's torch scorer and the JAX package's, on `scorer_args` from
+    `rng`."""
+    import jax.numpy as jnp
+    from repro.core import cost_engine as ref_ce
+    from repro_torch.core import cost_engine as ce
+    ours, ref = ((ce._score_secondary_torch, ref_ce._jax_score_secondary)
+                 if scorer == "sec" else
+                 (ce._score_replace_torch, ref_ce._jax_score_replace))
+    args = scorer_args(scorer, nq, m, ns, rng)
+    got = ours(*[torch.as_tensor(a) for a in args])
+    want = ref(*[jnp.asarray(a) for a in args])
+    return int((f32_bits(got.numpy()) != f32_bits(want)).sum())
