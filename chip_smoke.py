@@ -6,7 +6,8 @@ distribution.
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught), run in the order
-1, 2, 3, 3b, 3c, 3d, 3e, 4, 5, 4b, 6, 4c, 6f, 7, 8, 9, 11, 12, 10:
+1, 2, 3, 3b, 3c, 3d, 3e, 4, 5, 4b, 6, 4c, 6f, 7, 8, 9, 11, 12, 10, with
+3f in a process of its own from 9 on, joined after 10:
   1. print the card (nvidia-smi name, power limit) and build the eighteen
      hand-written kernels from the sources under src/repro_torch/kernels/
      (four libraries, one nvcc per source, all started together);
@@ -146,9 +147,8 @@ Phases (any failure exits non-zero; nothing is caught), run in the order
      a checksum IOError; the training launcher twice on one directory (4
      steps, then 2 from step 4).  Prints each save's seconds (snapshot to
      host, encode, write + fsync), each restore's, raw and stored bytes,
-     threads, os.cpu_count(), the disk's free bytes, zlib's one-thread
-     rates on one layer's mlp.wi at levels 1 and 6, peak device memory of
-     T1 and T2 and the phase's seconds; fails with less than 3x the
+     threads, os.cpu_count(), the disk's free bytes, peak device memory
+     of T1 and T2 and the phase's seconds; fails with less than 3x the
      state's raw bytes free;
   7. the remaining model families (`phase_7`, module level like 6f), in
      float32 with weights from init_params (seed 0), every earlier model
@@ -279,7 +279,21 @@ Phases (any failure exits non-zero; nothing is caught), run in the order
      tests/test_torch_train_hybrid.py), the CPU's must not fall either and
      the same weights trained with float32 moments and no wire must fall
      on the card; prints each part's
-     seconds; the q8 launches of its training runs join the q8 records.
+     seconds; the q8 launches of its training runs join the q8 records;
+  3f. (`chip_smoke.py --phase-3f`, started as phase 9 starts: its
+     host-bound advisor work runs beside 9-12 and 10, which leave most of
+     the host's cores idle; phase 10 starts once its SampleCF has handed
+     back the ~43 GB of the card it needs; joined after 10, its output
+     printed, its launches joining the advisor records)
+     DesignAdvisor.recommend on
+     make_scaled_workload(10,000 statements) on phase 3's data, options
+     and budget, without workload compression: lineitem's 6,833 queries
+     are past the 4,096 at which XLA's scorers leave their dot unfused.
+     Every distinct (scorer, nq, m, ns) of its greedy-step scorer calls
+     bit-equal card vs CPU (`check_scorer_order`), the calls at nq >= 4,096
+     counted and timed; the card's configuration priced by the port's
+     numpy CostEngine within rtol 1e-6 of the card's cost, its bytes
+     within the budget.
 
 Prints the per-phase wall times, launch counts, kernel times beside their
 bounds, peak device memory, a JSON line of kernel records, the card line,
@@ -288,6 +302,7 @@ and last {"ok": true, "device": {...}}.  Imports nothing of JAX.
 import contextlib
 import dataclasses
 import gc
+import heapq
 import json
 import math
 import subprocess
@@ -432,6 +447,19 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+PHASE_SECONDS = {}                # host seconds of each phase of main()
+_RUNNING = [None, 0.0]           # the running phase and its start
+
+
+def enter_phase(name) -> None:
+    """End the running phase's host seconds (into PHASE_SECONDS) and start
+    `name`'s (None: start none)."""
+    now = time.perf_counter()
+    if _RUNNING[0] is not None:
+        PHASE_SECONDS[_RUNNING[0]] = round(now - _RUNNING[1], 3)
+    _RUNNING[:] = [name, now]
+
+
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke FAILED: {msg}")
 
@@ -484,18 +512,69 @@ def timed(fn):
 
 SCORERS = {"_score_secondary_torch": "sec", "_score_replace_torch": "rep"}
 SCORER_CHECKS = 32               # scorer calls held to the CPU after 3b
+UNFUSED_NQ = 4096                # XLA's scorers call an unfused dot from here
+N_UNCOMPRESSED = 10_000          # phase 3f: statements, no compression
+PHASE_3F_FLAG = "--phase-3f"     # argv of phase 3f's own process
+SAMPLED_MARK = "phase 3f: SampleCF done, its device memory handed back"
+_CHILDREN = []                   # processes main() started
+
+
+def advisor_budget(schema) -> float:
+    """The advisor phases' budget: 25 % of the base (heap) size."""
+    return 0.25 * sum(t.nrows * (sum(c.width for c in t.columns) + 4)
+                      for t in schema.tables.values())
+
+
+class ScorerCalls:
+    """The greedy-step scorer calls of the runs `keeping_scorer_calls`
+    wraps: every call's (scorer, nq, m, ns) and seconds, and the operands
+    and output, on their device, of what `check_scorer_order` holds to the
+    CPU: each shape's first call and the SCORER_CHECKS largest others
+    (every call's operands would fill the card at 10,000 statements)."""
+
+    def __init__(self):
+        self.count = {}          # (scorer, nq, m, ns) -> calls
+        self.seconds = {}        # (scorer, nq, m, ns) -> their seconds
+        self.first = {}          # (scorer, nq, m, ns) -> (name, args, out)
+        self.largest = []        # heap of (cells, -order, key, name, args, out)
+
+    def add(self, name, args, out, secs):
+        key = scorer_shape(name, args)
+        self.count[key] = self.count.get(key, 0) + 1
+        self.seconds[key] = self.seconds.get(key, 0.0) + secs
+        if key not in self.first:
+            self.first[key] = (name, args, out)
+            return
+        item = (key[1] * key[2] * max(key[3], 1), -sum(self.count.values()),
+                key, name, args, out)
+        if len(self.largest) < SCORER_CHECKS:
+            heapq.heappush(self.largest, item)
+        else:
+            heapq.heappushpop(self.largest, item)
+
+    def picked(self):
+        """Each shape's first call, then the largest others, up to
+        SCORER_CHECKS in all: [(key, name, args, out)]."""
+        rest = [c[2:] for c in sorted(self.largest, reverse=True)]
+        return ([(k, *v) for k, v in self.first.items()]
+                + rest[:max(0, SCORER_CHECKS - len(self.first))])
 
 
 def keeping_scorer_calls(make, calls):
-    """make() with the advisor's greedy-step scorers wrapped: each call's
-    (name, operands, output) appended to `calls`."""
+    """make() with the advisor's greedy-step scorers wrapped: each call
+    added to `calls` (a ScorerCalls) with its seconds on the host clock
+    to the output's being ready."""
+    import torch
     from repro_torch.core import cost_engine as ce
     orig = {n: getattr(ce, n) for n in SCORERS}
 
     def wrap(name):
         def run(*args):
+            t0 = time.perf_counter()
             out = orig[name](*args)
-            calls.append((name, args, out))
+            if out.is_cuda:
+                torch.cuda.synchronize()
+            calls.add(name, args, out, time.perf_counter() - t0)
             return out
         return run
     for n in SCORERS:
@@ -507,24 +586,22 @@ def keeping_scorer_calls(make, calls):
             setattr(ce, n, f)
 
 
+def scorer_shape(name, args):
+    """(scorer, nq, m, ns) of a greedy-step scorer call."""
+    if name == "_score_secondary_torch":
+        return (SCORERS[name], *args[1].shape, 0)
+    return (SCORERS[name], *args[0].shape, args[1].shape[1])
+
+
 def check_scorer_order(label, calls):
     """The scorers' outputs on the card bit-equal to the same function on
     CPU copies of the operands (the CPU sum is the one the tests hold to
     the JAX package's): every distinct (scorer, nq, m, ns) once, then more
-    calls, the largest first, up to SCORER_CHECKS."""
+    calls, the largest first, up to SCORER_CHECKS (`ScorerCalls`)."""
     import torch
     from repro_torch.core import cost_engine as ce
     t0 = time.perf_counter()
-    by_shape = {}
-    for name, args, out in calls:
-        sec = name == "_score_secondary_torch"
-        nq, m = args[1].shape if sec else args[0].shape
-        key = (SCORERS[name], nq, m, 0 if sec else args[1].shape[1])
-        by_shape.setdefault(key, []).append((key, name, args, out))
-    picked = [v[0] for v in by_shape.values()]
-    rest = sorted((c for v in by_shape.values() for c in v[1:]),
-                  key=lambda c: -c[0][1] * c[0][2] * max(c[0][3], 1))
-    picked += rest[:max(0, SCORER_CHECKS - len(picked))]
+    picked = calls.picked()
     # small tensors: one host thread is the quickest
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
@@ -536,10 +613,10 @@ def check_scorer_order(label, calls):
                      "differs between the card and the CPU")
     finally:
         torch.set_num_threads(threads)
-    shapes = ", ".join(f"{k[0]} ({k[1]}, {k[2]}, {k[3]}) x{len(v)}"
-                       for k, v in sorted(by_shape.items()))
-    print(f"{label}: {len(calls)} scorer calls, {len(by_shape)} distinct "
-          f"(scorer, nq, m, ns): {shapes}")
+    shapes = ", ".join(f"{k[0]} ({k[1]}, {k[2]}, {k[3]}) x{n}"
+                       for k, n in sorted(calls.count.items()))
+    print(f"{label}: {sum(calls.count.values())} scorer calls, "
+          f"{len(calls.count)} distinct (scorer, nq, m, ns): {shapes}")
     print(f"{label}: {len(picked)} scorer calls (every distinct shape) "
           f"bit-equal card vs CPU in {time.perf_counter() - t0:.3f} s")
 
@@ -965,7 +1042,6 @@ def phase_6f(lm, dev):
     import os
     import shutil
     import tempfile
-    import zlib
 
     import torch
     from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
@@ -1020,22 +1096,6 @@ def phase_6f(lm, dev):
             fail(f"phase 6f: {free} B free under {root}, less than "
                  f"{DISK_FACTOR} x the state's {raw_state} raw bytes (a "
                  "save holds the old checkpoint and the new .tmp at once)")
-        # host zlib rates on the state's largest float32 leaf, one thread
-        sample = t0_.params.layers[0]["mlp"]["wi"].detach().cpu().numpy()
-        rates = {}
-        for level in (1, 6):
-            t_ = time.perf_counter()
-            z = zlib.compress(sample, level)
-            took = time.perf_counter() - t_
-            t_ = time.perf_counter()
-            zlib.decompress(z)
-            rates[level] = (sample.nbytes / took / 1e6, len(z) / sample.nbytes,
-                            sample.nbytes / (time.perf_counter() - t_) / 1e6)
-        print("phase 6f: zlib on one layer's mlp.wi at init (" +
-              f"{sample.nbytes} B float32), one thread: " + "; ".join(
-                  f"level {lv}: compress {r[0]:.1f} MB/s, ratio {r[1]:.4f}, "
-                  f"decompress {r[2]:.1f} MB/s" for lv, r in rates.items()))
-        del sample, z
         t0_.run(CKPT_STEPS[0])
         at3 = host_copy(t0_.params)
         t0_.run(CKPT_STEPS[1])
@@ -1599,27 +1659,7 @@ def phase_7(dev, prompts):
               f"positions) " + str([(i, f[0].nonzero().flatten().tolist())
                                     for i, f in enumerate(near)
                                     if f.any()]))
-        # the same weights in float64 (in place, 60.6 GB; the norms'
-        # variance and the WKV state stay float32, as in the JAX functions)
-        params.double()
-        exact = MD.forward(params, cfg, torch.tensor([fed], device=dev))[0]
-        st = MD.init_serve_state(cfg, 1, LM_MAX_LEN, device=dev)
-        st["rwkv"]["tm_shift"] = st["rwkv"]["tm_shift"].double()
-        st["rwkv"]["cm_shift"] = st["rwkv"]["cm_shift"].double()
-        steps = []
-        for t in fed:
-            logits, st = MD.decode_step(params, st, cfg,
-                                        torch.tensor([[t]], device=dev))
-            steps.append(logits[0, 0])
-        to64 = {name: (v.double() - exact).abs().amax(-1) for name, v in
-                (("float32 engine", stepwise), ("float32 forward", full),
-                 ("float64 decode_step", torch.stack(steps)))}
-        print("phase 7b: against forward with float64 weights, max abs err "
-              "by position (the first 8): " + "; ".join(
-                  f"{k} {[float(f'{x:.3g}') for x in v[:8].tolist()]}, "
-                  f"from position 8 on {float(v[8:].max()):.3g}"
-                  for k, v in to64.items()))
-        del params, full, stepwise, logits, exact, st, steps, to64
+        del params, full, stepwise, logits
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -2432,6 +2472,143 @@ ALL_SCALAR = dict(use_engine=False, use_batched_estimation=False,
                   use_batched_planner=False)
 
 
+def phase_3f(schema, opts, budget):
+    """Phase 3f: `recommend` on make_scaled_workload(N_UNCOMPRESSED) over
+    phase 3's schema and options at phase 3's budget, without workload
+    compression, on the card, with the launch counters zeroed just before
+    and read just after.  Lineitem's queries are past UNFUSED_NQ, where the
+    JAX package's scorers sum as XLA's unfused dot does: every distinct
+    (scorer, nq, m, ns) of the run's greedy-step scorer calls bit-equal
+    card vs CPU (`check_scorer_order`).  The card's configuration priced
+    by the port's numpy CostEngine (`config_cost`) on the same workload
+    and sizes within rtol 1e-6 of the card's cost, its bytes within the
+    budget.  Returns the run's launches."""
+    import torch
+    from repro_torch import core as pt
+    t_phase = time.perf_counter()
+    wl = pt.make_scaled_workload(schema, n_statements=N_UNCOMPRESSED,
+                                 seed=0)
+    by_table = {}
+    for q in wl.queries():
+        by_table[q.table] = by_table.get(q.table, 0) + 1
+    print(f"data 3f: {len(wl.statements)} statements (make_scaled_workload,"
+          f" seed 0), queries by table {by_table}, no workload compression")
+    if by_table["lineitem"] < UNFUSED_NQ:
+        fail(f"phase 3f: lineitem has {by_table['lineitem']} queries, "
+             f"fewer than {UNFUSED_NQ}")
+    calls, launches = ScorerCalls(), {}
+    adv = pt.DesignAdvisor(wl, opts)
+    execute = pt.EstimationPlanner.execute
+    sampled = {}
+
+    def releasing(self, plan, engine):
+        """SampleCF's batches are this phase's peak of device memory; hand
+        the cached blocks back after them (phase 10 runs beside)."""
+        out = execute(self, plan, engine)
+        sampled["peak"] = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        print(SAMPLED_MARK, flush=True)
+        return out
+    pt.EstimationPlanner.execute = releasing
+    try:
+        rec, secs, _ = counted(lambda: keeping_scorer_calls(
+            lambda: adv.recommend(budget), calls), launches)
+    finally:
+        pt.EstimationPlanner.execute = execute
+    ph = ", ".join(f"{k} {rec.phase_seconds[k]:.3f}"
+                   for k in pt.advisor.PHASES)
+    print(f"recommend 3f torch/cuda: {secs:.3f} s ({ph}); {len(rec.steps)} "
+          f"steps, {len(rec.config.indexes)} indexes, cost {rec.cost!r}, "
+          f"used_bytes {rec.used_bytes!r}; launches {json.dumps(launches)}")
+    for name in ("ns_bytes", "ldict_bytes", "planner_walk"):
+        if launches[name] <= 0:
+            fail(f"phase 3f: kernel {name} was not launched")
+    big = [k for k in calls.count if k[1] >= UNFUSED_NQ]
+    print(f"phase 3f: {sum(calls.count.values())} scorer calls in "
+          f"{sum(calls.seconds.values()):.3f} s, "
+          f"{sum(calls.count[k] for k in big)} of them at nq >= "
+          f"{UNFUSED_NQ} in {sum(calls.seconds[k] for k in big):.3f} s; "
+          f"peak device memory {sampled['peak']} B up to SampleCF's end, "
+          f"{torch.cuda.max_memory_allocated()} B in all, "
+          f"{torch.cuda.memory_reserved()} B reserved after")
+    if not big:
+        fail(f"phase 3f: no scorer call at nq >= {UNFUSED_NQ}")
+    check_scorer_order("phase 3f", calls)
+    del calls
+    t0 = time.perf_counter()
+    priced = pt.CostEngine(wl, adv.sizes).config_cost(rec.config)
+    print(f"phase 3f: the numpy CostEngine prices the card's configuration "
+          f"at {priced!r} against the card's {rec.cost!r} "
+          f"({time.perf_counter() - t0:.3f} s); used {rec.used_bytes!r} of "
+          f"{budget!r} B")
+    if not math.isclose(priced, rec.cost, rel_tol=1e-6):
+        fail(f"phase 3f: numpy prices the configuration at {priced!r}, "
+             f"the card at {rec.cost!r}, beyond rtol 1e-6")
+    if rec.used_bytes > budget:
+        fail(f"phase 3f: {rec.used_bytes!r} B used of a {budget!r} B budget")
+    print(f"phase 3f: {time.perf_counter() - t_phase:.3f} s")
+    return launches
+
+
+def phase_3f_alone() -> int:
+    """`chip_smoke.py --phase-3f`: phase 3f on phase 3's SF1 data, options
+    and budget, in a process of its own; its last line the launches."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke --phase-3f: no CUDA card", file=sys.stderr)
+        return 2
+    from repro_torch import core as pt
+    schema = pt.make_tpch_like(scale=SF1_SCALE, z=0.0, seed=0)
+    launches = phase_3f(schema, pt.AdvisorOptions(backend="torch",
+                                                  device="cuda"),
+                        advisor_budget(schema))
+    print(f"launches 3f: {json.dumps(launches)}")
+    return 0
+
+
+def start_phase_3f():
+    """Start phase 3f's own process, its output to a temporary file: its
+    host-bound advisor work runs beside phases 9-12 and 10, which leave
+    most of the host's cores idle.  Returns (process, log path, start
+    time)."""
+    import tempfile
+    fd, log = tempfile.mkstemp(prefix="chip_smoke_3f_", suffix=".log")
+    with open(fd, "w") as out:
+        proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                 PHASE_3F_FLAG], stdout=out,
+                                stderr=subprocess.STDOUT, cwd=ROOT)
+    _CHILDREN.append(proc)
+    print(f"phase 3f: started in process {proc.pid}")
+    return proc, Path(log), time.perf_counter()
+
+
+def wait_for_sampling(proc, log, t0):
+    """Wait until phase 3f's SampleCF, which needs ~43 GB of the card
+    (call 5, PR 33), has handed its memory back (or its process ended)."""
+    t_wait = time.perf_counter()
+    while proc.poll() is None and SAMPLED_MARK not in log.read_text():
+        time.sleep(0.5)
+    print(f"phase 3f: its SampleCF done {time.perf_counter() - t0:.3f} s "
+          f"after its start; {time.perf_counter() - t_wait:.3f} s of "
+          f"waiting for it before phase 10")
+
+
+def join_phase_3f(proc, log, t0):
+    """Wait for phase 3f's process, print its output, fail if it failed;
+    returns its launches."""
+    t_wait = time.perf_counter()
+    rc = proc.wait()
+    now = time.perf_counter()
+    out = log.read_text()
+    log.unlink()
+    print(out, end="")
+    if rc != 0:
+        fail(f"phase 3f's process exited with {rc}")
+    print(f"phase 3f: its process took {now - t0:.3f} s beside phases "
+          f"9-12 and 10; {now - t_wait:.3f} s of waiting for it after 10")
+    return json.loads(out.splitlines()[-1].split(": ", 1)[1])
+
+
 def phase_12(dev, wl, budget, rec3_t, rec3_n, price3_n, est3, rec3c_n):
     """Phase 12: the reference's statement-at-a-time paths beside the
     batched ones at SF1, on phase 3's workload `wl` and `budget`, every
@@ -3060,12 +3237,14 @@ def main() -> int:
     print(f"card: {card}")
 
     # ---- phase 1: build ----------------------------------------------
+    enter_phase("1")
     t0 = time.perf_counter()
     libs = build.build_all()
     print(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.3f} s "
           f"({', '.join(p.name for p in libs)})")
 
     # ---- phase 2: kernels against plain versions, edge cases ---------
+    enter_phase("2")
     rng = np.random.default_rng(0)
 
     def t64(a):
@@ -3628,13 +3807,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 3: the main path at TPC-H SF1 -------------------------
+    enter_phase("3")
     t0 = time.perf_counter()
     schema = pt.make_tpch_like(scale=SF1_SCALE, z=0.0, seed=0)
     wl = pt.make_tpch_workload(schema, insert_weight=0.1)
-    base_bytes = sum(
-        t.nrows * (sum(c.width for c in t.columns) + 4)
-        for t in schema.tables.values())
-    budget = 0.25 * base_bytes
+    budget = advisor_budget(schema)
     print(f"data: TPC-H-like scale={SF1_SCALE}, lineitem "
           f"{schema.tables['lineitem'].nrows} rows, "
           f"{len(wl.statements)} statements, budget {budget:.1f} B, "
@@ -3784,7 +3961,7 @@ def main() -> int:
     opts = pt.AdvisorOptions(backend="torch", device="cuda")
     # the greedy-step scorers' calls of phases 3 and 3b, held to the CPU
     # after 3b
-    scorer_calls = []
+    scorer_calls = ScorerCalls()
     # the run's batched card estimates, kept for phase 12b
     est3 = {}
     execute = pt.EstimationPlanner.execute
@@ -3817,6 +3994,7 @@ def main() -> int:
                  adv_n.build_engine().config_cost)
 
     # ---- phase 3b: large workload, five codecs, workload compression --
+    enter_phase("3b")
     t0 = time.perf_counter()
     wl_big = pt.make_scaled_workload(schema, n_statements=N_SCALED,
                                      insert_fraction=0.1, seed=0)
@@ -3859,6 +4037,7 @@ def main() -> int:
     del scorer_calls
 
     # ---- phase 3c: the staged baseline (Example 1) ---------------------
+    enter_phase("3c")
     rec_st, wall_st, launches3c = walked(
         "phase 3c", lambda: pt.staged_recommend(
             wl, budget, methods=FIVE,
@@ -3891,6 +4070,7 @@ def main() -> int:
     judge_config("phase 3c", rec_st, staged_n, staged_price)
 
     # ---- phase 3d: the online session at SF1 ---------------------------
+    enter_phase("3d")
     # each round of a session held to a fresh torch/cuda recommend on the
     # workload after it; only the session rounds count as 3d's launches
     launches3d = {k: 0 for k in launches3}
@@ -4069,6 +4249,7 @@ def main() -> int:
     print(f"launches in phase 3d's session rounds: {json.dumps(launches3d)}")
 
     # ---- phase 3e: the fleet and its durable store at SF1 ---------------
+    enter_phase("3e")
     # every tenant on phase 3's schema, options and budget (one share
     # group); only the fleet's drains count as 3e's launches
     from repro_torch.serve import advisor_service as fleet_mod
@@ -4474,6 +4655,7 @@ def main() -> int:
     print(f"launches in phase 3e's fleet drains: {json.dumps(launches3e)}")
 
     # ---- phase 4: kernels at the main paths' inputs -------------------
+    enter_phase("4")
     # the second run of each path is traced: LDICT's device time over its
     # launches beside the measured run's SampleCF seconds
     from torch.autograd import DeviceType
@@ -4752,6 +4934,7 @@ def main() -> int:
     del li_cols, args, got, want, inputs, g, res, again, tg
 
     # ---- phase 5: LM serving at TinyLlama-1.1B -------------------------
+    enter_phase("5")
     from repro_torch.configs import get_config
     from repro_torch.design.advisor import plan_layout
     from repro_torch.models import layers as L, model as MD
@@ -4964,6 +5147,7 @@ def main() -> int:
               f"beside the float32 mlp {f_ms:.4f} ms")
 
     # ---- phase 4b: the LM kernels at phase 5's shapes -----------------
+    enter_phase("4b")
     wi_t = [m["wi"].t().contiguous() for m in mlps]     # (5632, 2048)
     wo_t = [m["wo"].t().contiguous() for m in mlps]     # (2048, 5632)
     for name, ws in (("wi", wi_t), ("wo", wo_t)):
@@ -5078,6 +5262,7 @@ def main() -> int:
                         "shape": h["shape"], "cases": cases})
 
     # ---- phase 6: LM training at TinyLlama-1.1B -------------------------
+    enter_phase("6")
     from repro_torch.data.pipeline import DataConfig, batch_at
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.train import step as train_step
@@ -5223,6 +5408,7 @@ def main() -> int:
     del p_card
 
     # ---- phase 4c: the dequantize kernel at phase 6's shapes ------------
+    enter_phase("4c")
     # (and quantize at the same shapes: most of its launches are here):
     # every distinct shape on the q8 wire, cycling through its tensors
     by_shape = {}
@@ -5400,6 +5586,7 @@ def main() -> int:
     del wire6, by_shape, qn, sn, out_n, wire_all
 
     # ---- phase 6f: save, kill and resume training at TinyLlama-1.1B -----
+    enter_phase("6f")
     launches6f = phase_6f(lm, dev)
 
     dq_launches = {"6b": launches6b["dequantize_blockwise"],
@@ -5451,9 +5638,11 @@ def main() -> int:
           f"{json.dumps(rec_q['launches_by_phase'])}")
 
     # ---- phase 7: the remaining model families --------------------------
+    enter_phase("7")
     phase_7(dev, prompts)
 
     # ---- phase 8: distribution and launch -------------------------------
+    enter_phase("8")
     launches8 = phase_8(lm, dev)
     for rec in records:
         if rec["name"] in ("quantize_blockwise", "dequantize_blockwise"):
@@ -5461,6 +5650,8 @@ def main() -> int:
             rec["launches"] += launches8[rec["name"]]
 
     # ---- phase 9: the paper's estimation experiments at SF1 -------------
+    enter_phase("9")
+    child3f = start_phase_3f()
     gc.collect()
     torch.cuda.empty_cache()
     launches9, extras9 = phase_9(dev, schema, rec_t.config)
@@ -5473,6 +5664,7 @@ def main() -> int:
         rec["launches"] += n9
 
     # ---- phase 11: existing indexes and the what-if API at SF1 ----------
+    enter_phase("11")
     launches11 = phase_11(dev, schema, rec_t.config,
                           rec_t.estimation_plan.targets)
     for rec in records:
@@ -5481,6 +5673,7 @@ def main() -> int:
         rec["launches"] += n11
 
     # ---- phase 12: the statement-at-a-time oracle paths at SF1 ----------
+    enter_phase("12")
     launches12 = phase_12(dev, wl, budget, rec_t, rec_n,
                           adv_n.build_engine().config_cost, est3, staged_n)
     for rec in records:
@@ -5489,14 +5682,27 @@ def main() -> int:
         rec["launches"] += n12
 
     # ---- phase 10: training the remaining families on the card ----------
+    enter_phase("10")
     del schema, rec_t, launches9, extras9, launches11, launches12, est3, \
         adv_n, rec_n, staged_n
+    wait_for_sampling(*child3f)
     launches10 = phase_10(dev)
     for rec in records:
         if rec["name"] in launches10:
             rec["launches_by_phase"]["10"] = launches10[rec["name"]]
             rec["launches"] += launches10[rec["name"]]
 
+    # ---- phase 3f: past the fused dot, its process joined ---------------
+    enter_phase("3f wait")
+    launches3f = join_phase_3f(*child3f)
+    for rec in records:
+        if rec["name"] in ADVISOR_KERNELS:
+            rec["launches_by_phase"]["3f"] = launches3f[rec["name"]]
+            rec["launches"] += launches3f[rec["name"]]
+
+    enter_phase(None)
+    print(f"phase seconds: {json.dumps(PHASE_SECONDS)}; total "
+          f"{sum(PHASE_SECONDS.values()):.3f} s")
     print(json.dumps({"kernels": records}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
@@ -5505,4 +5711,12 @@ def main() -> int:
     return 0
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:] == [PHASE_3F_FLAG]:
+        sys.exit(phase_3f_alone())
+    try:
+        sys.exit(main())
+    finally:
+        for child in _CHILDREN:
+            if child.poll() is None:
+                child.kill()
+                child.wait()

@@ -29,12 +29,13 @@ op sequences of the JAX package's `jax.jit` scorers).  The weighted sum
 `q_w @ new_q` is not a BLAS call: XLA's CPU dot sums a vector-matrix
 product in an order LLVM picks by shape (its vectorized query loop:
 lanes of float32 fused multiply-adds, interleaved accumulators, a vector
-epilogue, a scalar chain), and a BLAS library picks its own order per
-CPU branch, which moves the greedy's near-zero benefits across its
-threshold.  `_xla_sum_order` describes that loop for each shape, read
-off XLA's dumps, and `_fma_chain` /
-`_rid_f32` compute it exactly, with the same ops on the CPU and the card,
-so the totals are the JAX package's bit for bit where the rule holds.
+epilogue, a scalar chain; from 4,096 queries XLA's own GEMV, one chain a
+candidate), and a BLAS library picks its own order per CPU branch, which
+moves the greedy's near-zero benefits across its threshold.
+`_xla_sum_order` describes that loop for each shape, read off XLA's
+dumps, and `_fma_chain` / `_rid_f32` compute it exactly, with the same
+ops on the CPU and the card, so the totals are the JAX package's bit for
+bit where the rule holds.
 The cost matrices themselves stay on the host, as in the reference, and
 each scoring call copies its slices to the device in one transfer.
 
@@ -565,6 +566,16 @@ def _fma_chain(q_w: torch.Tensor, new_q: torch.Tensor,
     return acc
 
 
+def _mul_add_chain(q_w: torch.Tensor, new_q: torch.Tensor) -> torch.Tensor:
+    """`q_w @ new_q` (k,) x (k, m) -> (m,) as a sequential float32 chain
+    from the first product, each product rounded before its add."""
+    p = q_w[:, None] * new_q
+    acc = p[0]
+    for p_i in p[1:].unbind(0):
+        acc = acc + p_i
+    return acc
+
+
 def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
            ) -> torch.Tensor:
     """float32 fma(a, b, c) of float32 operands, exactly (`_rn32_add`)."""
@@ -597,12 +608,15 @@ class _Part(NamedTuple):
     """`n` consecutive queries of `q_w @ new_q` as one loop of XLA's CPU
     code sums them: `lanes` float32 lanes (1: a scalar chain), `accs`
     interleaved accumulators of them, the vector loop fully `unrolled` or
-    not, and the RID term in `form` (`_rid_f32`)."""
+    not, and the RID term in `form` (`_rid_f32`).  A first chain that is
+    not `fused` rounds the last candidate's products before it adds them
+    (`_gemv_order`)."""
     lanes: int
     accs: int
     n: int
     unrolled: bool
     form: str
+    fused: bool = True
 
 
 _UNIT, _G56, _WIDE = (1, 1, 1, 1), (2, 2, 2, 1), (2, 3, 2, 1)
@@ -680,12 +694,38 @@ def _vector_plan(nq: int, costs, gaps: int, max_ic: int
     return vf, ic, n, evf, n_epi
 
 
+# XLA's CPU fusion pass fuses a vector-matrix dot with the producer of its
+# matrix only while the vector is smaller than this (kFusionThresholdBytes)
+_DOT_FUSION_BYTES = 16 * 1024
+
+
+def _gemv_order(scorer: str, nq: int, m: int) -> Tuple[_Part, ...]:
+    """The sum order of the unfused dot, where the float32 q_w reaches
+    `_DOT_FUSION_BYTES` (nq >= 4,096): a loop fusion writes new_q, then XLA
+    emits the dot as its tiled column-major GEMV, 8 candidates a vector and
+    8 queries a tile.  Each candidate's total is one float32 FMA chain over
+    the queries in order, from the first product.  The first tile selects
+    the product at query 0; where one candidate is left over from the
+    vectors (m % 8 == 1), its scalar loop keeps that select, and so its
+    multiply apart from the add: the tile's products are rounded before
+    they are added (more leftover candidates make a loop that LLVM
+    unswitches, and the select goes).  The loop fusion computes the RID
+    term as straight code: the replace scorer's CPU_ROW * ridr is hoisted
+    out of the candidate loop where there is one (form "A"), the secondary
+    scorer's is not ("B")."""
+    form = "A" if scorer == "rep" and m > 1 else "B"
+    if m % 8 != 1:
+        return (_Part(1, 1, nq, False, form),)
+    return (_Part(1, 1, 8, False, form, False),
+            _Part(1, 1, nq - 8, False, form))
+
+
 def _xla_sum_order(scorer: str, nq: int, m: int, ns: int
                    ) -> Tuple[_Part, ...]:
     """How XLA's CPU code (x86, AVX-512, 8-wide float32 vectors) sums a
-    scorer's fused `q_w @ new_q` over nq < 4,096 queries: consecutive
-    `_Part`s, the first from 0, each continuing from the total before it
-    (`_xla_dot`).
+    scorer's `q_w @ new_q`: consecutive `_Part`s, the first from 0, each
+    continuing from the total before it (`_xla_dot`).  From 4,096 queries
+    on, the dot is not fused (`_gemv_order`); below, as follows.
 
     Read off XLA's dumps (`XLA_FLAGS=--xla_dump_to`, `*.ir-with-opt.ll` and
     the object code; jax 0.9.0 on x86 with AVX-512F) of the JAX package's
@@ -700,20 +740,24 @@ def _xla_sum_order(scorer: str, nq: int, m: int, ns: int
     chain, except where LLVM unrolled it first and vectorized across the
     candidates (a chain too), m = 1 at 14 and 15 queries (one 8-lane vector
     with its tail masked) and the replace scorer's loops of 4 and 8 (one
-    vector).  The replace scorer's loop is not vectorized at ns >= 18.
+    vector).  The replace scorer's loop is not vectorized at ns >= 18 (read
+    at nq 1-100, m 1-40, ns 18-64, and up to 4,095 at ns 18-32).
 
     The RID term's form: the secondary scorer's is "B" (its ridr differs
     per candidate).  The replace scorer's CPU_ROW * ridr is the same for
     every candidate, so where the query loop's code is straight (an
     unrolled loop or remainder) inside a column loop that LLVM keeps, it is
     hoisted out of that loop and form "A" follows; elsewhere "B".  LLVM
-    keeps the column loop at m > 8 and at m (ns + 1) > 16.
+    keeps the column loop at m > 8 and at m (ns + 1) > 16 (below 18 kept
+    secondaries; at 18 and more, see the code).
 
-    Left open (ROADMAP Queue C): nq >= 4,096, where XLA calls an unfused
-    dot; the replace scorer where XLA unrolls both loops into scalar code
-    (m >= 2 and m nq (11 + 13 ns) <= 432), at 9 or more kept secondaries,
-    and at m 2..8 beyond ~300 queries, where LLVM keeps or partly unrolls
-    the column loop at sizes not modelled here."""
+    Left open (ROADMAP Queue C): the replace scorer where XLA unrolls both
+    loops into scalar code (m >= 2 and m nq (11 + 13 ns) <= 432), at 9-17
+    kept secondaries, past 32 kept secondaries from 22 queries on, and at
+    m 2..8 beyond ~300 queries, where LLVM keeps or partly unrolls the
+    column loop at sizes not modelled here."""
+    if 4 * nq >= _DOT_FUSION_BYTES:
+        return _gemv_order(scorer, nq, m)
     wide = m > 8
     kept = m > 1 and (wide or m * (ns + 1) > 16)
 
@@ -731,14 +775,21 @@ def _xla_sum_order(scorer: str, nq: int, m: int, ns: int
         # both) unrolls (1, 2, 21) and (1, 2, 22), which the totals there
         # rule out
         return chain("B" if m == 1 else "A")
+    if scorer == "rep" and ns >= 18:
+        # the kept secondaries' loop stays a loop, so the query loop is not
+        # vectorized: a chain.  Up to 32 kept secondaries LLVM unrolls the
+        # query loop up to 9 queries and keeps the candidate loop around it
+        # where m (nq + 1) > 12, and hoists CPU_ROW * ridr out of it (at
+        # one query XLA multiplies instead of a dot, and hoists it too);
+        # past 32 it hoists it at every query count up to 21
+        hoisted = nq == 1 or ns > 32 or (nq <= 9 and m * (nq + 1) > 12)
+        return chain("A" if m > 1 and hoisted else "B")
     if nq < 16:
         if m == 1 and ns <= 1 and nq >= 14:
             return (_Part(8, 1, nq, True, "B"),)
-        if scorer == "rep" and nq in (4, 8) and ns < 18:
+        if scorer == "rep" and nq in (4, 8):
             return (_Part(nq, 1, nq, True,
                           "A" if kept and 2 <= ns <= 8 else "B"),)
-        return chain("B")
-    if scorer == "rep" and ns >= 18:
         return chain("B")
     costs, max_ic, unroll, unroll_epi = _loop_class(scorer, m, ns)
     vf, ic, n, evf, n_epi = _vector_plan(nq, costs, int(2 <= m <= 8), max_ic)
@@ -777,14 +828,19 @@ def _xla_dot(q_w: torch.Tensor, new_q: torch.Tensor,
     accumulator into that sum instead: one FMA chain a lane, accumulator 0
     in iteration order, then each next one in the order 1, 0, 2, 3, ...  A
     part shorter than its vector masks its tail (products of 0).  A chain
-    part continues the total by FMA, query by query."""
+    part continues the total by FMA, query by query; a chain that is not
+    fused starts the last candidate's total with rounded products."""
     total = None
     b = 0
-    for lanes, accs, n, unrolled, _ in order:
+    for lanes, accs, n, unrolled, _, fused in order:
         w, x = q_w[b:b + n], new_q[b:b + n]
         b += n
-        if lanes == 1:
+        if lanes == 1 and fused:
             total = _fma_chain(w, x, init=total)
+            continue
+        if lanes == 1:                  # the GEMV's one leftover candidate
+            total = torch.cat([_fma_chain(w, x[:, :-1]),
+                               _mul_add_chain(w, x[:, -1:])])
             continue
         pad = -n % (lanes * accs)
         if pad:
